@@ -1,0 +1,159 @@
+"""Flash-attention forward: the Hopper kernel, its wrapper and its plain
+version (the port of ``repro/kernels/flash_attention.py``).
+
+The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+``_fa_kernel``.  It takes q/k/v in the model's own layout -- q
+``(B, Sq, H, hd)``, k/v ``(B, Sk, KV, hd)`` with their strides -- indexes
+the KV head of query head ``h`` as ``h // (H // KV)`` instead of
+broadcasting it, and returns ``o (B, Sq, H, hd)`` and the log-sum-exp
+``lse (B, H, Sq)`` in f32.
+
+The plain version is the blocked online-softmax forward of
+``ops._blocked_fwd`` (one f32 ``(acc, m, l)`` carry over KV blocks), which
+also returns ``lse``.  ``flash_attention`` runs the kernel for a CUDA
+tensor and the plain version for a CPU tensor; ``impl="plain"`` forces the
+plain version on either device (a test hook for comparing the two on the
+card).  A CUDA tensor never falls back: a wrong dtype, an unsupported shape
+or a failed launch raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import NEG_INF
+
+# launches of the CUDA kernel in this process (the wrapper's count)
+LAUNCHES = 0
+
+HEAD_DIMS = (32, 64, 128)
+
+
+def fit_block(blk: int, size: int) -> int:
+    """The reference's block fitting (``ops._fit_block``): halve until the
+    block divides ``size``.  Only the plain version tiles this way; the
+    kernel masks ragged edges itself."""
+    blk = min(blk, size)
+    while size % blk:
+        blk //= 2
+    return blk
+
+
+def blocked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, scale: float, block: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q/k/v (BH, S, D) -> out (BH, Sq, D), lse (BH, Sq) f32: online softmax
+    over KV blocks of ``block`` rows (``block`` divides Sk)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    assert sk % block == 0, (sk, block)
+    dev = q.device
+    qf = q.float()
+    qpos = torch.arange(sq, device=dev)
+    acc = torch.zeros((bh, sq, d), dtype=torch.float32, device=dev)
+    m = torch.full((bh, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((bh, sq), dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    for ki in range(sk // block):
+        kc = k[:, ki * block:(ki + 1) * block]
+        vc = v[:, ki * block:(ki + 1) * block]
+        # f32 accumulation of QK^T (preferred_element_type=f32)
+        s = torch.einsum("bqd,bkd->bqk", qf, kc.float()) * scale
+        if causal:
+            kpos = ki * block + torch.arange(block, device=dev)
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqk,bkd->bqd", p.to(v.dtype), vc).float()
+        m = m_new
+    l = torch.clamp_min(l, 1e-30)
+    return (acc / l[..., None]).to(q.dtype), m + torch.log(l)
+
+
+def _plain(q, k, v, causal, scale, kv_block):
+    """GQA broadcast to (B*H, S, hd) as ops.attention does, blocked_fwd, and
+    back to the kernel's output layouts."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qf = q.reshape(b, sq, kv, g, hd).permute(0, 2, 3, 1, 4) \
+        .reshape(b * h, sq, hd)
+    kf = k[:, :, :, None, :].expand(b, sk, kv, g, hd) \
+        .permute(0, 2, 3, 1, 4).reshape(b * h, sk, hd)
+    vf = v[:, :, :, None, :].expand(b, sk, kv, g, hd) \
+        .permute(0, 2, 3, 1, 4).reshape(b * h, sk, hd)
+    of, lse = blocked_fwd(qf, kf, vf, causal, scale, fit_block(kv_block, sk))
+    o = of.reshape(b, kv, g, sq, hd).permute(0, 3, 1, 2, 4) \
+        .reshape(b, sq, h, hd)
+    return o, lse.reshape(b, h, sq)
+
+
+def _check_cuda_inputs(q, k, v):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash attention kernel takes bf16; {name} is "
+                            f"{t.dtype}")
+        if t.dim() != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{name} must be 4-d with a contiguous head dim")
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"{name} rows must be 16-byte aligned for the "
+                             f"kernel's vector loads (strides {t.stride()})")
+    b, sq, h, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    if h % k.shape[2]:
+        raise ValueError(f"{h} query heads over {k.shape[2]} KV heads")
+
+
+def _launch(q, k, v, causal, scale):
+    global LAUNCHES
+    _check_cuda_inputs(q, k, v)
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mist_flash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, sq, sk, h, kv, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), int(causal), stream)
+    _build.check(err, "flash attention kernel")
+    LAUNCHES += 1
+    return o, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    kv_block: int = 512, impl: str = "kernel"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> o (B, Sq, H, hd),
+    lse (B, H, Sq) f32.
+
+    ``impl="kernel"``: the Hopper kernel for CUDA tensors (bf16 only), the
+    plain version for CPU tensors.  ``impl="plain"``: the plain version.
+    ``kv_block`` tiles the plain version only (the reference's TPU tile).
+    """
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if impl == "plain" or (impl == "kernel" and q.device.type == "cpu"):
+        return _plain(q, k, v, causal, scale, kv_block)
+    if impl != "kernel":
+        raise ValueError(f"impl {impl!r}: 'kernel' or 'plain'")
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return _launch(q, k, v, causal, scale)

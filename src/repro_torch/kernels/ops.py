@@ -1,0 +1,71 @@
+"""Kernel wrappers with implementation dispatch (the port of
+``repro/kernels/ops.py``).
+
+``attention(q, k, v, impl=...)`` on the model's GQA layout:
+  - "naive":   full S^2 softmax (ref.py), the no-FlashAttention baseline,
+               plain torch on every device.
+  - "blocked" and "pallas": flash attention.  On a CUDA tensor both run
+               the Hopper kernel ("blocked" is the reference's CPU stand-in
+               for its Pallas kernel); on a CPU tensor both run the plain
+               blocked version.
+
+``kernel_impl="plain"`` keeps "blocked"/"pallas" on the plain version on
+the card too: a test hook, not a fallback.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import fit_block, flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+
+DEFAULT_BLOCK = 512
+_fit_block = fit_block
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, impl: str = "blocked",
+              block: int = DEFAULT_BLOCK,
+              q_block: Optional[int] = None,
+              kv_block: Optional[int] = None,
+              scale: Optional[float] = None,
+              kernel_impl: str = "kernel") -> torch.Tensor:
+    """q (B,Sq,H,hd); k/v (B,Sk,KV,hd) with H = KV*G (GQA) -> (B,Sq,H,hd).
+
+    ``q_block``/``kv_block`` are the plan's TPU tiles: the plain blocked
+    version tiles KV by ``kv_block`` (fitted as the reference fits it); the
+    Hopper kernel uses its own 64 x 64 tiles (docs/port.md)."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if impl == "naive":
+        sk = k.shape[1]
+        qf = q.reshape(b, sq, kv, g, hd).permute(0, 2, 3, 1, 4) \
+            .reshape(b * h, sq, hd)
+        kf = k[:, :, :, None, :].expand(b, sk, kv, g, hd) \
+            .permute(0, 2, 3, 1, 4).reshape(b * h, sk, hd)
+        vf = v[:, :, :, None, :].expand(b, sk, kv, g, hd) \
+            .permute(0, 2, 3, 1, 4).reshape(b * h, sk, hd)
+        of = ref.naive_attention(qf, kf, vf, causal=causal, scale=scale)
+        return of.reshape(b, kv, g, sq, hd).permute(0, 3, 1, 2, 4) \
+            .reshape(b, sq, h, hd)
+    if impl not in ("blocked", "pallas"):
+        raise ValueError(f"attention impl {impl!r}")
+    out, _ = flash_attention(q, k, v, causal=causal, scale=scale,
+                             kv_block=kv_block if kv_block is not None
+                             else block, impl=kernel_impl)
+    return out
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, impl: str = "pallas",
+            eps: float = 1e-6, kernel_impl: str = "kernel") -> torch.Tensor:
+    """``impl="pallas"``: the RMSNorm kernel wrapper (the kernel on CUDA,
+    the plain version on the CPU); anything else: ``ref.rmsnorm_ref``."""
+    if impl == "pallas":
+        return rmsnorm_kernel(x, scale, eps=eps, impl=kernel_impl)
+    return ref.rmsnorm_ref(x, scale, eps)

@@ -1,0 +1,104 @@
+"""Serving launcher: batched prefill + greedy decode against the KV cache
+(the port of ``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
+        --smoke --batch 4 --prompt-len 32 --gen 16 [--device cpu]
+
+Runs on ``cuda`` unless ``--device cpu`` is given.  ``--tune`` and
+``--continuous`` wait for their slices of the port.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.models.common import resolve_device
+
+
+def generate(model, params, prompts: torch.Tensor, gen: int, plan,
+             max_len: Optional[int] = None) -> torch.Tensor:
+    """Greedy decode ``gen`` tokens for a batch of fixed-length prompts
+    (B, plen) -> (B, gen) int32.  ``max_len`` pins the cache horizon
+    (default: plen + gen)."""
+    from repro_torch.models.zoo import pad_caches
+    from repro_torch.training.step import make_prefill_step, make_serve_step
+
+    resolve_device(model.device)
+    b, plen = prompts.shape
+    if max_len is None:
+        max_len = plen + gen
+    if plen + gen > max_len:
+        raise ValueError(f"prompt {plen} + gen {gen} exceeds max_len "
+                         f"{max_len}")
+    prefill = make_prefill_step(model, plan, return_cache=True)
+    serve = make_serve_step(model, plan, batch=b, max_len=max_len)
+    with torch.inference_mode():
+        logits, caches = prefill.fn(params, {"tokens": prompts})
+        caches = pad_caches(caches, max_len - plen)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        out = [tok]
+        for _ in range(gen - 1):
+            logits, caches = serve.fn(params, tok, caches)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--tune", action="store_true",
+                    help="(not ported yet) pick the plan via the 'serve' "
+                         "search space")
+    ap.add_argument("--continuous", action="store_true",
+                    help="(not ported yet) serve through the continuous-"
+                         "batching engine")
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--page-size", type=int, default=8)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.tune:
+        raise SystemExit("--tune is not ported yet: the port has no tuner "
+                         "(ROADMAP.md, queue A)")
+    if args.continuous:
+        raise SystemExit("--continuous is not ported yet: continuous "
+                         "batching is a later slice (ROADMAP.md, queue A)")
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.plan import single_stage_plan
+    from repro_torch.models.zoo import build_model
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    model = build_model(cfg, device)
+    plan = single_stage_plan(cfg.num_layers, dp=1, tp=1, micro_batch=1,
+                             grad_accum=1, zero=0, ckpt_layers=0)
+    params, _ = model.init(torch.Generator(device).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=torch.Generator(device).manual_seed(1),
+                            device=device, dtype=torch.int32)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    toks = generate(model, params, prompts, args.gen, plan)
+    first = toks[0, :8].tolist()  # syncs the device
+    dt = time.perf_counter() - t0
+    total = args.batch * args.gen
+    print(f"generated {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s) "
+          f"on {device}; first row: {first}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

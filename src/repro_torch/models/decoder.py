@@ -1,0 +1,161 @@
+"""Stacked decoder LM, dense GQA blocks (the port of
+``repro/models/decoder.py``).
+
+Init / prefill / decode over flat-dict params with stacked-``L`` tensors;
+the layer loop is a Python loop over views of layer ``i``.  MoE, Mamba2 and
+mLSTM blocks, the loss and remat segmentation wait for their slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.common import (Axes, ExecConfig, ParamBuilder, Params,
+                                       StackedBuilder, layer, subtree)
+
+# ---------------------------------------------------------------------------
+# Block kinds
+# ---------------------------------------------------------------------------
+
+
+def block_kind(cfg: ArchConfig) -> str:
+    if cfg.family == "ssm":
+        raise NotImplementedError("Mamba2 / mLSTM blocks are not ported yet "
+                                  "(ROADMAP.md, queue A: remaining families)")
+    if cfg.is_moe:
+        raise NotImplementedError("MoE blocks are not ported yet "
+                                  "(ROADMAP.md, queue A: MoE)")
+    return "attn"
+
+
+def init_block(b: StackedBuilder, cfg: ArchConfig):
+    block_kind(cfg)
+    L.init_norm(b.scope("ln1"), cfg)
+    L.init_attention(b.scope("attn"), cfg)
+    L.init_norm(b.scope("ln2"), cfg)
+    L.init_mlp(b.scope("mlp"), cfg)
+
+
+def apply_block(p: Params, h: torch.Tensor, cfg: ArchConfig, ec: ExecConfig,
+                cache: Optional[Dict] = None, mask_kind: str = "causal",
+                return_cache: bool = False
+                ) -> Tuple[torch.Tensor, float, Optional[Dict]]:
+    """One dense attention block.  Returns (h, aux_loss, new_cache); the aux
+    loss of a dense block is 0."""
+    block_kind(cfg)
+    hn = L.norm(subtree(p, "ln1"), h, cfg, impl=ec.kernel_impl)
+    fresh = return_cache and cache is None
+    a, new_cache = L.attention(subtree(p, "attn"), hn, cfg, ec, cache=cache,
+                               mask_kind=mask_kind, return_kv=fresh)
+    if fresh:
+        new_cache = _fresh_attn_cache(new_cache, hn.shape[1])
+    h = h + a
+    hn = L.norm(subtree(p, "ln2"), h, cfg, impl=ec.kernel_impl)
+    h = h + L.mlp(subtree(p, "mlp"), hn, cfg)
+    return h, 0.0, new_cache
+
+
+def _fresh_attn_cache(kv: Dict, s: int) -> Dict:
+    """A populated KV cache from a prefill pass (for the serving handoff).
+    The reference recomputes the rotated k and v from the block input; the
+    port keeps the ones attention just computed, which are the same
+    values."""
+    k = kv["k"]
+    return {"k": k, "v": kv["v"],
+            "pos": torch.tensor(s, dtype=torch.int32, device=k.device)}
+
+
+# ---------------------------------------------------------------------------
+# LM assembly
+# ---------------------------------------------------------------------------
+
+
+def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
+            dtype=torch.bfloat16, device="cpu") -> Tuple[Params, Axes]:
+    pb = ParamBuilder(generator, dtype, device)
+    pb.add("embed/w", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+           scale=0.02)
+    init_block(StackedBuilder(pb, "layers", cfg.num_layers), cfg)
+    L.init_norm(pb.scope("final_norm"), cfg)
+    if not cfg.tie_embeddings:
+        pb.add("lm_head/w", (cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+               scale=1.0 / math.sqrt(cfg.d_model))
+    return pb.params, pb.axes
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+                 ec: ExecConfig) -> torch.Tensor:
+    return params["embed/w"][tokens].to(ec.compute_dtype)
+
+
+def unembed_matrix(params: Params, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed/w"].T
+    return params["lm_head/w"]
+
+
+def _logits(params: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    # the product is rounded to h's dtype before widening, as in the reference
+    return (h @ unembed_matrix(params, cfg)).float()
+
+
+def run_layers(params: Params, x: torch.Tensor, cfg: ArchConfig,
+               ec: ExecConfig) -> Tuple[torch.Tensor, float]:
+    """All layers then the final norm.  Returns (h, aux_loss)."""
+    stacked = subtree(params, "layers")
+    h, aux = x, 0.0
+    for i in range(cfg.num_layers):
+        h, a, _ = apply_block(layer(stacked, i), h, cfg, ec)
+        aux += a
+    return L.norm(subtree(params, "final_norm"), h, cfg,
+                  impl=ec.kernel_impl), aux
+
+
+def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
+               cfg: ArchConfig, ec: ExecConfig, return_cache: bool = False):
+    """Forward over the prompt; returns last-position logits (+ the stacked
+    caches ``{"k", "v": (L, B, S, KV, hd), "pos": (L,) int32}``)."""
+    x = embed_tokens(params, batch["tokens"], cfg, ec)
+    if not return_cache:
+        h, _ = run_layers(params, x, cfg, ec)
+        return _logits(params, h[:, -1:], cfg)
+    stacked = subtree(params, "layers")
+    h, caches = x, []
+    for i in range(cfg.num_layers):
+        h, _, nc = apply_block(layer(stacked, i), h, cfg, ec,
+                               return_cache=True)
+        caches.append(nc)
+    h = L.norm(subtree(params, "final_norm"), h, cfg, impl=ec.kernel_impl)
+    stacked_caches = {key: torch.stack([c[key] for c in caches])
+                      for key in ("k", "v", "pos")}
+    return _logits(params, h[:, -1:], cfg), stacked_caches
+
+
+def lm_decode(params: Params, tokens: torch.Tensor, caches: Dict,
+              cfg: ArchConfig, ec: ExecConfig):
+    """One decode step: tokens (B,1) + stacked caches -> (logits, caches).
+
+    The k/v buffers of ``caches`` are written IN PLACE (one row per layer at
+    ``pos``); the returned caches hold the same buffers and ``pos + 1``."""
+    x = embed_tokens(params, tokens, cfg, ec)
+    stacked = subtree(params, "layers")
+    h = x
+    for i in range(cfg.num_layers):
+        lc = {"k": caches["k"][i], "v": caches["v"][i],
+              "pos": caches["pos"][i]}
+        h, _, _ = apply_block(layer(stacked, i), h, cfg, ec, cache=lc)
+    h = L.norm(subtree(params, "final_norm"), h, cfg, impl=ec.kernel_impl)
+    return _logits(params, h, cfg), {"k": caches["k"], "v": caches["v"],
+                                     "pos": caches["pos"] + 1}
+
+
+def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device="cpu") -> Dict:
+    one = L.init_self_kv_cache(cfg, batch, max_len, dtype, device)
+    # real (L, ...) buffers, not broadcast views: decode writes them in place
+    return {k: v.unsqueeze(0).repeat((cfg.num_layers,) + (1,) * v.dim())
+            for k, v in one.items()}

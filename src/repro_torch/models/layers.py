@@ -1,0 +1,242 @@
+"""Core layers: norms, rotary embeddings, the gated MLP and GQA attention
+(the port of ``repro/models/layers.py``).
+
+Every layer is an (init, apply) pair over flat-dict params.  Attention
+covers prefill (full sequence, ``cache=None``) and scalar-``pos`` decode
+(one token against a KV cache).  MLA, cross-attention, per-request
+positions and the int8 KV cache wait for their slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.models.common import ExecConfig, Params, ScopedBuilder
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(b: ScopedBuilder, cfg: ArchConfig):
+    b.add("scale", (cfg.d_model,), ("embed",), init="ones")
+    if cfg.norm_type == "layernorm":
+        b.add("bias", (cfg.d_model,), ("embed",), init="zeros")
+
+
+def norm(p: Params, x: torch.Tensor, cfg: ArchConfig,
+         impl: str = "kernel") -> torch.Tensor:
+    """RMSNorm goes through the RMSNorm kernel wrapper (``impl`` as in
+    ``kernels.rmsnorm.rmsnorm``); LayerNorm stays plain torch."""
+    if cfg.norm_type == "rmsnorm":
+        return rmsnorm(x, p["scale"], eps=1e-6, impl=impl)
+    dtype = x.dtype
+    xf = x.float()
+    xf = xf - xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + 1e-6) * p["scale"].float() + p["bias"].float()
+    return xf.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(positions: torch.Tensor, dim: int, theta: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> cos/sin (..., dim//2), f32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    inv = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x (..., S, H, d); cos/sin (..., S, d//2) broadcast over heads.  The
+    split-halves convention: (x1, x2) are the two halves of the last dim."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    c, s = cos[..., None, :], sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(b: ScopedBuilder, cfg: ArchConfig):
+    if not cfg.mlp_gated:
+        raise NotImplementedError("the ungated MLP is not ported yet "
+                                  "(ROADMAP.md, queue A: remaining families)")
+    d, f = cfg.d_model, cfg.d_ff
+    b.add("wg", (d, f), ("embed", "mlp"))
+    b.add("wu", (d, f), ("embed", "mlp"))
+    b.add("wd", (f, d), ("mlp", "embed"))
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
+
+
+def mlp(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The gated MLP: act(x Wg) * (x Wu), then Wd."""
+    return (_act(x @ p["wg"], cfg.act) * (x @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+
+def init_attention(b: ScopedBuilder, cfg: ArchConfig):
+    if cfg.attention_type == "mla" or cfg.qkv_bias:
+        raise NotImplementedError("MLA attention and qkv biases are not "
+                                  "ported yet (ROADMAP.md, queue A: "
+                                  "remaining families)")
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b.add("wq", (d, h, hd), ("embed", "heads", "head_dim"),
+          scale=1.0 / math.sqrt(d))
+    b.add("wk", (d, kv, hd), ("embed", "kv_heads", "head_dim"),
+          scale=1.0 / math.sqrt(d))
+    b.add("wv", (d, kv, hd), ("embed", "kv_heads", "head_dim"),
+          scale=1.0 / math.sqrt(d))
+    b.add("wo", (h, hd, d), ("heads", "head_dim", "embed"),
+          scale=1.0 / math.sqrt(h * hd))
+
+
+def _sdpa(q, k, v, cfg: ArchConfig, mask_kind: str, kv_valid_len=None,
+          acc_dtype=torch.float32) -> torch.Tensor:
+    """q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd) -> (B,Sq,KV,G,hd).  f32 softmax.
+
+    acc_dtype: the QK^T accumulation type.  Decode passes the cache dtype:
+    the product is rounded to it before the f32 softmax, as in the
+    reference."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q.to(acc_dtype),
+                          k.to(acc_dtype)).float() * scale
+    sq, sk = q.shape[1], k.shape[1]
+    dev = q.device
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    if mask_kind == "causal":
+        mask = (torch.arange(sq, device=dev)[:, None]
+                >= torch.arange(sk, device=dev)[None, :])
+        scores = torch.where(mask, scores, neg)
+    if kv_valid_len is not None:
+        valid = torch.arange(sk, device=dev) < kv_valid_len
+        scores = torch.where(valid, scores, neg)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+
+
+def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
+              exec_cfg: ExecConfig, *, mask_kind: str = "causal",
+              cache: Optional[Dict] = None,
+              return_kv: bool = False
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """GQA attention.  Prefill: ``cache=None``; with ``return_kv`` the second
+    result is the rotated ``{"k", "v"}`` this pass computed (the serving
+    cache's contents).  Decode: ``cache`` holds ``{"k","v","pos"}`` with a
+    scalar ``pos`` and x is (B,1,D); the second result is the updated cache,
+    whose k/v are the input buffers written in place (``cache_write``)."""
+    if cfg.attention_type == "mla" or cfg.qkv_bias:
+        raise NotImplementedError("MLA attention and qkv biases are not "
+                                  "ported yet (ROADMAP.md, queue A: "
+                                  "remaining families)")
+    b_, s, d = x.shape
+    h, kv, hd, g = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.q_per_kv
+    q = (x @ p["wq"].reshape(d, h * hd)).view(b_, s, h, hd)
+    k = (x @ p["wk"].reshape(d, kv * hd)).view(b_, s, kv, hd)
+    v = (x @ p["wv"].reshape(d, kv * hd)).view(b_, s, kv, hd)
+    if cache is not None and "pos" not in cache:
+        raise NotImplementedError("cross-attention caches are not ported yet "
+                                  "(ROADMAP.md, queue A: remaining families)")
+
+    use_rope = mask_kind == "causal"
+    if use_rope:
+        if cache is None:
+            pos_q = torch.arange(s, device=x.device)[None, :]
+        elif cache["pos"].dim() == 0:
+            pos_q = cache["pos"].reshape(1, 1)
+        else:
+            raise NotImplementedError(
+                "per-request decode positions (continuous batching) are not "
+                "ported yet (ROADMAP.md)")
+        cos_q, sin_q = rope_freqs(pos_q, hd, cfg.rope_theta)
+        q = apply_rope(q, cos_q, sin_q)
+
+    new_cache = None
+    if cache is None:
+        if use_rope:
+            cos_k, sin_k = rope_freqs(torch.arange(s, device=x.device)[None, :],
+                                      hd, cfg.rope_theta)
+            k = apply_rope(k, cos_k, sin_k)
+        if exec_cfg.attn_impl != "naive":
+            ctx = kops.attention(q, k, v, causal=(mask_kind == "causal"),
+                                 impl=exec_cfg.attn_impl,
+                                 q_block=exec_cfg.attn_q_block,
+                                 kv_block=exec_cfg.attn_kv_block,
+                                 kernel_impl=exec_cfg.kernel_impl)
+        else:
+            ctx = _sdpa(q.view(b_, s, kv, g, hd), k, v, cfg, mask_kind)
+        if return_kv:
+            new_cache = {"k": k, "v": v}
+    else:  # self-attention decode, scalar pos
+        pos = cache["pos"]
+        if use_rope:
+            cos_k, sin_k = rope_freqs(pos.reshape(1, 1), hd, cfg.rope_theta)
+            k = apply_rope(k, cos_k, sin_k)
+        if cache["k"].dtype == torch.int8:
+            raise NotImplementedError("the int8 KV cache is not ported yet "
+                                      "(ROADMAP.md)")
+        ck = cache_write(cache["k"], k, pos, 1, exec_cfg)
+        cv = cache_write(cache["v"], v, pos, 1, exec_cfg)
+        new_cache = {"k": ck, "v": cv, "pos": pos + 1}
+        qg = q.view(b_, s, kv, g, hd).to(ck.dtype)
+        ctx = _sdpa(qg, ck, cv, cfg, "full", kv_valid_len=pos + 1,
+                    acc_dtype=ck.dtype)
+
+    ctx = ctx.reshape(b_, s, h * hd)
+    return ctx @ p["wo"].reshape(h * hd, d), new_cache
+
+
+def cache_write(buf: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
+                seq_dim: int, exec_cfg: ExecConfig) -> torch.Tensor:
+    """Write ``upd`` into the cache at scalar ``pos`` along ``seq_dim`` --
+    the reference's "dus" (dynamic-update-slice) form -- IN PLACE, and
+    return ``buf``.  The reference returns a new array; writing in place
+    keeps one cache buffer for the whole generation.  ``pos`` stays a
+    device tensor, so the write needs no host sync."""
+    if pos.dim() != 0:
+        raise NotImplementedError("per-request positions (the one-hot "
+                                  "per-row write) are not ported yet")
+    if exec_cfg.cache_update != "dus":
+        raise NotImplementedError(f"cache_update {exec_cfg.cache_update!r} "
+                                  "waits for the multi-device slice")
+    idx = pos.long().reshape(1) + torch.arange(upd.shape[seq_dim],
+                                               device=buf.device)
+    buf.index_copy_(seq_dim, idx, upd.to(buf.dtype))
+    return buf
+
+
+def init_self_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
+                       dtype=torch.bfloat16, device="cpu") -> Dict:
+    if cfg.attention_type == "mla" or dtype == torch.int8:
+        raise NotImplementedError("MLA and int8 KV caches are not ported yet")
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
