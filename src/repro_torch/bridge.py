@@ -1,7 +1,9 @@
 """Weights and serving state across the two packages, through numpy.
 
-The reference's flat param dict and stacked ``{k, v, pos}`` cache tree
-cross by name with identical shapes.  numpy has no bf16, so bf16 crosses as
+The reference's flat param dict (stacked names included: ``(L, ...)`` and
+the hybrid's ``(groups, per, ...)``) and its cache trees (the dense
+``{k, v, pos}`` and the hybrid's nested ``{"attn", "mamba"}``) cross by
+name with identical shapes.  numpy has no bf16, so bf16 crosses as
 f32 (exact) and is rounded back here (exact again).
 """
 from __future__ import annotations
@@ -42,16 +44,25 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]
     return {n: _to_numpy(t) for n, t in params.items()}
 
 
-def caches_from_numpy(tree: Mapping[str, np.ndarray], *,
-                      dtype: Optional[torch.dtype] = None,
-                      device: Device = "cpu") -> Dict[str, torch.Tensor]:
-    """The stacked ``{k, v, pos}`` cache tree: k/v cast to ``dtype``, pos
-    kept int32."""
-    out = {key: _to_torch(tree[key], dtype, device) for key in ("k", "v")}
-    out["pos"] = _to_torch(np.asarray(tree["pos"], np.int32), None, device)
+def caches_from_numpy(tree: Mapping, *, dtype: Optional[torch.dtype] = None,
+                      device: Device = "cpu") -> Dict:
+    """A cache tree -- dense ``{k, v, pos}`` or the hybrid's ``{"attn":
+    {k, v, pos}, "mamba": {conv, ssm}}`` -- leaf by leaf: ``pos`` as int32,
+    the SSM state ``ssm`` as f32 (it is f32 in both packages), every other
+    floating leaf cast to ``dtype``."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            out[key] = caches_from_numpy(val, dtype=dtype, device=device)
+        elif key == "pos":
+            out[key] = _to_torch(np.asarray(val, np.int32), None, device)
+        else:
+            out[key] = _to_torch(val, torch.float32 if key == "ssm"
+                                 else dtype, device)
     return out
 
 
-def caches_to_numpy(caches: Mapping[str, torch.Tensor]
-                    ) -> Dict[str, np.ndarray]:
-    return {key: _to_numpy(caches[key]) for key in ("k", "v", "pos")}
+def caches_to_numpy(caches: Mapping) -> Dict:
+    """The same tree with numpy leaves; bf16 becomes f32."""
+    return {key: caches_to_numpy(val) if isinstance(val, Mapping)
+            else _to_numpy(val) for key, val in caches.items()}

@@ -23,7 +23,10 @@
 // broadcasting it.  Causal blocks stop at their last query row, so tiles
 // above the diagonal are skipped.  Ragged Sq/Sk are masked in the kernel.
 // Three 64-row bf16 tiles at hd 128 take 51 KB, past the 48 KB static
-// limit, so shared memory is dynamic (cudaFuncSetAttribute).  Not yet
+// limit, so shared memory is dynamic (cudaFuncSetAttribute).  Head dims 32,
+// 64, 80 (zamba2's 2560 / 32) and 128: each is a multiple of 16 (the mma's
+// k16 step) and its padded row of hd + 8 bf16 is a multiple of 16 bytes,
+// so the 16-byte vector loads of load_tile stay aligned.  Not yet
 // done (later work): wgmma, TMA loads, a multi-stage K/V ring, warp
 // specialisation.
 
@@ -288,6 +291,9 @@ extern "C" int mist_flash_attn_fwd(
                         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, s);
     case 64:
       return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb, q_ss, q_sh,
+                        k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, s);
+    case 80:
+      return launch<80>(q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb, q_ss, q_sh,
                         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, s);
     case 128:
       return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb, q_ss, q_sh,

@@ -29,7 +29,7 @@ from repro_torch.kernels.ref import NEG_INF
 # launches of the CUDA kernel in this process (the wrapper's count)
 LAUNCHES = 0
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 
 
 def fit_block(blk: int, size: int) -> int:

@@ -9,19 +9,22 @@
                for its Pallas kernel); on a CPU tensor both run the plain
                blocked version.
 
-``kernel_impl="plain"`` keeps "blocked"/"pallas" on the plain version on
-the card too: a test hook, not a fallback.
+``rmsnorm`` and ``ssd_scan`` run their Hopper kernels on CUDA tensors and
+their plain versions on CPU tensors.  ``kernel_impl="plain"`` keeps every
+kernel op on its plain version on the card too: a test hook, not a
+fallback.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import fit_block, flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan as ssd_scan_kernel
 
 DEFAULT_BLOCK = 512
 _fit_block = fit_block
@@ -69,3 +72,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, impl: str = "pallas",
     if impl == "pallas":
         return rmsnorm_kernel(x, scale, eps=eps, impl=kernel_impl)
     return ref.rmsnorm_ref(x, scale, eps)
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bb: torch.Tensor, cc: torch.Tensor, *, chunk: int = 256,
+             return_state: bool = False, kernel_impl: str = "kernel"
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The SSD chunk scan (the kernel wrapper ``ssd_scan.ssd_scan``).
+    Returns ``(y, hT)`` with ``return_state``, else ``(y, None)`` as the
+    reference does; the reference's TPU kernel has no final state, so its
+    serving handoff recomputes it in jnp, while this kernel always writes
+    it."""
+    y, hT = ssd_scan_kernel(xh, dt, a, bb, cc, chunk=chunk, impl=kernel_impl)
+    return y, hT if return_state else None

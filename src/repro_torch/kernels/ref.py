@@ -31,3 +31,23 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_ref(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            bb: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
+    """Exact sequential SSD recurrence (the strongest oracle -- independent
+    of any chunking algebra).  xh (B,S,H,P), dt (B,S,H) f32, a (H,) f32,
+    bb/cc (B,S,H,N) -> y (B,S,H,P)."""
+    bsz, s, h, p = xh.shape
+    n = bb.shape[-1]
+    hstate = torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=xh.device)
+    ys = []
+    for t in range(s):
+        x_t, dt_t = xh[:, t].float(), dt[:, t]
+        b_t, c_t = bb[:, t].float(), cc[:, t].float()
+        dec = torch.exp(dt_t * a)                                # (B,H)
+        hstate = hstate * dec[..., None, None] + \
+            (dt_t[..., None] * x_t)[..., None] * b_t[..., None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", hstate, c_t))
+    return torch.stack(ys, 1).to(xh.dtype)

@@ -1,7 +1,8 @@
 """Shared model machinery (the port of ``repro/models/common.py``).
 
 Params are a *flat dict* ``{"path/to/param": Tensor}`` with the reference's
-names and stacked-layer shapes (leading ``L`` dim), so weights cross
+names and stacked-layer shapes (leading ``L`` dim, or ``(groups, per)``
+dims for the hybrid's Mamba stack), so weights cross
 between the two packages by name (``repro_torch.bridge``).  The layer loop
 is a Python loop over views ``w[i]`` of the stacked tensors.
 
@@ -100,7 +101,8 @@ class ParamBuilder:
         out = torch.empty(shape, dtype=dtype, device=self.device)
         # stacked params are drawn one layer at a time so the f32 draw stays
         # one layer large at full width
-        rows = out if len(shape) >= 3 else out.unsqueeze(0)
+        rows = out.view(-1, *shape[-2:]) if len(shape) >= 3 \
+            else out.unsqueeze(0)
         for r in rows:
             r.copy_(torch.randn(r.shape, generator=self.generator,
                                 dtype=torch.float32, device=self.device)
@@ -148,18 +150,26 @@ class ScopedBuilder:
 
 
 class StackedBuilder(ScopedBuilder):
-    """Adds params with a leading stacked-layer dim."""
+    """Adds params with leading stacked-layer dim(s).
 
-    def __init__(self, parent, prefix: str, num_layers: int):
+    ``num_layers`` may be an int or a tuple (nested stacks, e.g. Zamba2's
+    (groups, layers-per-group)); the leading axes are named ``layers``,
+    ``layers1``, ... as in the reference."""
+
+    def __init__(self, parent, prefix: str,
+                 num_layers: Union[int, Tuple[int, ...]]):
         super().__init__(parent, prefix)
-        self._L = (num_layers,)
+        self._L = (num_layers,) if isinstance(num_layers, int) \
+            else tuple(num_layers)
 
     def add(self, name, shape, axes, **kw):
-        super().add(name, self._L + tuple(shape), ("layers",) + tuple(axes),
+        lead_axes = tuple(f"layers{i if i else ''}"
+                          for i in range(len(self._L)))
+        super().add(name, self._L + tuple(shape), lead_axes + tuple(axes),
                     **kw)
 
     def scope(self, prefix: str):
-        return StackedBuilder(self._p, f"{self._prefix}/{prefix}", self._L[0])
+        return StackedBuilder(self._p, f"{self._prefix}/{prefix}", self._L)
 
 
 # -- flat-dict utilities -----------------------------------------------------

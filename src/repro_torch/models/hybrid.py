@@ -1,0 +1,173 @@
+"""Zamba2-style hybrid: Mamba2 backbone in groups, with one *shared*
+attention+MLP block applied at the start of every group, fed by a
+per-group projection of concat(hidden, original embedding) (the port of
+``repro/models/hybrid.py``).  [arXiv:2411.15242]
+
+Serving only: the layer loops are plain Python loops over views of the
+``(groups, per)`` stacked Mamba params; the loss and the remat-segmented
+scan wait for the training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
+from repro_torch.models.common import (Axes, ExecConfig, ParamBuilder, Params,
+                                       StackedBuilder, layer, subtree)
+from repro_torch.models.decoder import _fresh_attn_cache, _logits, embed_tokens
+
+
+def group_shape(cfg: ArchConfig) -> Tuple[int, int]:
+    per = cfg.shared_attn_every
+    assert cfg.num_layers % per == 0, (cfg.num_layers, per)
+    return cfg.num_layers // per, per
+
+
+def init_hybrid(cfg: ArchConfig, generator: Optional[torch.Generator],
+                dtype=torch.bfloat16, device="cpu") -> Tuple[Params, Axes]:
+    pb = ParamBuilder(generator, dtype, device)
+    d = cfg.d_model
+    ng, per = group_shape(cfg)
+    pb.add("embed/w", (cfg.vocab_size, d), ("vocab", "embed"), scale=0.02)
+    # per-group input projection for the shared block: concat(h, x0) -> d
+    gb = StackedBuilder(pb, "groups", ng)
+    gb.add("in_proj", (2 * d, d), ("embed", None), scale=1.0 / math.sqrt(2 * d))
+    # shared attention + MLP block (one set of weights, applied ng times)
+    sb = pb.scope("shared")
+    L.init_norm(sb.scope("ln1"), cfg)
+    L.init_attention(sb.scope("attn"), cfg)
+    L.init_norm(sb.scope("ln2"), cfg)
+    L.init_mlp(sb.scope("mlp"), cfg)
+    # mamba backbone, stacked (groups, per-group)
+    mb = StackedBuilder(pb, "mamba", (ng, per))
+    L.init_norm(mb.scope("ln"), cfg)
+    SSM.init_mamba2(mb.scope("mixer"), cfg)
+    L.init_norm(pb.scope("final_norm"), cfg)
+    pb.add("lm_head/w", (d, cfg.vocab_size), ("embed", "vocab"),
+           scale=1.0 / math.sqrt(d))
+    return pb.params, pb.axes
+
+
+def _shared_block(shared: Params, gin: torch.Tensor, h: torch.Tensor,
+                  x0: torch.Tensor, cfg: ArchConfig, ec: ExecConfig,
+                  cache: Optional[Dict] = None, return_cache: bool = False):
+    """Apply the shared attention block; gin is this group's in-proj.  A
+    fresh cache (``return_cache`` without ``cache``) keeps the k/v that
+    attention computed."""
+    z = torch.cat([h, x0], dim=-1) @ gin
+    zn = L.norm(subtree(shared, "ln1"), z, cfg, impl=ec.kernel_impl)
+    fresh = return_cache and cache is None
+    a, new_cache = L.attention(subtree(shared, "attn"), zn, cfg, ec,
+                               cache=cache, return_kv=fresh)
+    if fresh:
+        new_cache = _fresh_attn_cache(new_cache, zn.shape[1])
+    z = z + a
+    zn = L.norm(subtree(shared, "ln2"), z, cfg, impl=ec.kernel_impl)
+    z = z + L.mlp(subtree(shared, "mlp"), zn, cfg)
+    return h + z, new_cache
+
+
+def _mamba_layer(lp: Params, h: torch.Tensor, cfg: ArchConfig,
+                 ec: ExecConfig, cache=None, return_state=False):
+    hn = L.norm(subtree(lp, "ln"), h, cfg, impl=ec.kernel_impl)
+    m, nc = SSM.mamba2_mixer(subtree(lp, "mixer"), hn, cfg, ec, cache=cache,
+                             return_state=return_state)
+    return h + m, nc
+
+
+def _forward(params: Params, x: torch.Tensor, cfg: ArchConfig,
+             ec: ExecConfig, return_cache: bool):
+    """Every group (shared block, then its Mamba layers), then the final
+    norm.  Returns (h, caches or None)."""
+    ng, per = group_shape(cfg)
+    shared = subtree(params, "shared")
+    mamba = subtree(params, "mamba")
+    gin = params["groups/in_proj"]
+    h, attn_c, mamba_c = x, [], []
+    for gi in range(ng):
+        h, ac = _shared_block(shared, gin[gi], h, x, cfg, ec,
+                              return_cache=return_cache)
+        attn_c.append(ac)
+        group = layer(mamba, gi)
+        for li in range(per):
+            h, mc = _mamba_layer(layer(group, li), h, cfg, ec,
+                                 return_state=return_cache)
+            mamba_c.append(mc)
+    h = L.norm(subtree(params, "final_norm"), h, cfg, impl=ec.kernel_impl)
+    if not return_cache:
+        return h, None
+    caches = {
+        "attn": {key: torch.stack([c[key] for c in attn_c])
+                 for key in ("k", "v", "pos")},
+        "mamba": {key: torch.stack([c[key] for c in mamba_c])
+                  .unflatten(0, (ng, per)) for key in ("conv", "ssm")},
+    }
+    return h, caches
+
+
+def run_hybrid_layers(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                      ec: ExecConfig) -> torch.Tensor:
+    """Prefill forward over all groups, then the final norm."""
+    return _forward(params, x, cfg, ec, return_cache=False)[0]
+
+
+def hybrid_prefill(params: Params, batch: Dict[str, torch.Tensor],
+                   cfg: ArchConfig, ec: ExecConfig,
+                   return_cache: bool = False):
+    """Forward over the prompt; returns last-position logits (+ the caches
+    ``{"attn": {"k", "v": (G, B, S, KV, hd), "pos": (G,)}, "mamba":
+    {"conv": (G, per, B, K-1, convdim), "ssm": (G, per, B, H, P, N) f32}}``)."""
+    x = embed_tokens(params, batch["tokens"], cfg, ec)
+    if not return_cache:
+        h = run_hybrid_layers(params, x, cfg, ec)
+        return _logits(params, h[:, -1:], cfg)
+    h, caches = _forward(params, x, cfg, ec, return_cache=True)
+    return _logits(params, h[:, -1:], cfg), caches
+
+
+def hybrid_decode(params: Params, tokens: torch.Tensor, caches: Dict,
+                  cfg: ArchConfig, ec: ExecConfig):
+    """One decode step: tokens (B,1) + caches -> (logits, caches).
+
+    Every buffer of ``caches`` is written IN PLACE (the attention k/v row at
+    ``pos``, each layer's conv window and SSM state); the returned caches
+    hold the same buffers and ``pos + 1``."""
+    ng, per = group_shape(cfg)
+    x = embed_tokens(params, tokens, cfg, ec)
+    shared = subtree(params, "shared")
+    mamba = subtree(params, "mamba")
+    gin = params["groups/in_proj"]
+    ac, mc = caches["attn"], caches["mamba"]
+    h = x
+    for gi in range(ng):
+        gc = {"k": ac["k"][gi], "v": ac["v"][gi], "pos": ac["pos"][gi]}
+        h, _ = _shared_block(shared, gin[gi], h, x, cfg, ec, cache=gc)
+        group = layer(mamba, gi)
+        for li in range(per):
+            lc = {"conv": mc["conv"][gi, li], "ssm": mc["ssm"][gi, li]}
+            h, nc = _mamba_layer(layer(group, li), h, cfg, ec, cache=lc)
+            lc["conv"].copy_(nc["conv"])
+            lc["ssm"].copy_(nc["ssm"])
+    h = L.norm(subtree(params, "final_norm"), h, cfg, impl=ec.kernel_impl)
+    new_caches = {"attn": {"k": ac["k"], "v": ac["v"], "pos": ac["pos"] + 1},
+                  "mamba": mc}
+    return _logits(params, h, cfg), new_caches
+
+
+def init_hybrid_caches(cfg: ArchConfig, batch: int, max_len: int,
+                       dtype=torch.bfloat16, device="cpu") -> Dict:
+    ng, per = group_shape(cfg)
+    attn_c = L.init_self_kv_cache(cfg, batch, max_len, dtype, device)
+    mamba_c = SSM.init_mamba2_cache(cfg, batch, dtype, device)
+    # real stacked buffers, not broadcast views: decode writes them in place
+    return {
+        "attn": {k: v.unsqueeze(0).repeat((ng,) + (1,) * v.dim())
+                 for k, v in attn_c.items()},
+        "mamba": {k: v[None, None].repeat((ng, per) + (1,) * v.dim())
+                  for k, v in mamba_c.items()},
+    }

@@ -1,15 +1,25 @@
 """Model registry (the port of ``repro/models/zoo.py``): the uniform
-init / prefill / decode / caches interface, dense decoders only for now."""
+init / prefill / decode / caches interface over the ported families --
+dense decoders and the Zamba2 hybrid."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, get_arch
 from repro_torch.models import decoder as DEC
+from repro_torch.models import hybrid as HY
 from repro_torch.models.common import ExecConfig, Params, resolve_device
+
+# family -> (init, prefill, decode, init_caches), one signature each
+_FAMILIES = {
+    "dense": (DEC.init_lm, DEC.lm_prefill, DEC.lm_decode, DEC.init_lm_caches),
+    "hybrid": (HY.init_hybrid, HY.hybrid_prefill, HY.hybrid_decode,
+               HY.init_hybrid_caches),
+}
 
 
 @dataclass(frozen=True)
@@ -20,19 +30,22 @@ class Model:
     def init(self, generator: torch.Generator, dtype=torch.bfloat16):
         """(params, axes) with the reference's names, shapes and scales;
         values drawn from ``generator`` (on the model's device)."""
-        return DEC.init_lm(self.cfg, generator, dtype, self.device)
+        return _FAMILIES[self.cfg.family][0](self.cfg, generator, dtype,
+                                             self.device)
 
     def prefill_fn(self, params: Params, batch: Dict[str, torch.Tensor],
                    ec: ExecConfig, return_cache: bool = False):
-        return DEC.lm_prefill(params, batch, self.cfg, ec, return_cache)
+        return _FAMILIES[self.cfg.family][1](params, batch, self.cfg, ec,
+                                             return_cache)
 
     def decode_fn(self, params: Params, tokens: torch.Tensor, caches: Dict,
                   ec: ExecConfig):
-        return DEC.lm_decode(params, tokens, caches, self.cfg, ec)
+        return _FAMILIES[self.cfg.family][2](params, tokens, caches,
+                                             self.cfg, ec)
 
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        return DEC.init_lm_caches(self.cfg, batch, max_len, dtype,
-                                  self.device)
+        return _FAMILIES[self.cfg.family][3](self.cfg, batch, max_len, dtype,
+                                             self.device)
 
 
 def build_model(arch: Union[str, ArchConfig],
@@ -41,21 +54,27 @@ def build_model(arch: Union[str, ArchConfig],
     passes ``"cpu"``; raises without a CUDA device)."""
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     dev = resolve_device(device)
-    if cfg.family != "dense" or cfg.is_moe:
+    if cfg.family not in _FAMILIES or cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "serves dense decoders (ROADMAP.md, queue A: MoE and remaining "
-            "families)")
+            "serves dense decoders and the Zamba2 hybrid (ROADMAP.md, "
+            "queue A: MoE and remaining families)")
     return Model(cfg=cfg, device=dev)
 
 
 def pad_caches(caches: Dict, extra: int) -> Dict:
-    """Extend the stacked k/v caches ``(L, B, S, KV, hd)`` by ``extra`` zero
-    slots along S (prefill fills the prompt length; decode appends)."""
-    out = dict(caches)
-    for key in ("k", "v"):
-        x = caches[key]
-        pad = torch.zeros(x.shape[:2] + (extra,) + x.shape[3:],
-                          dtype=x.dtype, device=x.device)
-        out[key] = torch.cat([x, pad], dim=2)
+    """Extend the attention k/v caches by ``extra`` zero slots along S
+    (prefill fills the prompt length; decode appends).  Walks the cache
+    tree -- dense ``{k, v, pos}`` or the hybrid's ``{"attn": {k, v, pos},
+    "mamba": {conv, ssm}}`` -- and pads leaves by name, as the reference
+    does: k/v ``(lead, B, S, KV, hd)`` along S, the third dim from the end;
+    every other leaf passes through."""
+    out = {}
+    for key, x in caches.items():
+        if isinstance(x, dict):
+            out[key] = pad_caches(x, extra)
+        elif key in ("k", "v") and x.dim() >= 3:
+            out[key] = F.pad(x, (0, 0, 0, 0, 0, extra))
+        else:
+            out[key] = x
     return out

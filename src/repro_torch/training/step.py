@@ -50,7 +50,8 @@ def make_serve_step(model: Model, plan: Plan, batch: int = 1,
 
     @torch.inference_mode()
     def serve(params, tokens, caches):
-        k = caches["k"]
+        # the attention cache: the dense layout's own, or the hybrid's
+        k = caches["attn"]["k"] if "attn" in caches else caches["k"]
         if k.shape[1] != batch or k.shape[2] != max_len:
             raise ValueError(f"caches {tuple(k.shape)} for batch {batch}, "
                              f"max_len {max_len}")

@@ -76,6 +76,20 @@ def test_build_model_needs_cuda_unless_asked_for_cpu(no_cuda):
     assert build_model(cfg, "cpu").device.type == "cpu"
 
 
+def test_hybrid_build_model_and_main_need_cuda_unless_asked_for_cpu(
+        no_cuda, capsys):
+    cfg = get_arch("zamba2-2.7b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    assert build_model(cfg, "cpu").device.type == "cpu"
+    argv = ["--arch", "zamba2-2.7b", "--smoke", "--batch", "1",
+            "--prompt-len", "8", "--gen", "2"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(argv)
+    assert serve.main(argv + ["--device", "cpu"]) == 0
+    assert "generated 2 tokens" in capsys.readouterr().out
+
+
 def test_generate_needs_cuda_unless_the_model_is_on_the_cpu(no_cuda):
     cfg = get_arch("granite-3-8b").reduced()
     plan = single_stage_plan(cfg.num_layers, dp=1, tp=1, micro_batch=1,
@@ -110,7 +124,7 @@ def test_only_dense_single_device_plans(no_cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg.replace(num_experts=4, num_experts_per_tok=2), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg.replace(family="hybrid"), "cpu")
+        build_model(cfg.replace(family="audio"), "cpu")
     for dp, tp in ((2, 1), (1, 2)):
         with pytest.raises(ValueError, match="dp = tp = 1"):
             check_plan_mesh(single_stage_plan(4, dp=dp, tp=tp, micro_batch=1,

@@ -4,7 +4,8 @@ On a CPU tensor each wrapper runs its plain version (the Hopper kernels
 run only on the card, where chip_smoke.py holds them against these same
 plain versions).  Inputs are made with numpy from a seed and given to both
 packages.  Tolerances are the reference's own (tests/test_kernels.py):
-2e-5 in f32, 2e-2 / 3e-2 in bf16.
+2e-5 in f32, 2e-2 / 3e-2 in bf16; for the SSD scan 2e-4 in f32 and 0.05
+in bf16 (against the sequential oracle, whose sums run in another order).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import ssd_scan as SS
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 RTOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -40,9 +42,9 @@ def no_kernel_build(monkeypatch):
     def refuse():
         raise AssertionError("a CPU tensor reached the kernel loader")
     monkeypatch.setattr(_build, "load_library", refuse)
-    FA.LAUNCHES = RN.LAUNCHES = 0
+    FA.LAUNCHES = RN.LAUNCHES = SS.LAUNCHES = 0
     yield
-    assert FA.LAUNCHES == 0 and RN.LAUNCHES == 0
+    assert FA.LAUNCHES == 0 and RN.LAUNCHES == 0 and SS.LAUNCHES == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -150,6 +152,15 @@ def test_wrappers_reject_unknown_impl_and_devices():
     meta = torch.zeros(2, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         RN.rmsnorm(meta, torch.ones(8, device="meta"))
+    x, dt = torch.zeros(1, 16, 2, 8), torch.zeros(1, 16, 2)
+    with pytest.raises(ValueError):
+        SS.ssd_scan(x, dt, torch.zeros(2), x, x, impl="triton")
+    with pytest.raises(ValueError, match="no kernel"):
+        SS.ssd_scan(x.to("meta"), dt.to("meta"), torch.zeros(2, device="meta"),
+                    x.to("meta"), x.to("meta"))
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        SS.ssd_scan(x[:, :12], dt[:, :12], torch.zeros(2), x[:, :12],
+                    x[:, :12], chunk=8)
 
 
 @pytest.mark.parametrize("blk,size,want", [(512, 1024, 512), (512, 300, 300),
@@ -180,3 +191,108 @@ def test_layer_norm_matches_reference(norm_type, dtype):
     assert got.dtype == tx.dtype
     np.testing.assert_allclose(_np(got), _np(want), atol=ATOL[dtype],
                                rtol=RTOL[dtype])
+
+
+# -- Mamba2 SSD chunk scan -----------------------------------------------------
+
+
+def _ssd_inputs(seed, b, s, h, p, n, dtype, groups=None):
+    """numpy-made SSD inputs (the reference test's distributions) as JAX
+    arrays and torch tensors; xh/bb/cc in ``dtype``, dt/a in f32.  bb/cc
+    have ``groups`` groups (default: one per head)."""
+    rng = np.random.default_rng(seed)
+    g = groups or h
+    arrs = dict(
+        xh=rng.standard_normal((b, s, h, p), dtype=np.float32),
+        dt=np.log1p(np.exp(rng.standard_normal((b, s, h),
+                                               dtype=np.float32))),
+        a=-np.exp(rng.standard_normal((h,), dtype=np.float32)),
+        bb=rng.standard_normal((b, s, g, n), dtype=np.float32),
+        cc=rng.standard_normal((b, s, g, n), dtype=np.float32))
+    low = ("xh", "bb", "cc")
+    j = {k: _pair(v, dtype if k in low else "float32")[0]
+         for k, v in arrs.items()}
+    t = {k: _pair(v, dtype if k in low else "float32")[1]
+         for k, v in arrs.items()}
+    return j, t
+
+
+SSD_SHAPES = [(1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32),
+              (1, 256, 2, 64, 32, 64)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+def test_plain_ssd_matches_reference_kernel_and_oracle(b, s, h, p, n, chunk):
+    """The plain version against the reference's Pallas kernel (interpret
+    mode) and its sequential oracle, at the reference test's shapes, f32."""
+    j, t = _ssd_inputs(2, b, s, h, p, n, "float32")
+    got, hT = tops.ssd_scan(t["xh"], t["dt"], t["a"], t["bb"], t["cc"],
+                            chunk=chunk)
+    assert hT is None and got.shape == t["xh"].shape
+    pallas, _ = jops.ssd_scan(j["xh"], j["dt"], j["a"], j["bb"], j["cc"],
+                              chunk=chunk)
+    oracle = jref.ssd_ref(j["xh"], j["dt"], j["a"], j["bb"], j["cc"])
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-4,
+                                   rtol=2e-4)
+    np.testing.assert_allclose(
+        _np(tops.ref.ssd_ref(t["xh"], t["dt"], t["a"], t["bb"], t["cc"])),
+        _np(oracle), atol=2e-4, rtol=2e-4)
+
+
+def test_plain_ssd_bf16_matches_oracle():
+    """bf16 x/B/C (the reference test's bf16 case): y in bf16 within 0.05
+    of the f32 sequential oracle."""
+    j, t = _ssd_inputs(3, 1, 64, 2, 16, 8, "float32")
+    oracle = jref.ssd_ref(j["xh"], j["dt"], j["a"], j["bb"], j["cc"])
+    low = {k: (v.to(torch.bfloat16) if k in ("xh", "bb", "cc") else v)
+           for k, v in t.items()}
+    got, _ = SS.ssd_scan(low["xh"], low["dt"], low["a"], low["bb"],
+                         low["cc"], chunk=16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=0.05, rtol=0.05)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES[1:2])
+def test_plain_ssd_state_matches_reference_ssd_chunked(b, s, h, p, n, chunk):
+    """The final state hT (B, H, P, N) f32 -- which the TPU kernel does not
+    return -- against the reference's jnp ``ssd_chunked``, whose serving
+    handoff produces it."""
+    from repro.models import ssm as JSSM
+    j, t = _ssd_inputs(4, b, s, h, p, n, "float32")
+    y, hT = SS.ssd_scan(t["xh"], t["dt"], t["a"], t["bb"], t["cc"],
+                        chunk=chunk)
+    want_y, want_h = JSSM.ssd_chunked(j["xh"], j["dt"], j["a"], j["bb"],
+                                      j["cc"], chunk)
+    assert hT.shape == (b, h, p, n) and hT.dtype == torch.float32
+    np.testing.assert_allclose(_np(hT), _np(want_h), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(_np(y), _np(want_y), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_ssd_groups_index_equals_reference_repeat(groups):
+    """B/C given per group (G dividing H, as the model passes them) equal the
+    reference's repeat over heads, y and hT; a chunk that no 64-row tile
+    divides (48) and S < chunk both work."""
+    b, h, p, n = 2, 4, 16, 8
+    for s, chunk in ((96, 48), (32, 256)):
+        _, t = _ssd_inputs(5, b, s, h, p, n, "float32", groups=groups)
+        rep = {k: t[k].repeat_interleave(h // groups, dim=2)
+               for k in ("bb", "cc")}
+        y, hT = SS.ssd_scan(t["xh"], t["dt"], t["a"], t["bb"], t["cc"],
+                            chunk=chunk)
+        y_r, hT_r = SS.ssd_scan(t["xh"], t["dt"], t["a"], rep["bb"],
+                                rep["cc"], chunk=chunk)
+        assert torch.equal(y, y_r) and torch.equal(hT, hT_r)
+        oracle = tops.ref.ssd_ref(t["xh"], t["dt"], t["a"], rep["bb"],
+                                  rep["cc"])
+        np.testing.assert_allclose(y.numpy(), oracle.numpy(), atol=2e-4,
+                                   rtol=2e-4)
+
+
+def test_ssd_kernel_shared_memory_fits_the_serving_chunk():
+    """The kernel's shared memory at zamba2's chunk 256, P 64, N 64 fits a
+    block's 227 KB; chunk 512 does not, and the wrapper says so before any
+    launch."""
+    assert SS.smem_bytes(256, 64, 64) <= SS.SMEM_LIMIT
+    assert SS.smem_bytes(512, 64, 64) > SS.SMEM_LIMIT
