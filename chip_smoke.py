@@ -11,18 +11,27 @@ non-zero (no phase catches another's exception):
    power limit (nvidia-smi), and the build of the hand-written kernels from
    the checkout's CUDA sources.
 2. Each kernel against its plain PyTorch version on the card, at the
-   serving paths' shapes and at ragged ones: flash attention (hd 128 for
-   granite, hd 80 for zamba2), RMSNorm (d 4096 and 2560), the SSD scan
-   (zamba2's serving shape in bf16, a smaller f32 shape, S < chunk, a
-   chunk no 64-row tile divides), y and the final state.
+   serving paths' shapes and at the edges of the kernels' tiles: flash
+   attention (hd 128 for granite, hd 80 for zamba2; every head dim with Sq
+   off the 128-row query block, Sk shorter than one K/V tile, Sq = 1,
+   causal with Sq > Sk, non-causal with a ragged last K/V tile), RMSNorm
+   (d 4096 and 2560 at the prefill and decode shapes and one row, the
+   generic kernel's widths 8192, 1001 and 1000, mixed x/scale types, rows
+   not 16-byte aligned), the SSD scan (zamba2's serving shape in bf16, a
+   smaller f32 shape, S < chunk, a chunk no 64-row tile divides), y and
+   the final state.
 3. Full-width granite-3-8b (all 40 layers, bf16, random weights from a
    seed): prefill logits with the kernels against the same model with the
    plain versions; ``generate(gen=32)`` with the launch counters checked
    exactly; and the reduced config against the CPU plain path.
-4. Granite timings with CUDA events (kernel, plain version, one library
-   call as a yardstick, data-sheet bound) and the serve loop's prefill /
-   decode times, tokens per second and peak memory.  Then granite's
-   weights are freed and the peak-memory statistics reset.
+4. Granite timings with CUDA events: kernel, plain version, one library
+   call as a yardstick, data-sheet bound.  Kernel and library are timed
+   three ways: as a caller meets one call (host and device, ``ms``), the
+   device work alone (each call enqueued behind a spin kernel,
+   ``device_ms``), and the device work after 256 MB of scratch writes
+   empty the L2 (``cold_ms``, held against the bound).  Then the serve
+   loop's prefill / decode times, tokens per second and peak memory.  Then
+   granite's weights are freed and the peak-memory statistics reset.
 5. Phases 3 and 4 for full-width zamba2-2.7b (all 54 Mamba2 layers in 9
    groups, one shared attention block, bf16): logits kernels vs plain
    (both held against the plain versions in f32, see ACCURACY_ROOM),
@@ -118,12 +127,37 @@ def close(got, want, atol, rtol):
     return ok, float(err.max())
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times, after a warm-up."""
+# bytes written between timed launches when L2 must start cold: past the
+# H100's 50 MB L2 several times over
+L2_FLUSH_BYTES = 256 * 2**20
+_l2_flush = None
+# a device-side spin ahead of each timed call (~0.5 ms at the H100's
+# clocks), longer than the host takes to enqueue a kernel's call
+SPIN_CYCLES = 1_000_000
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3, cold: bool = False,
+            device_only: bool = False) -> float:
+    """Median of per-call CUDA-event times, after a warm-up.
+
+    By default the events bracket one call as its caller meets it on an
+    idle device: the host's part (Python, checks, the launch) and the
+    device's.  ``device_only`` enqueues each call behind a spin kernel, so
+    the events bracket the device work alone.  ``cold`` writes
+    L2_FLUSH_BYTES of scratch before each timed call, outside the events,
+    so that the call finds none of its inputs in L2."""
+    global _l2_flush
+    if cold and _l2_flush is None:
+        _l2_flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                device=DEVICE)
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if cold:
+            _l2_flush.zero_()
+        if device_only:
+            torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -163,7 +197,8 @@ def phase_device_and_build():
     log(f"# kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.BUILD_SECONDS if _build.BUILD_SECONDS is not None else 'cached'})")
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling",
+                                   "wgmma", "arning")):
             log(f"#   ptxas: {line.strip()}")
 
 
@@ -209,6 +244,23 @@ def phase_kernels_vs_plain():
         (2, 130, 70, Z_HEADS, Z_HEADS, Z_HEAD_DIM, True),
         (2, 40, 40, 4, 1, 32, True),      # the reduced configs' heads
         (2, 130, 70, 8, 2, 64, False),
+        # every head dim with Sq not a multiple of the 128-row query block
+        (2, 200, 200, 8, 2, 32, True),
+        (2, 300, 300, 8, 2, 64, True),
+        (2, 250, 250, 8, 8, 80, True),
+        (2, 330, 330, 8, 2, 128, True),
+        # Sk shorter than one K/V tile
+        (2, 200, 50, 8, 2, 128, False),
+        (2, 40, 30, 8, 8, 80, True),
+        # one query row
+        (BATCH, 1, 1000, N_HEADS, N_KV, HEAD_DIM, False),
+        (BATCH, 1, 1000, Z_HEADS, Z_HEADS, Z_HEAD_DIM, True),
+        # causal with Sq > Sk
+        (2, 300, 100, 16, 4, 64, True),
+        (2, 520, 130, 8, 2, 128, True),
+        # non-causal with Sk not a multiple of the K/V tile
+        (2, 256, 333, Z_HEADS, Z_HEADS, Z_HEAD_DIM, False),
+        (2, 129, 200, 8, 2, 32, False),
     ]
     for i, (b, sq, sk, h, kv, hd, causal) in enumerate(cases):
         q, k, v = _qkv(b, sq, sk, h, kv, hd, seed=10 + i)
@@ -227,23 +279,43 @@ def phase_kernels_vs_plain():
         if i < 2:
             errs[f"flash_attention_fwd@hd{hd}"] = err_o
 
-    for rows, d in ((BATCH * PROMPT_LEN, D_MODEL), (BATCH, D_MODEL),
-                    (BATCH * PROMPT_LEN, Z_D_MODEL), (5, 1001), (3, 1000)):
-        for dtype, tol in ((torch.bfloat16, BF16_TOL),
-                           (torch.float32, F32_TOL)):
+    rn_cases = [  # (rows, d, x dtype, scale dtype, aligned)
+        (BATCH * PROMPT_LEN, D_MODEL, None, None, True),
+        (BATCH, D_MODEL, None, None, True),
+        (BATCH * PROMPT_LEN, Z_D_MODEL, None, None, True),
+        (BATCH, Z_D_MODEL, None, None, True),
+        (1, D_MODEL, None, None, True),          # one row
+        (1, Z_D_MODEL, None, None, True),
+        (33, 8192, None, None, True),            # generic kernel widths
+        (5, 1001, None, None, True),
+        (3, 1000, None, None, True),
+        (300, D_MODEL, torch.float32, torch.bfloat16, True),  # mixed types
+        (300, Z_D_MODEL, torch.float32, torch.bfloat16, True),
+        (300, D_MODEL, torch.bfloat16, torch.float32, True),
+        (7, D_MODEL, None, None, False),         # rows not 16-byte aligned
+    ]
+    for rows, d, xdt, sdt, aligned in rn_cases:
+        for dtype in ((xdt,) if xdt else (torch.bfloat16, torch.float32)):
+            tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
             g = torch.Generator(DEVICE).manual_seed(rows + d)
             x = torch.randn((rows, d), generator=g, device=DEVICE).to(dtype)
+            if not aligned:  # the same values one element into a buffer
+                buf = torch.empty(rows * d + 1, dtype=dtype, device=DEVICE)
+                buf[1:] = x.reshape(-1)
+                x = buf[1:].view(rows, d)
             scale = (1 + 0.1 * torch.randn((d,), generator=g, device=DEVICE)
-                     ).to(dtype)
+                     ).to(sdt or dtype)
             y = RN.rmsnorm(x, scale)
             sync()
             ok, err = close(y, RN.rmsnorm(x, scale, impl="plain"), **tol)
             sync()
-            log(f"# rmsnorm rows {rows} d {d} {dtype}: max err {err:.3e}")
+            log(f"# rmsnorm rows {rows} d {d} x {dtype} scale {scale.dtype}"
+                f"{'' if aligned else ' unaligned'}: max err {err:.3e}")
             if not ok:
                 raise AssertionError("rmsnorm kernel disagrees with its "
                                      f"plain version ({rows}x{d} {dtype})")
-            if rows == BATCH * PROMPT_LEN and dtype == torch.bfloat16:
+            if (rows == BATCH * PROMPT_LEN and dtype == torch.bfloat16
+                    and xdt is None):
                 errs[f"rmsnorm@d{d}"] = err
 
     ssd_cases = [  # (B, S, H, P, N, G, chunk, dtype)
@@ -514,21 +586,31 @@ def _time_flash(model_name, b, s, h, kv, hd, launches, err):
     qh = q.transpose(1, 2).contiguous()
     kh = k.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
     vh = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
-    ms = time_ms(lambda: FA.flash_attention(q, k, v, causal=True))
+    kernel = lambda: FA.flash_attention(q, k, v, causal=True)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, is_causal=True)
+    ms, lib = time_ms(kernel), time_ms(sdpa)
+    dev = time_ms(kernel, device_only=True)
+    lib_dev = time_ms(sdpa, device_only=True)
+    cold = time_ms(kernel, cold=True, device_only=True)
+    lib_cold = time_ms(sdpa, cold=True, device_only=True)
     plain = time_ms(lambda: FA.flash_attention(q, k, v, causal=True,
                                                impl="plain"), reps=5)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                         is_causal=True))
     bound, by, how = flash_bound(b, s, s, h, kv, hd, True)
-    log(f"# flash hd {hd}: kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
-        f"{lib:.4f} ms; bound: {how} -> {bound * 1e3:.1f} us ({by})")
+    log(f"# flash hd {hd}: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 "
+        f"{cold:.4f}), plain {plain:.4f} ms, SDPA {lib:.4f} ms (device "
+        f"{lib_dev:.4f}, cold {lib_cold:.4f}); kernel / SDPA {ms / lib:.3f} "
+        f"(device {dev / lib_dev:.3f}, cold {cold / lib_cold:.3f}); bound: "
+        f"{how} -> {bound * 1e3:.1f} us ({by}), {bound / cold:.1%} of it "
+        f"cold")
     return dict(
         name="flash_attention_fwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:25",
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=bound, bound_by=by, library_ms=lib, model=model_name,
-        shape=f"B{b} S{s} H{h} KV{kv} hd{hd} causal bf16")
+        bound_ms=bound, bound_by=by, library_ms=lib, device_ms=dev,
+        library_device_ms=lib_dev, cold_ms=cold, library_cold_ms=lib_cold,
+        model=model_name, shape=f"B{b} S{s} H{h} KV{kv} hd{hd} causal bf16")
 
 
 def _time_rmsnorm(model_name, d, launches, err):
@@ -542,13 +624,23 @@ def _time_rmsnorm(model_name, d, launches, err):
         x = torch.randn((rows, d), generator=g, device=DEVICE
                         ).to(torch.bfloat16)
         sc = torch.ones(d, device=DEVICE, dtype=torch.bfloat16)
-        r_ms = time_ms(lambda: RN.rmsnorm(x, sc), reps=50)
+        kernel = lambda: RN.rmsnorm(x, sc)  # noqa: E731
+        lib = lambda: F.rms_norm(x, (d,), weight=sc, eps=1e-6)  # noqa: E731
+        r_ms, r_lib = time_ms(kernel, reps=50), time_ms(lib, reps=50)
+        r_dev = time_ms(kernel, reps=50, device_only=True)
+        r_lib_dev = time_ms(lib, reps=50, device_only=True)
+        r_cold = time_ms(kernel, reps=50, cold=True, device_only=True)
+        r_lib_cold = time_ms(lib, reps=50, cold=True, device_only=True)
         r_plain = time_ms(lambda: RN.rmsnorm(x, sc, impl="plain"), reps=50)
-        r_lib = time_ms(lambda: F.rms_norm(x, (d,), weight=sc, eps=1e-6),
-                        reps=50)
         r_bound, r_by, how = rmsnorm_bound(rows, d, 2)
-        log(f"# rmsnorm {rows}x{d} bf16: kernel {r_ms:.4f} ms, plain "
-            f"{r_plain:.4f} ms, F.rms_norm {r_lib:.4f} ms; bound {how}")
+        log(f"# rmsnorm {rows}x{d} bf16: kernel {r_ms:.4f} ms (device "
+            f"{r_dev:.4f}, cold L2 {r_cold:.4f}), plain {r_plain:.4f} ms, "
+            f"F.rms_norm {r_lib:.4f} ms (device {r_lib_dev:.4f}, cold "
+            f"{r_lib_cold:.4f}); kernel - F.rms_norm "
+            f"{(r_ms - r_lib) * 1e3:.2f} us (device "
+            f"{(r_dev - r_lib_dev) * 1e3:.2f}, cold "
+            f"{(r_cold - r_lib_cold) * 1e3:.2f}); bound {how}; "
+            f"{r_bound / r_cold:.1%} of it cold")
         if rows == BATCH * PROMPT_LEN:
             entry = dict(
                 name="rmsnorm", route="cuda",
@@ -556,7 +648,8 @@ def _time_rmsnorm(model_name, d, launches, err):
                 replaces="src/repro/kernels/rmsnorm.py:16",
                 launches=launches, max_abs_err=err, ms=r_ms,
                 plain_ms=r_plain, bound_ms=r_bound, bound_by=r_by,
-                library_ms=r_lib, model=model_name,
+                library_ms=r_lib, device_ms=r_dev, library_device_ms=r_lib_dev,
+                cold_ms=r_cold, library_cold_ms=r_lib_cold, model=model_name,
                 shape=f"{rows}x{d} bf16")
     return entry
 
@@ -571,18 +664,23 @@ def _time_ssd(launches, err):
                            SSD_G, SSD_CHUNK)
     x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, g, torch.bfloat16,
                                    seed=98)
-    ms = time_ms(lambda: SS.ssd_scan(x, dt, a, bb, cc, chunk=q))
+    kernel = lambda: SS.ssd_scan(x, dt, a, bb, cc, chunk=q)  # noqa: E731
+    ms = time_ms(kernel)
+    dev = time_ms(kernel, device_only=True)
+    cold = time_ms(kernel, cold=True, device_only=True)
     plain = time_ms(lambda: SS.ssd_scan(x, dt, a, bb, cc, chunk=q,
                                         impl="plain"), reps=5)
     bound, by, how = ssd_bound(b, s, h, p, n, g, q, 2)
-    log(f"# ssd: kernel {ms:.4f} ms, plain {plain:.4f} ms; bound: {how} -> "
-        f"{bound * 1e3:.1f} us ({by})")
+    log(f"# ssd: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 {cold:.4f}), "
+        f"plain {plain:.4f} ms; bound: {how} -> {bound * 1e3:.1f} us ({by})")
     return dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:20",
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=bound, bound_by=by, library_ms=None, model="zamba2-2.7b",
+        bound_ms=bound, bound_by=by, library_ms=None, device_ms=dev,
+        library_device_ms=None, cold_ms=cold, library_cold_ms=None,
+        model="zamba2-2.7b",
         shape=f"B{b} S{s} H{h} P{p} N{n} G{g} chunk {q} bf16")
 
 

@@ -10,12 +10,28 @@
 // below the card's ~295 FLOP/byte ridge: 4096 x 4096 bf16 moves 67 MB,
 // ~20 us at 3.35 TB/s.
 //
-// What the design does about that: one block per row, so any number of
-// rows works and every row is one independent pass; 16-byte vector loads
-// and stores when the row is 16-byte aligned (plain loads otherwise); the
-// f32 sum of squares is reduced with warp shuffles and one shared-memory
-// step across warps.  The second pass re-reads the row, which at d 4096
-// (8 KB) is still in L1/L2, so device memory sees one read and one write.
+// What the design does about that: one warp per row, so a row needs no
+// __syncthreads and its sum of squares is one warp-shuffle reduction.  A
+// block of 8 warps walks the rows in a grid-stride loop, and the grid is
+// the number of blocks the card holds at once (or fewer for few rows).
+// - Register-resident widths (d 2560 and 4096, 16-byte aligned rows): the
+//   row stays in registers between the sum and the scale pass, so x is read
+//   from device memory exactly once, as 16-byte vectors, vector i * 32 +
+//   lane of the row in lane `lane` (each load instruction of a warp reads
+//   512 contiguous bytes).  NV, the vectors per lane, is a template
+//   argument: bf16 16 at d 4096 and 10 at d 2560 (64 and 40 registers), f32
+//   32 and 20.  The scale is read once per block as 16-byte vectors,
+//   converted to f32 once and kept in shared memory (16 KB at d 4096),
+//   laid out so that each lane's float4 reads are conflict-free.  Shared
+//   memory and not registers: at f32 x and d 4096 the row alone takes 128
+//   registers a lane, and f32 scale would take 128 more.  The first row's
+//   loads are issued before the scale is staged, so both are in flight
+//   together; that one __syncthreads per block is the only barrier.
+// - Every other width (and unaligned rows): the generic kernel, also one
+//   warp per row, sums the row in one pass and scales it in a second pass
+//   that re-reads x (from L1/L2) and the scale from global memory, with
+//   16-byte vectors when the rows are aligned and scalar loads otherwise.
+// Stores are 16-byte vectors wherever the loads are.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -23,7 +39,8 @@
 
 namespace {
 
-constexpr int NUM_THREADS = 256;
+constexpr int WARPS = 8;  // rows in flight per block, one per warp
+constexpr int NUM_THREADS = WARPS * 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -45,69 +62,195 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, typename S>
+// Rows of exactly NV * 32 vectors of 16 bytes, held in registers.
+template <typename T, typename S, int NV>
 __global__ void __launch_bounds__(NUM_THREADS)
-rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-               T* __restrict__ y, int d, float eps, int vec_ok) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
-  const T* xr = x + static_cast<long long>(blockIdx.x) * d;
-  T* yr = y + static_cast<long long>(blockIdx.x) * d;
+rmsnorm_resident_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                        T* __restrict__ y, int rows, float eps,
+                        int scale_vec) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector of x
+  constexpr int D = NV * 32 * V;
+  constexpr int F4 = V / 4;          // float4 of scale per vector of x
+  constexpr int VS = 16 / sizeof(S); // elements per 16-byte vector of scale
+  // element j of vector i * 32 + lane sits at ((i * F4 + j / 4) * 32 +
+  // lane) * 4 + j % 4: a warp's float4 reads cover 512 contiguous bytes
+  __shared__ __align__(16) float s_scale[D];
 
-  float ss = 0.f;
-  if (vec_ok) {
-    for (int i = threadIdx.x; i < d / V; i += NUM_THREADS) {
-      const uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
-      const T* e = reinterpret_cast<const T*>(&raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stride = gridDim.x * WARPS;
+  int row = blockIdx.x * WARPS + warp;
+
+  uint4 buf[NV];
+  if (row < rows) {
+    const uint4* xr = reinterpret_cast<const uint4*>(
+        x + static_cast<long long>(row) * D);
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float f = to_f32(e[j]);
-        ss += f * f;
+    for (int i = 0; i < NV; ++i) buf[i] = xr[i * 32 + lane];
+  }
+  // stage the scale as f32, once per block
+  if (scale_vec) {
+    for (int u = threadIdx.x; u < D / VS; u += NUM_THREADS) {
+      const uint4 raw = reinterpret_cast<const uint4*>(scale)[u];
+      const S* e = reinterpret_cast<const S*>(&raw);
+#pragma unroll
+      for (int q = 0; q < VS; ++q) {
+        const int el = u * VS + q, vec = el / V, j = el % V;
+        s_scale[(((vec >> 5) * F4 + j / 4) * 32 + (vec & 31)) * 4 + j % 4] =
+            to_f32(e[q]);
       }
     }
   } else {
-    for (int i = threadIdx.x; i < d; i += NUM_THREADS) {
-      const float f = to_f32(xr[i]);
-      ss += f * f;
+    for (int el = threadIdx.x; el < D; el += NUM_THREADS) {
+      const int vec = el / V, j = el % V;
+      s_scale[(((vec >> 5) * F4 + j / 4) * 32 + (vec & 31)) * 4 + j % 4] =
+          to_f32(scale[el]);
     }
   }
-
-  __shared__ float part[NUM_THREADS / 32];
-  __shared__ float total;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  ss = warp_sum(ss);
-  if (lane == 0) part[warp] = ss;
   __syncthreads();
-  if (warp == 0) {
-    float p = lane < NUM_THREADS / 32 ? part[lane] : 0.f;
-    p = warp_sum(p);
-    if (lane == 0) total = p;
-  }
-  __syncthreads();
-  const float r = rsqrtf(total / static_cast<float>(d) + eps);
 
-  if (vec_ok) {
-    for (int i = threadIdx.x; i < d / V; i += NUM_THREADS) {
-      const uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
-      const T* e = reinterpret_cast<const T*>(&raw);
+  for (bool first = true; row < rows; row += stride, first = false) {
+    if (!first) {
+      const uint4* xr = reinterpret_cast<const uint4*>(
+          x + static_cast<long long>(row) * D);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) buf[i] = xr[i * 32 + lane];
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const T* e = reinterpret_cast<const T*>(&buf[i]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float f = to_f32(e[j]);
+        ss = fmaf(f, f, ss);
+      }
+    }
+    const float r = rsqrtf(warp_sum(ss) / static_cast<float>(D) + eps);
+    // the scale pass converts the packed row again instead of keeping the
+    // sum pass's f32 values alive (128 more registers at bf16 d 4096)
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      asm volatile("" : "+r"(buf[i].x), "+r"(buf[i].y), "+r"(buf[i].z),
+                   "+r"(buf[i].w));
+    uint4* yr = reinterpret_cast<uint4*>(y + static_cast<long long>(row) * D);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const T* e = reinterpret_cast<const T*>(&buf[i]);
+      const float4* sc = reinterpret_cast<const float4*>(s_scale);
+      float sv[V];
+#pragma unroll
+      for (int k = 0; k < F4; ++k) {
+        const float4 f = sc[(i * F4 + k) * 32 + lane];
+        sv[4 * k] = f.x;
+        sv[4 * k + 1] = f.y;
+        sv[4 * k + 2] = f.z;
+        sv[4 * k + 3] = f.w;
+      }
       uint4 out;
       T* oe = reinterpret_cast<T*>(&out);
 #pragma unroll
       for (int j = 0; j < V; ++j)
-        oe[j] = from_f32<T>(to_f32(e[j]) * r * to_f32(scale[i * V + j]));
-      reinterpret_cast<uint4*>(yr)[i] = out;
+        oe[j] = from_f32<T>(to_f32(e[j]) * r * sv[j]);
+      yr[i * 32 + lane] = out;
     }
-  } else {
-    for (int i = threadIdx.x; i < d; i += NUM_THREADS)
-      yr[i] = from_f32<T>(to_f32(xr[i]) * r * to_f32(scale[i]));
   }
+}
+
+// Any width: one warp per row, two passes over the row.
+template <typename T, typename S>
+__global__ void __launch_bounds__(NUM_THREADS)
+rmsnorm_generic_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                       T* __restrict__ y, int rows, int d, float eps,
+                       int vec_ok) {
+  constexpr int V = 16 / sizeof(T);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stride = gridDim.x * WARPS;
+  for (int row = blockIdx.x * WARPS + warp; row < rows; row += stride) {
+    const T* xr = x + static_cast<long long>(row) * d;
+    T* yr = y + static_cast<long long>(row) * d;
+    float ss = 0.f;
+    if (vec_ok) {
+      for (int i = lane; i < d / V; i += 32) {
+        const uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float f = to_f32(e[j]);
+          ss = fmaf(f, f, ss);
+        }
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) {
+        const float f = to_f32(xr[i]);
+        ss = fmaf(f, f, ss);
+      }
+    }
+    const float r = rsqrtf(warp_sum(ss) / static_cast<float>(d) + eps);
+    if (vec_ok) {
+      for (int i = lane; i < d / V; i += 32) {
+        const uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
+        const T* e = reinterpret_cast<const T*>(&raw);
+        uint4 out;
+        T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          oe[j] = from_f32<T>(to_f32(e[j]) * r * to_f32(scale[i * V + j]));
+        reinterpret_cast<uint4*>(yr)[i] = out;
+      }
+    } else {
+      for (int i = lane; i < d; i += 32)
+        yr[i] = from_f32<T>(to_f32(xr[i]) * r * to_f32(scale[i]));
+    }
+  }
+}
+
+// the blocks of `kernel` that the card holds at once (asked once per kernel)
+template <typename K>
+int resident_blocks(K kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NUM_THREADS,
+                                                0);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+// one warp per row, at most the resident blocks
+inline int grid_for(int rows, int most) {
+  const int want = (rows + WARPS - 1) / WARPS;
+  return want < most ? want : most;
+}
+
+template <typename T, typename S, int NV>
+int launch_resident(const void* x, const void* scale, void* y, int rows,
+                    float eps, cudaStream_t stream) {
+  const int scale_vec =
+      reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
+      (NV * 32 * (16 / sizeof(T)) * sizeof(S)) % 16 == 0;
+  auto kernel = rmsnorm_resident_kernel<T, S, NV>;
+  static const int most = resident_blocks(kernel);
+  kernel<<<grid_for(rows, most), NUM_THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale),
+      static_cast<T*>(y), rows, eps, scale_vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename S>
 int launch(const void* x, const void* scale, void* y, int rows, int d,
            float eps, int vec_ok, cudaStream_t stream) {
-  rmsnorm_kernel<T, S><<<rows, NUM_THREADS, 0, stream>>>(
+  // the register-resident widths (rmsnorm.py's RESIDENT_WIDTHS)
+  constexpr int V = 16 / sizeof(T);
+  if (vec_ok && d == 4096)
+    return launch_resident<T, S, 4096 / (32 * V)>(x, scale, y, rows, eps,
+                                                  stream);
+  if (vec_ok && d == 2560)
+    return launch_resident<T, S, 2560 / (32 * V)>(x, scale, y, rows, eps,
+                                                  stream);
+  auto kernel = rmsnorm_generic_kernel<T, S>;
+  static const int most = resident_blocks(kernel);
+  kernel<<<grid_for(rows, most), NUM_THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const S*>(scale),
-      static_cast<T*>(y), d, eps, vec_ok);
+      static_cast<T*>(y), rows, d, eps, vec_ok);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,6 +31,28 @@ LAUNCHES = 0
 
 HEAD_DIMS = (32, 64, 80, 128)
 
+# the kernel's launch shape (csrc/flash_attention.cu): query rows per work
+# item, keys per K/V tile, the tiles of each kind in shared memory (Q double
+# buffered, K and V rings), and the shared memory a block may have on an H100
+BLOCK_M = 128
+BLOCK_N = 128
+Q_STAGES, K_STAGES, V_STAGES = 2, 2, 3
+SMEM_LIMIT = 232448
+# blocks per SM the design counts on: a persistent grid of one block per SM
+# (registers for two warpgroups' S, O and P fragments admit no more)
+RESIDENT_BLOCKS = 1
+
+
+def smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one block (``smem_bytes`` in the source):
+    the bf16 Q, K and V tiles of 128 rows and two 8-byte mbarriers (full,
+    empty) per tile.
+    Raises for a head dim the kernel lacks."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    tiles = Q_STAGES + K_STAGES + V_STAGES
+    return tiles * (128 * hd * 2 + 16)
+
 
 def fit_block(blk: int, size: int) -> int:
     """The reference's block fitting (``ops._fit_block``): halve until the
@@ -95,6 +117,10 @@ def _plain(q, k, v, causal, scale, kv_block):
 
 
 def _check_cuda_inputs(q, k, v):
+    # the head dim first: the kernel is instantiated for HEAD_DIMS only
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} not in the kernel's "
+                         f"{HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -110,8 +136,6 @@ def _check_cuda_inputs(q, k, v):
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
     if h % k.shape[2]:
         raise ValueError(f"{h} query heads over {k.shape[2]} KV heads")
 

@@ -4,11 +4,14 @@ port of ``repro/kernels/rmsnorm.py``).
 The kernel (``csrc/rmsnorm.cu``) replaces the Pallas TPU kernel
 ``_rmsnorm_kernel``: over the last dim, the f32 mean of squares, then
 ``x * rsqrt(var + eps) * f32(scale)``, rounded once to x's dtype.  It takes
-bf16 or f32 x (and scale), any number of rows.  The plain version is
-``ref.rmsnorm_ref``.  ``rmsnorm`` runs the kernel for a CUDA tensor and the
-plain version for a CPU tensor; ``impl="plain"`` forces the plain version
-(a test hook).  A CUDA tensor never falls back: an unsupported dtype or a
-failed launch raises.
+bf16 or f32 x (and scale), any number of rows.  One warp owns a row; at the
+``RESIDENT_WIDTHS`` (with 16-byte aligned rows) the row stays in registers
+between the sum and the scale pass, and every other width takes the
+generic two-pass kernel (``vectors_per_lane`` mirrors that choice).  The
+plain version is ``ref.rmsnorm_ref``.  ``rmsnorm`` runs the kernel for a
+CUDA tensor and the plain version for a CPU tensor; ``impl="plain"`` forces
+the plain version (a test hook).  A CUDA tensor never falls back: an
+unsupported dtype or a failed launch raises.
 """
 from __future__ import annotations
 
@@ -21,6 +24,25 @@ from repro_torch.kernels.ref import rmsnorm_ref
 LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the kernel's launch shape (csrc/rmsnorm.cu): one warp per row, 8 rows per
+# block; rows of these widths are held in registers
+WARPS_PER_BLOCK = 8
+RESIDENT_WIDTHS = (2560, 4096)
+
+
+def blocks_wanted(rows: int) -> int:
+    """Blocks for one warp per row, before the kernel caps the grid at the
+    blocks the card holds at once."""
+    return -(-rows // WARPS_PER_BLOCK)
+
+
+def vectors_per_lane(d: int, esize: int, vec_ok: bool) -> int:
+    """16-byte vectors of a row that each lane holds in registers, or 0 for
+    the generic kernel (the dispatch in ``mist_rmsnorm``)."""
+    if vec_ok and d in RESIDENT_WIDTHS:
+        return d // (32 * (16 // esize))
+    return 0
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

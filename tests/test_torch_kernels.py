@@ -7,6 +7,8 @@ packages.  Tolerances are the reference's own (tests/test_kernels.py):
 2e-5 in f32, 2e-2 / 3e-2 in bf16; for the SSD scan 2e-4 in f32 and 0.05
 in bf16 (against the sequential oracle, whose sums run in another order).
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -296,3 +298,104 @@ def test_ssd_kernel_shared_memory_fits_the_serving_chunk():
     launch."""
     assert SS.smem_bytes(256, 64, 64) <= SS.SMEM_LIMIT
     assert SS.smem_bytes(512, 64, 64) > SS.SMEM_LIMIT
+
+
+# The kernels' launch arithmetic, mirrored in the wrappers (pure Python) and
+# read here from the CUDA sources, so that a mirror cannot drift from its
+# kernel.  An H100 SM has 228 KB of shared memory, of which a block may take
+# 227 KB and the runtime reserves 1 KB per resident block.
+SM_SHARED_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
+CSRC = _build.CSRC
+
+
+def _cu_int(source, name):
+    """The value of ``constexpr int <name> = <n>;`` in csrc/<source>."""
+    found = re.findall(rf"constexpr int {name} = (\d+);",
+                       (CSRC / source).read_text())
+    assert len(found) == 1, (source, name, found)
+    return int(found[0])
+
+
+@pytest.mark.parametrize("name", ["BLOCK_M", "BLOCK_N", "Q_STAGES",
+                                  "K_STAGES", "V_STAGES"])
+def test_flash_wrapper_mirrors_the_kernels_tile_constants(name):
+    assert getattr(FA, name) == _cu_int("flash_attention.cu", name)
+
+
+def test_flash_wrapper_head_dims_are_the_kernels_instantiations():
+    src = (CSRC / "flash_attention.cu").read_text()
+    entry = src[src.index('extern "C" int mist_flash_attn_fwd'):]
+    cases = tuple(int(c) for c in re.findall(r"case (\d+):", entry))
+    assert cases == FA.HEAD_DIMS
+
+
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+def test_flash_kernel_shared_memory_fits_every_head_dim(hd):
+    assert FA.smem_bytes(hd) <= FA.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+def test_flash_head_dims_tile_the_tensor_core_steps(hd):
+    """Every head dim is a whole number of k16 steps (S = Q K^T) and of
+    8-column accumulator chunks (O), and a legal product width; the tiles
+    are whole warpgroups of 64 rows and k16 steps of keys."""
+    assert hd % 16 == 0 and 8 <= hd <= 256
+    assert FA.BLOCK_N % 16 == 0 and FA.BLOCK_M % 64 == 0
+
+
+def test_flash_ring_keeps_its_stated_residency_at_hd128():
+    """K and V rings of at least two stages (V one more: its product with
+    P trails the scores by a tile), Q double-buffered for the next work
+    item, and at hd 128 shared memory still admits the design's resident
+    blocks per SM."""
+    assert FA.K_STAGES >= 2 and FA.V_STAGES == FA.K_STAGES + 1
+    assert FA.Q_STAGES == 2
+    per_sm = SM_SHARED_BYTES // (FA.smem_bytes(128) + BLOCK_RESERVED_BYTES)
+    assert per_sm >= FA.RESIDENT_BLOCKS >= 1
+
+
+@pytest.mark.parametrize("hd", [16, 48, 96, 100, 256])
+def test_flash_wrapper_rejects_other_head_dims_before_launch(hd):
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.smem_bytes(hd)
+    q = torch.zeros(1, 4, 2, hd, dtype=torch.bfloat16)
+    k = torch.zeros(1, 4, 1, hd, dtype=torch.bfloat16)
+    # the launch path checks its inputs before it loads the library (the
+    # no_kernel_build fixture fails the test if it does) or counts a launch
+    with pytest.raises(ValueError, match="head_dim"):
+        FA._launch(q, k, k, True, 1.0)
+
+
+def test_rmsnorm_wrapper_mirrors_the_kernels_dispatch():
+    """The widths the kernel holds in registers and its warps per block."""
+    src = (CSRC / "rmsnorm.cu").read_text()
+    widths = sorted(int(w) for w in re.findall(r"vec_ok && d == (\d+)", src))
+    assert tuple(widths) == RN.RESIDENT_WIDTHS
+    assert RN.WARPS_PER_BLOCK == _cu_int("rmsnorm.cu", "WARPS")
+
+
+@pytest.mark.parametrize("d,esize,vec_ok,want", [
+    (4096, 2, True, 16), (2560, 2, True, 10),     # bf16 serving widths
+    (4096, 4, True, 32), (2560, 4, True, 20),     # f32
+    (4096, 2, False, 0), (2560, 4, False, 0),     # rows not 16-byte aligned
+    (8192, 2, True, 0), (2048, 2, True, 0), (1000, 2, True, 0),
+    (1001, 4, False, 0)])
+def test_rmsnorm_plan_holds_the_serving_widths_in_registers(d, esize, vec_ok,
+                                                            want):
+    """Register-resident instantiation for d 2560 and 4096, the generic
+    kernel (0) otherwise; a resident row is whole 16-byte vectors per lane
+    and at most 128 registers of it."""
+    nv = RN.vectors_per_lane(d, esize, vec_ok)
+    assert nv == want
+    if nv:
+        assert nv * 32 * (16 // esize) == d and nv * 4 <= 128
+
+
+@pytest.mark.parametrize("rows,blocks", [(1, 1), (4, 1), (8, 1), (9, 2),
+                                         (4096, 512)])
+def test_rmsnorm_runs_one_warp_per_row(rows, blocks):
+    """A decode step's few rows take one block; a prefill's 4096 rows want
+    512 blocks of ``WARPS_PER_BLOCK`` warps (the kernel caps that at what
+    the card holds and walks the rest in a grid-stride loop)."""
+    assert RN.blocks_wanted(rows) == blocks
