@@ -17,9 +17,12 @@ non-zero (no phase catches another's exception):
    causal with Sq > Sk, non-causal with a ragged last K/V tile), RMSNorm
    (d 4096 and 2560 at the prefill and decode shapes and one row, the
    generic kernel's widths 8192, 1001 and 1000, mixed x/scale types, rows
-   not 16-byte aligned), the SSD scan (zamba2's serving shape in bf16, a
-   smaller f32 shape, S < chunk, a chunk no 64-row tile divides), y and
-   the final state.
+   not 16-byte aligned), the SSD scan, y and the final state (zamba2's
+   serving shape in bf16, a smaller f32 shape, S < chunk, a chunk no
+   64-row tile divides in f32 and bf16; in bf16 also G = 2 groups, S =
+   chunk, a 16-link chain of states (S 4096 at chunk 256), chunk 512, a
+   chunk no 16-row tile divides, P = N = 48, and two calls at the serving
+   shape that must agree bit for bit).
 3. Full-width granite-3-8b (all 40 layers, bf16, random weights from a
    seed): prefill logits with the kernels against the same model with the
    plain versions; ``generate(gen=32)`` with the launch counters checked
@@ -50,6 +53,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -318,12 +322,21 @@ def phase_kernels_vs_plain():
                     and xdt is None):
                 errs[f"rmsnorm@d{d}"] = err
 
+    bf16 = torch.bfloat16
     ssd_cases = [  # (B, S, H, P, N, G, chunk, dtype)
         (BATCH, PROMPT_LEN, SSD_HEADS, SSD_P, SSD_N, SSD_G, SSD_CHUNK,
-         torch.bfloat16),                               # zamba2 serving
+         bf16),                                         # zamba2 serving
         (2, 512, 8, 64, 64, 8, 128, torch.float32),     # f32, G = H
-        (BATCH, 64, 16, 16, 16, 1, SSD_CHUNK, torch.bfloat16),  # S < chunk
+        (BATCH, 64, 16, 16, 16, 1, SSD_CHUNK, bf16),    # S < chunk
         (2, 192, 4, 32, 16, 2, 96, torch.float32),      # ragged 64-row tile
+        # the bf16 kernel's edges
+        (2, 512, 8, 64, 64, 2, 256, bf16),              # G = 2 groups
+        (BATCH, 256, SSD_HEADS, 64, 64, 1, 256, bf16),  # S = chunk: one link
+        (1, 4096, 8, 64, 64, 1, 256, bf16),             # a 16-link chain
+        (2, 192, 4, 32, 16, 2, 96, bf16),               # ragged 64-row tile
+        (2, 40, 4, 32, 16, 1, SSD_CHUNK, bf16),         # ragged 16-row tile
+        (2, 1024, 16, 64, 64, 1, 512, bf16),            # chunk 512
+        (2, 288, 4, 48, 48, 1, 96, bf16),               # P = N = 48
     ]
     for i, (b, s, h, p, n, g, chunk, dtype) in enumerate(ssd_cases):
         x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, g, dtype, seed=40 + i)
@@ -344,6 +357,14 @@ def phase_kernels_vs_plain():
                                  f"version (case {i})")
         if i == 0:
             errs["ssd_scan"] = err_y
+            # the ticket order of the bf16 kernel's items must not change
+            # any sum: a second call agrees bit for bit
+            y2, hT2 = SS.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+            sync()
+            same = torch.equal(y, y2) and torch.equal(hT, hT2)
+            log(f"# ssd serving shape, second call bitwise equal: {same}")
+            if not same:
+                raise AssertionError("ssd scan kernel: two calls differ")
     return errs
 
 
@@ -671,8 +692,15 @@ def _time_ssd(launches, err):
     plain = time_ms(lambda: SS.ssd_scan(x, dt, a, bb, cc, chunk=q,
                                         impl="plain"), reps=5)
     bound, by, how = ssd_bound(b, s, h, p, n, g, q, 2)
+    states = 4 * math.prod(SS.state_scratch_shape(b, h, s // q, p, n))
     log(f"# ssd: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 {cold:.4f}), "
-        f"plain {plain:.4f} ms; bound: {how} -> {bound * 1e3:.1f} us ({by})")
+        f"plain {plain:.4f} ms; bound: {how} -> {bound * 1e3:.1f} us ({by}), "
+        f"{bound / cold:.1%} of it cold; beyond the bound's bytes the chain "
+        f"writes and reads {states / 1e6:.1f} MB "
+        f"of f32 states; {SS.smem_bytes(q, p, n)} B of shared memory a block")
+    k512 = lambda: SS.ssd_scan(x, dt, a, bb, cc, chunk=512)  # noqa: E731
+    log(f"# ssd at chunk 512 (one block per SM): cold L2 "
+        f"{time_ms(k512, cold=True, device_only=True):.4f} ms")
     return dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",

@@ -117,7 +117,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mist_flash_attn_fwd.restype = i
     lib.mist_rmsnorm.argtypes = [p, p, p, i, i, f, i, i, i, p]
     lib.mist_rmsnorm.restype = i
-    lib.mist_ssd_scan.argtypes = [p] * 7 + [i] * 8 + [ll] * 12 + [p]
+    lib.mist_ssd_scan.argtypes = [p] * 9 + [i] * 8 + [ll] * 12 + [p]
     lib.mist_ssd_scan.restype = i
     lib.mist_error_string.argtypes = [i]
     lib.mist_error_string.restype = ctypes.c_char_p

@@ -293,11 +293,16 @@ def test_ssd_groups_index_equals_reference_repeat(groups):
 
 
 def test_ssd_kernel_shared_memory_fits_the_serving_chunk():
-    """The kernel's shared memory at zamba2's chunk 256, P 64, N 64 fits a
-    block's 227 KB; chunk 512 does not, and the wrapper says so before any
-    launch."""
-    assert SS.smem_bytes(256, 64, 64) <= SS.SMEM_LIMIT
-    assert SS.smem_bytes(512, 64, 64) > SS.SMEM_LIMIT
+    """The bf16 kernel's shared memory at zamba2's chunk 256, P 64, N 64
+    admits two blocks per SM, and chunk 512 (the top of the reference's
+    ``SSD_CHUNKS``) fits one block's 227 KB; the f32 kernel, which stages
+    the chunk in f32, still takes chunk 256 and not 512."""
+    per_sm = SM_SHARED_BYTES // (SS.smem_bytes(256, 64, 64)
+                                 + BLOCK_RESERVED_BYTES)
+    assert per_sm >= 2
+    assert SS.smem_bytes(512, 64, 64) <= SS.SMEM_LIMIT
+    assert SS.smem_bytes(256, 64, 64, torch.float32) <= SS.SMEM_LIMIT
+    assert SS.smem_bytes(512, 64, 64, torch.float32) > SS.SMEM_LIMIT
 
 
 # The kernels' launch arithmetic, mirrored in the wrappers (pure Python) and
@@ -399,3 +404,170 @@ def test_rmsnorm_runs_one_warp_per_row(rows, blocks):
     512 blocks of ``WARPS_PER_BLOCK`` warps (the kernel caps that at what
     the card holds and walks the rest in a grid-stride loop)."""
     assert RN.blocks_wanted(rows) == blocks
+
+
+# -- the bf16 SSD kernel's plan, on the CPU -----------------------------------
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _split(t):
+    """f32 -> (hi, lo), both bf16 values, hi + lo ~ t (the kernel's split2)."""
+    hi = _bf16(t)
+    return hi, _bf16(t - hi)
+
+
+def _ssd_kernel_rounding(xh, dt, a, bb, cc, q, split_scores=True):
+    """The bf16 kernel's arithmetic with its rounding points: scores
+    ``G * exp(cum_t - cum_s) * dt_s`` rounded to bf16 hi + lo (or once),
+    ``B * w`` and the entering state split into bf16 hi + lo, ``C h_in``
+    formed before its rows are scaled by ``exp(cum_t)``; products exact and
+    summed in f32, as the tensor cores do.  -> (y in xh's dtype, hT)."""
+    bsz, s, h, p = xh.shape
+    x = xh.float().permute(0, 2, 1, 3)
+    dtf = dt.permute(0, 2, 1)
+    bf = SS.repeat_groups(bb, h).float().permute(0, 2, 1, 3)
+    cf = SS.repeat_groups(cc, h).float().permute(0, 2, 1, 3)
+    da = dtf * a[None, :, None]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    state = torch.zeros((bsz, h, bf.shape[-1], p))
+    ys = []
+    for c0 in range(0, s, q):
+        sl = slice(c0, c0 + q)
+        xc, dtc, bc, ccc = x[:, :, sl], dtf[:, :, sl], bf[:, :, sl], \
+            cf[:, :, sl]
+        cum = torch.cumsum(da[:, :, sl], dim=-1)
+        rel = cum[..., :, None] - cum[..., None, :]
+        lmat = torch.exp(torch.where(tri, rel, torch.tensor(float("-inf"))))
+        scores = (ccc @ bc.transpose(-1, -2)) * lmat * dtc[..., None, :]
+        if split_scores:
+            s_hi, s_lo = _split(scores)
+            y = s_hi @ xc + s_lo @ xc
+        else:
+            y = _bf16(scores) @ xc
+        h_hi, h_lo = _split(state)
+        y = y + torch.exp(cum)[..., None] * (ccc @ h_hi + ccc @ h_lo)
+        w = torch.exp(cum[..., -1:] - cum) * dtc
+        bw_hi, bw_lo = _split(bc * w[..., None])
+        local = bw_hi.transpose(-1, -2) @ xc + bw_lo.transpose(-1, -2) @ xc
+        state = state * torch.exp(cum[..., -1])[..., None, None] + local
+        ys.append(y)
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(xh.dtype)
+    return y, state.transpose(-1, -2)
+
+
+def _serving_like_ssd_inputs(seed, b, s, h, p, n, g=1):
+    """bf16 x/B/C and f32 dt/a drawn as chip_smoke.py draws them at the
+    serving shape (x, B, C ~ N(0, 1); dt = softplus(N(0, 1));
+    a = -exp(N(0, 1/4)))."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape, dtype=np.float32))
+    return (f(b, s, h, p).to(torch.bfloat16),
+            torch.nn.functional.softplus(f(b, s, h)),
+            -torch.exp(0.5 * f(h)),
+            f(b, s, g, n).to(torch.bfloat16),
+            f(b, s, g, n).to(torch.bfloat16))
+
+
+def test_ssd_kernel_rounding_plan_holds_the_tolerances():
+    """The bf16 kernel's rounding points, rehearsed at P = N = 64, chunk
+    256, S 1024 (four chunks, so the state is handed on three times): y
+    within the bf16 kernel tolerance of ``ssd_plain`` (f32 throughout), hT
+    within 2e-4."""
+    xh, dt, a, bb, cc = _serving_like_ssd_inputs(6, 1, 1024, 2, 64, 64)
+    want_y, want_h = SS.ssd_plain(xh, dt, a, bb, cc, 256)
+    got_y, got_h = _ssd_kernel_rounding(xh, dt, a, bb, cc, 256)
+    np.testing.assert_allclose(_np(got_y), _np(want_y), atol=ATOL["bfloat16"],
+                               rtol=RTOL["bfloat16"])
+    np.testing.assert_allclose(got_h.numpy(), want_h.numpy(), atol=2e-4,
+                               rtol=2e-4)
+
+
+def test_ssd_scores_need_the_hi_lo_split():
+    """Why the kernel splits the scores: rounded to bf16 once, y moves past
+    the bf16 tolerance against the f32 plain version at the serving
+    distributions; with the split it stays several times inside it."""
+    xh, dt, a, bb, cc = _serving_like_ssd_inputs(7, 1, 512, 4, 64, 64)
+    want, _ = SS.ssd_plain(xh, dt, a, bb, cc, 256)
+    bound = ATOL["bfloat16"] + RTOL["bfloat16"] * want.float().abs()
+
+    def worst(split):
+        got, _ = _ssd_kernel_rounding(xh, dt, a, bb, cc, 256, split)
+        return float(((got.float() - want.float()).abs() / bound).max())
+
+    assert worst(False) > 1.0 > 2 * worst(True)
+
+
+@pytest.mark.parametrize("name", ["TC_WARPS", "ROW_BLOCK", "SMEM_PAD"])
+def test_ssd_wrapper_mirrors_the_kernels_tile_constants(name):
+    assert getattr(SS, name) == _cu_int("ssd_scan.cu", name)
+
+
+def test_ssd_wrapper_mirrors_the_kernels_sizes():
+    """Threads, the P / N menu (multiples of one k16 step up to MAX_DIM),
+    shared memory at the serving chunk (x and B padded, the entering state
+    as hi + lo, cum / dt / w, the scan's warp sums and the ticket) and the
+    chain's f32 scratch at zamba2's prefill (15.7 MB)."""
+    assert _cu_int("ssd_scan.cu", "TC_THREADS") == 32 * SS.TC_WARPS
+    assert SS.TC_DIMS == tuple(range(16, _cu_int("ssd_scan.cu", "MAX_DIM")
+                                     + 1, 16))
+    src = (CSRC / "ssd_scan.cu").read_text()
+    for entry in ("int launch_tc_p(", "int launch_tc("):  # N, then P
+        body = src[src.index(entry):]
+        body = body[:body.index("\n}\n")]
+        cases = tuple(int(c) for c in re.findall(r"case (\d+):", body))
+        assert cases == SS.TC_DIMS, (entry, cases)
+    assert SS.MAX_HEAD_DIM == _cu_int("ssd_scan.cu", "MAX_DIM")
+    assert SS.SMEM_LIMIT == _cu_int("ssd_scan.cu", "MAX_SMEM")
+    assert SS.smem_bytes(256, 64, 64) == 2 * (256 * 72 * 2 + 2 * 64 * 72) \
+        + 4 * (3 * 256 + 8 + 4) == 95280
+    assert SS.smem_bytes(40, 32, 16) == SS.smem_bytes(48, 32, 16)  # padded
+    assert SS.state_scratch_shape(4, 80, 4, 64, 64) == (4, 80, 3, 64, 64)
+    assert 4 * np.prod(SS.state_scratch_shape(4, 80, 4, 64, 64)) \
+        == 15_728_640
+    assert SS.sync_words(4, 80, 4) == 1 + 4 * 80 * 3
+    assert SS.sync_words(2, 8, 1) == 1  # one chunk: no state is handed on
+
+
+@pytest.mark.parametrize("case", ["p8", "n80", "p40", "chunk1024",
+                                  "x_offset", "b_stride", "f16"])
+def test_ssd_wrapper_rejects_what_the_bf16_kernel_does_not_take(case):
+    """Outside the bf16 kernel's limits the launch path raises before it
+    loads the library (the no_kernel_build fixture) or counts a launch."""
+    q = 64
+    shape = dict(p8=dict(p=8), n80=dict(n=80), p40=dict(p=40),
+                 chunk1024=dict(s=1024)).get(case, {})
+    shape = {**dict(s=64, p=64, n=64), **shape}
+    x, dt, a, bb, cc = _serving_like_ssd_inputs(8, 1, shape["s"], 2,
+                                                shape["p"], shape["n"])
+    if case == "chunk1024":
+        q = 1024
+    elif case == "x_offset":   # x one element into its buffer
+        buf = torch.zeros(x.numel() + 1, dtype=x.dtype)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(x.shape)
+    elif case == "b_stride":   # B rows of 68 elements: 136 bytes
+        wide = torch.zeros(bb.shape[:3] + (68,), dtype=bb.dtype)
+        wide[..., :64] = bb
+        bb = wide[..., :64]
+    elif case == "f16":
+        x, bb, cc = x.half(), bb.half(), cc.half()
+    args = (x, dt, a, bb, cc)
+    err = TypeError if case == "f16" else ValueError
+    with pytest.raises(err):
+        SS._launch(*args, q)
+
+
+def test_ssd_bf16_kernel_takes_ragged_chunks_and_chunk_512():
+    """No check of the launch path refuses a chunk that no 16-row tile
+    divides (40: padded rows) or chunk 512 at P = N = 64; they stop only at
+    the library (which the no_kernel_build fixture refuses)."""
+    for s, q in ((40, 40), (1024, 512), (288, 96)):
+        x, dt, a, bb, cc = _serving_like_ssd_inputs(8, 1, s, 2, 64, 64)
+        SS._check_cuda_inputs(x, dt, a, bb, cc)
+        SS._check_tc_route(x, bb, cc, q)
+        with pytest.raises(AssertionError, match="kernel loader"):
+            SS._launch(x, dt, a, bb, cc, q)
