@@ -11,7 +11,7 @@ non-zero (no phase catches another's exception):
    power limit (nvidia-smi), and the build of the hand-written kernels from
    the checkout's CUDA sources.
 2. Each kernel against its plain PyTorch version on the card, at the
-   serving paths' shapes and at the edges of the kernels' tiles: flash
+   main paths' shapes and at the edges of the kernels' tiles: flash
    attention (hd 128 for granite, hd 80 for zamba2; every head dim with Sq
    off the 128-row query block, Sk shorter than one K/V tile, Sq = 1,
    causal with Sq > Sk, non-causal with a ragged last K/V tile), RMSNorm
@@ -22,7 +22,14 @@ non-zero (no phase catches another's exception):
    64-row tile divides in f32 and bf16; in bf16 also G = 2 groups, S =
    chunk, a 16-link chain of states (S 4096 at chunk 256), chunk 512, a
    chunk no 16-row tile divides, P = N = 48, and two calls at the serving
-   shape that must agree bit for bit).
+   shape that must agree bit for bit).  Then the backward kernels: flash
+   attention's dq/dk/dv, per element and in relative error per 128-row
+   tile (granite's training shape, with a second call that must agree bit
+   for bit and a planted late-tile fault the rule must reject; every head
+   dim with Sq off the query tile, Sk
+   shorter than one key tile, H = KV, causal with Sq > Sk, non-causal with
+   a ragged last tile) and RMSNorm's dx/dscale (4096 x 4096 and d 2560
+   bf16, the generic widths 1001 and 8192, f32, mixed x/scale types).
 3. Full-width granite-3-8b (all 40 layers, bf16, random weights from a
    seed): prefill logits with the kernels against the same model with the
    plain versions; ``generate(gen=32)`` with the launch counters checked
@@ -35,6 +42,22 @@ non-zero (no phase catches another's exception):
    empty the L2 (``cold_ms``, held against the bound).  Then the serve
    loop's prefill / decode times, tokens per second and peak memory.  Then
    granite's weights are freed and the peak-memory statistics reset.
+T. Training granite-3-8b at its published widths, its depth cut from 40 to
+   8 layers (f32 master, mu and nu of all 40 would not fit one card), with
+   a plan of ckpt 6 (3 of them offloading their inputs), WO = OO = 0.5,
+   grad_accum 2, seq 4096: ``adam_update`` with WO = OO = 0.5 against 0 on
+   the reduced config (bitwise); the launcher (``launch.train.main
+   --layers 8 --plan-json``, two steps, the four launch counts checked
+   exactly); at Adam lr 1e-6 (T_LR), one micro-batch's loss and every
+   gradient with the kernels and with the plain versions, held to the
+   plain versions in f32; one step with the plain versions and one with
+   the kernels from the same state and batch (loss and grad norm agree);
+   five steps with the kernels on one batch (the loss falls over the
+   first three and overall), each with the four launch counts checked
+   exactly; the reduced config's loss and gradients on the card against
+   the CPU; the step's time, tokens/s, model FLOP/s, peak memory and
+   pinned host bytes; the backward kernels' times at the training shapes.
+   Then its state is freed.
 5. Phases 3 and 4 for full-width zamba2-2.7b (all 54 Mamba2 layers in 9
    groups, one shared attention block, bf16): logits kernels vs plain
    (both held against the plain versions in f32, see ACCURACY_ROOM),
@@ -42,9 +65,10 @@ non-zero (no phase catches another's exception):
    launches, the reduced config card vs CPU, and the timings (SSD, flash
    at hd 80, RMSNorm at d 2560, the serve loop).
 6. With ``--profile`` only: a ``torch.profiler`` window over one prefill
-   and over three decode steps of each model -- device busy time, idle
-   share and the kernels that take the most device time -- written as one
-   JSON line (the Chrome traces go to ``build/profile/``).
+   and over three decode steps of each model, and over one train step --
+   device busy time, idle share and the kernels that take the most device
+   time -- written as one JSON line each (the Chrome traces go to
+   ``build/profile/``).
 7. The ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Without a CUDA device it exits with code 2 and prints no result.
@@ -113,6 +137,53 @@ ACCURACY_ROOM = 1.5
 # sequential oracle (tests/test_kernels.py); the in-chunk cumsum and the
 # products sum in another order than the plain version
 SSD_F32_TOL = dict(atol=2e-4, rtol=2e-4)
+# the backward kernels.  flash dq/dk/dv (bf16) against the plain version run
+# in f32: the reference's own bf16 tolerance for its blocked backward
+# (tests/test_kernels.py:59-62).  RMSNorm's f32 dscale: a sum over the rows
+# that the kernel takes in another order (per-block partials, then across
+# blocks) than the plain version.
+FLASH_BWD_TOL = dict(atol=5e-2, rtol=5e-2)
+# ... and, since at S 4096 that per-element rule is as large as most of the
+# values it compares (dq of row i spreads as ~1/sqrt(i)), each of dq/dk/dv
+# is also held to a relative error: ||got - want|| / ||want|| in every
+# (batch, 128-row tile, head), and max |got - want| / max |want|.  The
+# plain version run with bf16 inputs (the kernel's roundings: bf16 P, dS
+# and outputs) reads 2.4e-3-3.0e-3 on both at S 1024 on the CPU; a tile
+# whose dq is 0.8x its value reads 0.2.
+FLASH_BWD_REL = 1e-2
+FLASH_BWD_TILE = 128
+DSCALE_F32_TOL = dict(atol=1e-3, rtol=1e-5)
+
+# training: granite-3-8b at its published widths, depth cut to 8 layers;
+# one sequence of 4096 per micro-batch, 2 micro-batches a step
+T_LAYERS, T_SEQ, T_MICRO, T_ACCUM, T_CKPT = 8, 4096, 1, 2, 6
+T_STEPS = 5
+# the learning rate of the training phase.  Adam's first steps move every
+# weight by about lr along its gradient's sign, so a layer's output shifts
+# by about fan-in x lr: at the reference's lr 3e-4 (no warmup) that is
+# several times the output at d_ff 12800, and on this random init the loss
+# rose from 11.22 to 18.89 after one step; at 1e-5 it fell once and then
+# oscillated with a growing grad norm (runs of this script, H100 80GB HBM3,
+# 700 W).  Runs at this width warm the rate up; with no warmup, 1e-6 (about
+# 1% of a layer's output per step) keeps the check in the regime where each
+# step on the same batch lowers the loss.  The first step's loss and grad
+# norm, which the kernels-vs-plain check compares, come before any update.
+T_LR = 1e-6
+# kernels vs plain versions from the same state and batch, one step: bf16
+# runs that round differently inside attention and the norms.  Readings
+# (this script, H100 80GB HBM3, 700 W): the step's loss 1.3e-5 and grad norm
+# 1.2e-4 relative, micro-batch 0's loss 2.5e-5; the loss is deterministic
+# and the grad norm differs run to run only by the embedding gather's
+# atomics.  Allowed: 4-8x the readings.  Every gradient is also held leaf
+# by leaf (_grads_close).
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-4, 1e-3
+# the reduced config, card kernels vs CPU plain: the CPU parity tests' bf16
+# loss tolerance (tests/test_torch_train.py)
+REDUCED_LOSS_RTOL = 1e-2
+# steps of the launcher's run (Adam's default lr), which prints its losses
+# to 3 decimals: its first is this phase's first within half a unit of the
+# last place
+LAUNCHER_STEPS, LAUNCHER_LOSS_ATOL = 2, 5e-4 + 1e-6
 
 
 def log(msg: str) -> None:
@@ -365,6 +436,142 @@ def phase_kernels_vs_plain():
             log(f"# ssd serving shape, second call bitwise equal: {same}")
             if not same:
                 raise AssertionError("ssd scan kernel: two calls differ")
+    errs.update(_backward_kernels_vs_plain())
+    return errs
+
+
+def tile_rel_err(got, want, tile=FLASH_BWD_TILE):
+    """Relative errors of a (B, S, heads, hd) gradient: the largest
+    ||got - want|| / ||want|| over its (batch, tile of S rows, head) blocks,
+    and max |got - want| / max |want|."""
+    got, want = got.float(), want.float()
+    b, s, h, _ = want.shape
+    pad = (-s) % tile
+
+    def block_sq(x):   # squared norms per (batch, tile, head)
+        x = F.pad(x.square().sum(-1), (0, 0, 0, pad))
+        return x.view(b, (s + pad) // tile, tile, h).sum(2)
+
+    err_sq, want_sq = block_sq(got - want), block_sq(want)
+    rel = (err_sq / want_sq.clamp_min(1e-30)).sqrt()
+    worst = float(rel.max()) if bool(torch.isfinite(got).all()) else math.inf
+    return worst, float((got - want).abs().max() / want.abs().max())
+
+
+def flash_bwd_close(got, want):
+    """(ok, max_abs_err, tile rel, max rel) of one flash gradient under
+    FLASH_BWD_TOL and FLASH_BWD_REL."""
+    ok, err = close(got, want, **FLASH_BWD_TOL)
+    tile, top = tile_rel_err(got, want)
+    return (ok and tile <= FLASH_BWD_REL and top <= FLASH_BWD_REL,
+            err, tile, top)
+
+
+def _backward_kernels_vs_plain():
+    """The backward kernels against their plain versions; returns their
+    max errors at the training shapes."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+
+    errs = {}
+    cases = [  # (B, Sq, Sk, H, KV, hd, causal)
+        (T_MICRO, T_SEQ, T_SEQ, N_HEADS, N_KV, HEAD_DIM, True),  # training
+        (2, 40, 40, 4, 1, 32, True),        # the reduced config's heads
+        # every head dim with Sq not a multiple of a query tile
+        (2, 200, 200, 8, 2, 32, True),
+        (2, 300, 300, 8, 2, 64, True),
+        (2, 250, 250, 8, 8, 80, True),
+        (2, 330, 330, 8, 2, 128, True),
+        # Sk shorter than one key tile
+        (2, 200, 50, 8, 2, 128, False),
+        (2, 40, 30, 8, 8, 80, True),
+        # H = KV (no grouping), zamba2's shared block
+        (2, 256, 256, Z_HEADS, Z_HEADS, Z_HEAD_DIM, True),
+        # causal with Sq > Sk
+        (2, 300, 100, 16, 4, 64, True),
+        # non-causal with a ragged last key tile
+        (2, 129, 200, 8, 2, 32, False),
+        (2, 256, 333, 8, 8, 80, False),
+    ]
+    for i, (b, sq, sk, h, kv, hd, causal) in enumerate(cases):
+        q, k, v = _qkv(b, sq, sk, h, kv, hd, seed=70 + i)
+        dout = _qkv(b, sq, 1, h, 1, hd, seed=90 + i)[0]
+        o, lse = FA.flash_attention(q, k, v, causal=causal)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal)
+        sync()
+        want = FA.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                      o.float(), lse, dout.float(),
+                                      causal=causal, impl="plain")
+        sync()
+        res = [flash_bwd_close(g, w) for g, w in zip(got, want)]
+        log(f"# flash bwd B{b} Sq{sq} Sk{sk} H{h} KV{kv} hd{hd} "
+            f"causal={causal}: dq/dk/dv max err "
+            f"{'/'.join(f'{r[1]:.3e}' for r in res)} (max |ref| "
+            f"{'/'.join(f'{float(w.abs().max()):.2f}' for w in want)}); "
+            f"relative, worst tile "
+            f"{'/'.join(f'{r[2]:.3e}' for r in res)}, max err / max |ref| "
+            f"{'/'.join(f'{r[3]:.3e}' for r in res)}")
+        if not all(r[0] for r in res):
+            raise AssertionError("flash attention backward kernel disagrees "
+                                 f"with its plain version (case {i})")
+        if i == 0:
+            errs["flash_attention_bwd"] = max(r[1] for r in res)
+            # the rule must see a fault confined to late tiles: the late
+            # half of dq (or of dk) at 0.8x its value fails it
+            for j, name in ((0, "dq"), (1, "dk")):
+                bad = got[j].clone()
+                bad[:, bad.shape[1] // 2:] *= 0.8
+                ok, _, tile, _ = flash_bwd_close(bad, want[j])
+                log(f"# flash bwd training shape, planted fault (late half "
+                    f"of {name} x 0.8): worst tile {tile:.3e}, rejected "
+                    f"{not ok}")
+                if ok:
+                    raise AssertionError("the flash backward rule passes a "
+                                         "planted fault")
+            # deterministic (no atomics): a second call agrees bit for bit
+            again = FA.flash_attention_bwd(q, k, v, o, lse, dout,
+                                           causal=causal)
+            sync()
+            same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+            log(f"# flash bwd training shape, second call bitwise equal: "
+                f"{same}")
+            if not same:
+                raise AssertionError("flash backward kernel: two calls "
+                                     "differ")
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rn_cases = [  # (rows, d, x dtype, scale dtype)
+        (T_MICRO * T_SEQ, D_MODEL, bf16, bf16),   # the training shape
+        (BATCH * PROMPT_LEN, Z_D_MODEL, bf16, bf16),
+        (33, 8192, bf16, bf16),                   # generic kernel widths
+        (5, 1001, bf16, bf16),
+        (300, D_MODEL, f32, f32),
+        (7, 1001, f32, f32),
+        (300, D_MODEL, f32, bf16),                # mixed types
+        (300, D_MODEL, bf16, f32),
+    ]
+    for rows, d, xdt, sdt in rn_cases:
+        g = torch.Generator(DEVICE).manual_seed(rows + d + 1)
+        x = torch.randn((rows, d), generator=g, device=DEVICE).to(xdt)
+        dy = torch.randn((rows, d), generator=g, device=DEVICE).to(xdt)
+        scale = (1 + 0.1 * torch.randn((d,), generator=g, device=DEVICE)
+                 ).to(sdt)
+        dx, ds = RN.rmsnorm_bwd(x, scale, dy)
+        sync()
+        want_dx, want_ds = RN.rmsnorm_bwd(x, scale, dy, impl="plain")
+        sync()
+        ok_x, err_x = close(dx, want_dx, **(BF16_TOL if xdt == bf16
+                                            else F32_TOL))
+        ok_s, err_s = close(ds, want_ds, **(BF16_TOL if sdt == bf16
+                                            else DSCALE_F32_TOL))
+        log(f"# rmsnorm bwd rows {rows} d {d} x {xdt} scale {sdt}: dx max "
+            f"err {err_x:.3e}, dscale max err {err_s:.3e} (max |dscale| "
+            f"{float(want_ds.float().abs().max()):.1f})")
+        if not (ok_x and ok_s):
+            raise AssertionError("rmsnorm backward kernel disagrees with "
+                                 f"its plain version ({rows}x{d})")
+        if rows == T_MICRO * T_SEQ and d == D_MODEL:
+            errs["rmsnorm_bwd"] = err_x
     return errs
 
 
@@ -381,10 +588,24 @@ def _plan(num_layers):
 
 
 def _counters():
+    """Each kernel's launch counter: (module, attribute)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SS
-    return {"flash_attention_fwd": FA, "rmsnorm": RN, "ssd_scan": SS}
+    return {"flash_attention_fwd": (FA, "LAUNCHES"),
+            "flash_attention_bwd": (FA, "BWD_LAUNCHES"),
+            "rmsnorm": (RN, "LAUNCHES"), "rmsnorm_bwd": (RN, "BWD_LAUNCHES"),
+            "ssd_scan": (SS, "LAUNCHES")}
+
+
+def _reset_counts():
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def _read_counts():
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _counters().items()}
 
 
 def _as_accurate(got, base, truth, what):
@@ -464,12 +685,10 @@ def phase_full_width_serve(arch, dims, want_launches, f32_truth=False):
 
     # the main path, counted: every count set to 0 just before, read after
     torch.cuda.reset_peak_memory_stats()
-    counters = _counters()
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    _reset_counts()
     toks = generate(model, params, prompts, GEN, plan)
     sync()
-    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
+    launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     log(f"# {arch} generate(gen={GEN}) launches: {launches}; peak memory "
         f"{peak / 2**30:.2f} GiB")
@@ -483,8 +702,9 @@ def phase_full_width_serve(arch, dims, want_launches, f32_truth=False):
 
 
 def _granite_launches(cfg):
-    return {"flash_attention_fwd": cfg.num_layers,
-            "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "ssd_scan": 0}
+    return {"flash_attention_fwd": cfg.num_layers, "flash_attention_bwd": 0,
+            "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "rmsnorm_bwd": 0,
+            "ssd_scan": 0}
 
 
 def _zamba2_launches(cfg):
@@ -492,9 +712,9 @@ def _zamba2_launches(cfg):
     # prefill: one flash per shared-block application and one SSD per
     # Mamba2 layer; every step: 2 norms per application, 1 per Mamba2
     # layer and the final norm (73 at full width)
-    return {"flash_attention_fwd": groups,
+    return {"flash_attention_fwd": groups, "flash_attention_bwd": 0,
             "rmsnorm": (2 * groups + cfg.num_layers + 1) * GEN,
-            "ssd_scan": cfg.num_layers}
+            "rmsnorm_bwd": 0, "ssd_scan": cfg.num_layers}
 
 
 def _teacher_forced(cfg, params, toks, plen, dev, dtype=torch.bfloat16):
@@ -712,6 +932,442 @@ def _time_ssd(launches, err):
         shape=f"B{b} S{s} H{h} P{p} N{n} G{g} chunk {q} bf16")
 
 
+def flash_bwd_bound(b, sq, sk, h, kv, hd, causal):
+    """(bound_ms, bound_by, arithmetic) for one flash-attention backward:
+    five products (S, dP, dV, dK, dQ) over the causal pairs, 2 flop per
+    MAC; q, k, v, o, dO and lse read once, dq, dk, dv written once."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    flops = 5 * 2 * b * h * hd * pairs
+    nbytes = 2 * (4 * b * sq * h * hd + 4 * b * sk * kv * hd) + 4 * b * h * sq
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    how = (f"{flops / 1e9:.2f} GFLOP / 989 TFLOP/s = {t_ops * 1e6:.1f} us; "
+           f"{nbytes / 1e6:.1f} MB / 3.35 TB/s = {t_bytes * 1e6:.1f} us")
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes", how
+
+
+def rmsnorm_bwd_bound(rows, d, esize):
+    """x and dy read, dx written (scale read and dscale written: d each);
+    ~12 f32 flop per element."""
+    flops = 12 * rows * d
+    nbytes = 3 * rows * d * esize + 2 * d * esize
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    how = (f"{nbytes / 1e6:.1f} MB / 3.35 TB/s = {t_bytes * 1e6:.1f} us; "
+           f"{flops / 1e6:.1f} MFLOP f32 / 67 TFLOP/s = {t_ops * 1e6:.2f} us")
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops > t_bytes else "bytes", how
+
+
+def _time_flash_bwd(launches, err):
+    """The flash backward entry at granite's training shape, with the
+    backward of ``scaled_dot_product_attention`` (causal, GQA) through
+    ``torch.autograd.grad`` as the library yardstick."""
+    from repro_torch.kernels import flash_attention as FA
+
+    b, s, h, kv, hd = T_MICRO, T_SEQ, N_HEADS, N_KV, HEAD_DIM
+    q, k, v = _qkv(b, s, s, h, kv, hd, seed=97)
+    dout = _qkv(b, s, 1, h, 1, hd, seed=96)[0]
+    o, lse = FA.flash_attention(q, k, v, causal=True)
+    kernel = lambda: FA.flash_attention_bwd(  # noqa: E731
+        q, k, v, o, lse, dout, causal=True)
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                        enable_gqa=True)
+    doh = dout.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        oh, (qh, kh, vh), doh, retain_graph=True)
+    ms, lib_ms = time_ms(kernel), time_ms(lib)
+    dev = time_ms(kernel, device_only=True)
+    lib_dev = time_ms(lib, device_only=True)
+    cold = time_ms(kernel, cold=True, device_only=True)
+    lib_cold = time_ms(lib, cold=True, device_only=True)
+    plain = time_ms(lambda: FA.flash_attention_bwd(
+        q, k, v, o, lse, dout, causal=True, impl="plain"), reps=3, warmup=1)
+    bound, by, how = flash_bwd_bound(b, s, s, h, kv, hd, True)
+    log(f"# flash bwd: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 "
+        f"{cold:.4f}), plain {plain:.4f} ms, SDPA backward {lib_ms:.4f} ms "
+        f"(device {lib_dev:.4f}, cold {lib_cold:.4f}); kernel / SDPA "
+        f"{ms / lib_ms:.3f} (device {dev / lib_dev:.3f}, cold "
+        f"{cold / lib_cold:.3f}); bound: {how} -> {bound * 1e3:.1f} us "
+        f"({by}), {bound / cold:.1%} of it cold")
+    return dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/ops.py:75",
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, library_ms=lib_ms, device_ms=dev,
+        library_device_ms=lib_dev, cold_ms=cold, library_cold_ms=lib_cold,
+        model="granite-3-8b (training)",
+        shape=f"B{b} S{s} H{h} KV{kv} hd{hd} causal bf16")
+
+
+def _time_rmsnorm_bwd(launches, err):
+    """The RMSNorm backward entry at the training shape (one micro-batch's
+    4096 rows of 4096), with the backward of ``F.rms_norm`` through
+    ``torch.autograd.grad`` as the library yardstick."""
+    from repro_torch.kernels import rmsnorm as RN
+
+    rows, d = T_MICRO * T_SEQ, D_MODEL
+    g = torch.Generator(DEVICE).manual_seed(95)
+    x = torch.randn((rows, d), generator=g, device=DEVICE).to(torch.bfloat16)
+    dy = torch.randn((rows, d), generator=g, device=DEVICE).to(torch.bfloat16)
+    sc = (1 + 0.1 * torch.randn((d,), generator=g, device=DEVICE)
+          ).to(torch.bfloat16)
+    kernel = lambda: RN.rmsnorm_bwd(x, sc, dy)  # noqa: E731
+    xr, sr = x.detach().requires_grad_(True), sc.detach().requires_grad_(True)
+    yr = F.rms_norm(xr, (d,), weight=sr, eps=1e-6)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        yr, (xr, sr), dy, retain_graph=True)
+    ms, lib_ms = time_ms(kernel, reps=50), time_ms(lib, reps=50)
+    dev = time_ms(kernel, reps=50, device_only=True)
+    lib_dev = time_ms(lib, reps=50, device_only=True)
+    cold = time_ms(kernel, reps=50, cold=True, device_only=True)
+    lib_cold = time_ms(lib, reps=50, cold=True, device_only=True)
+    plain = time_ms(lambda: RN.rmsnorm_bwd(x, sc, dy, impl="plain"), reps=20)
+    bound, by, how = rmsnorm_bwd_bound(rows, d, 2)
+    log(f"# rmsnorm bwd {rows}x{d} bf16: kernel {ms:.4f} ms (device "
+        f"{dev:.4f}, cold L2 {cold:.4f}), plain {plain:.4f} ms, F.rms_norm "
+        f"backward {lib_ms:.4f} ms (device {lib_dev:.4f}, cold "
+        f"{lib_cold:.4f}); bound {how}; {bound / cold:.1%} of it cold")
+    return dict(
+        name="rmsnorm_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+        replaces="src/repro/models/layers.py:30",
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, library_ms=lib_ms, device_ms=dev,
+        library_device_ms=lib_dev, cold_ms=cold, library_cold_ms=lib_cold,
+        model="granite-3-8b (training)", shape=f"{rows}x{d} bf16")
+
+
+# ---------------------------------------------------------------------------
+# phase T: training
+# ---------------------------------------------------------------------------
+
+
+def _train_launches(layers, ckpt, accum):
+    """Launches per train step, from the code: per micro-batch each layer
+    runs one flash forward and two norms, plus the final norm; a remat'd
+    layer runs its forward again in the backward (non-reentrant checkpoint
+    recomputes up to the layer's last saved tensor, its MLP's down
+    projection, so both norms and the attention rerun); and each forward
+    of the saved graph has one backward."""
+    return {"flash_attention_fwd": accum * (layers + ckpt),
+            "flash_attention_bwd": accum * layers,
+            "rmsnorm": accum * (2 * layers + 1 + 2 * ckpt),
+            "rmsnorm_bwd": accum * (2 * layers + 1), "ssd_scan": 0}
+
+
+def _grads_close(got, want, truth, what):
+    """The CPU parity tests' bf16 rule (tests/test_torch_train.py): mean
+    difference within 3e-2 of the mean magnitude, and the error against
+    the f32 gradient at most ACCURACY_ROOM times the CPU bf16 run's."""
+    diff = float((got - want).abs().mean())
+    e, e0 = (got - truth).abs(), (want - truth).abs()
+    ok = (bool(torch.isfinite(got).all())
+          and diff <= 3e-2 * float(want.abs().mean())
+          and float(e.max()) <= ACCURACY_ROOM * float(e0.max())
+          and float(e.mean()) <= ACCURACY_ROOM * float(e0.mean()))
+    if not ok:
+        raise AssertionError(f"{what}: card gradient off the CPU's (mean "
+                             f"diff {diff:.3e}; vs f32 {float(e.max()):.3e}"
+                             f" / {float(e0.max()):.3e})")
+    return float(e.max() / e0.max())
+
+
+def _train_reduced_vs_cpu():
+    """The reduced config, one micro-batch's loss and gradients with the
+    kernels on the card against the plain versions on the CPU (same bf16
+    weights), under the CPU parity tests' tolerance."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.plan import single_stage_plan
+    from repro_torch.lowering import train_exec_cfg
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training.data import BatchSpec, SyntheticLM
+
+    cfg = get_arch("granite-3-8b").reduced()
+    plan = single_stage_plan(cfg.num_layers, dp=1, tp=1, micro_batch=2,
+                             grad_accum=1, ckpt_layers=2, ao=0.5,
+                             attn_impl="pallas", use_pallas=True)
+    params, _ = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    batch = SyntheticLM(BatchSpec(global_batch=2, seq_len=64,
+                                  vocab_size=cfg.vocab_size), seed=1).batch(0)
+
+    def loss_and_grads(dev, dtype):
+        p = {n: t.to(dev, dtype).requires_grad_(True)
+             for n, t in params.items()}
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        ec = train_exec_cfg(plan).replace(compute_dtype=dtype)
+        loss = build_model(cfg, dev).loss_fn(p, b, ec)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return float(loss.detach()), {n: g.float().cpu()
+                                      for n, g in zip(p, grads)}
+
+    card_loss, card = loss_and_grads(DEVICE, torch.bfloat16)
+    cpu_loss, cpu = loss_and_grads("cpu", torch.bfloat16)
+    _, truth = loss_and_grads("cpu", torch.float32)
+    ratio = max(_grads_close(card[n], cpu[n], truth[n], n) for n in card)
+    log(f"# training, reduced config card kernels vs CPU plain: loss "
+        f"{card_loss:.5f} vs {cpu_loss:.5f}; every gradient within the CPU "
+        f"rule (largest error vs f32 at {ratio:.2f}x the CPU bf16 run's)")
+    if abs(card_loss - cpu_loss) > REDUCED_LOSS_RTOL * abs(cpu_loss):
+        raise AssertionError(f"reduced loss {card_loss} vs {cpu_loss}")
+
+
+def _adam_splits_on_card():
+    """adam_update on the card with WO = OO = 0.5 (host parts pinned,
+    staged through the device and copied back) against WO = OO = 0, three
+    steps on the same f32 gradients from the same start: the arithmetic is
+    the same per element, so params, master, mu and nu (host and device
+    parts joined) must be equal bit for bit."""
+    import numpy as np
+    from repro_torch.bridge import train_state_to_numpy
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.plan import single_stage_plan
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training.optimizer import AdamConfig, adam_update, \
+        is_split
+    from repro_torch.training.step import init_train_state
+
+    cfg = get_arch("granite-3-8b").reduced()
+    model = build_model(cfg, DEVICE)
+    states = []
+    for ratio in (0.5, 0.0):
+        plan = single_stage_plan(cfg.num_layers, dp=1, tp=1, micro_batch=1,
+                                 grad_accum=1, wo=ratio, oo=ratio)
+        states.append(init_train_state(
+            model, plan, torch.Generator(DEVICE).manual_seed(0)))
+    g = torch.Generator(DEVICE).manual_seed(3)
+    grads = {n: torch.randn(p.shape, generator=g, device=DEVICE)
+             for n, p in states[0]["params"].items()}
+    hosts = [x["host"] for e in ("master", "mu", "nu")
+             for x in states[0][e].values() if is_split(x)]
+    if not hosts or not all(h.is_pinned() for h in hosts):
+        raise AssertionError("WO/OO 0.5: no split leaf, or an unpinned host "
+                             "part")
+    for state in states:
+        for _ in range(3):
+            adam_update(state, grads, AdamConfig())
+    split, whole = (train_state_to_numpy(st) for st in states)
+
+    def joined(x):
+        return np.concatenate([x["host"], x["dev"]]) if isinstance(x, dict) \
+            else x
+
+    n_leaves = 0
+    for e in ("params", "master", "mu", "nu"):
+        for n, want in whole[e].items():
+            n_leaves += 1
+            if not np.array_equal(joined(split[e][n]), want):
+                raise AssertionError(f"adam_update with WO/OO 0.5 differs "
+                                     f"from 0 at {e}/{n}")
+    log(f"# adam_update on the card, WO = OO = 0.5 ({len(hosts)} pinned host "
+        f"parts) vs 0, 3 steps: {n_leaves} leaves bitwise equal")
+
+
+def _launcher_run(plan):
+    """The training entry point as a user runs it: ``launch.train.main``
+    with ``--layers`` and ``--plan-json``; every count set to 0 just before
+    and read just after.  Returns (counts, first and last loss printed)."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.launch import train as launch_train
+
+    plan_json = ROOT / "build" / "train_plan.json"
+    plan_json.parent.mkdir(parents=True, exist_ok=True)
+    plan_json.write_text(plan.to_json())
+    argv = ["--arch", "granite-3-8b", "--layers", str(T_LAYERS),
+            "--plan-json", str(plan_json), "--steps", str(LAUNCHER_STEPS),
+            "--seq", str(T_SEQ), "--global-batch", str(T_MICRO * T_ACCUM)]
+    out = io.StringIO()
+    _reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(argv)
+    sync()
+    counts = _read_counts()
+    line = out.getvalue().strip()
+    log(f"# python -m repro_torch.launch.train {' '.join(argv)}: {line}")
+    m = re.search(r"loss (\S+) -> (\S+)", line)
+    if rc != 0 or m is None:
+        raise AssertionError(f"the training launcher failed: rc {rc}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, float(m.group(1)), float(m.group(2))
+
+
+def _full_width_grads(model, params, micro, ec):
+    """One micro-batch's loss and every gradient at full width: the
+    kernels (bf16) against the plain versions in bf16, both held leaf by
+    leaf to the plain versions in f32 on the same weights (_grads_close).
+    Returns the largest ratio of max errors and the largest per-leaf
+    ||kernels - plain|| / ||plain||."""
+    def loss_and_grads(dtype, impl):
+        p = {n: t.detach().to(dtype).requires_grad_(True)
+             for n, t in params.items()}
+        loss = model.loss_fn(p, micro, ec.replace(compute_dtype=dtype,
+                                                  kernel_impl=impl))
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return float(loss.detach()), dict(zip(p, grads))
+
+    k_loss, kern = loss_and_grads(torch.bfloat16, "kernel")
+    p_loss, plain = loss_and_grads(torch.bfloat16, "plain")
+    t_loss, truth = loss_and_grads(torch.float32, "plain")
+    ratio = rel = 0.0
+    for n in kern:
+        got, want = kern[n].float(), plain[n].float()
+        ratio = max(ratio, _grads_close(got, want, truth[n], n))
+        rel = max(rel, float((got - want).norm() / want.norm()))
+    log(f"# training, full width, micro-batch 0: loss kernels {k_loss:.6f}, "
+        f"plain {p_loss:.6f}, f32 {t_loss:.6f}; {len(kern)} gradients "
+        f"within the rule (largest error vs f32 at {ratio:.3f}x the plain "
+        f"bf16 run's; largest ||kernels - plain|| / ||plain|| {rel:.3e})")
+    if abs(k_loss - p_loss) > TRAIN_LOSS_RTOL * abs(p_loss):
+        raise AssertionError(f"micro-batch 0 loss {k_loss} vs {p_loss}")
+    return ratio, rel
+
+
+def phase_train(profile=False):
+    """Training granite-3-8b at full width, 8 layers; returns the launch
+    counts of one step.  With ``profile``, one more step runs under a
+    torch.profiler window (device busy time, idle share, top kernels)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.plan import single_stage_plan
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training.data import BatchSpec, SyntheticLM
+    from repro_torch.training.optimizer import AdamConfig, is_split
+    from repro_torch.training.step import init_train_state, make_train_step
+
+    full = get_arch("granite-3-8b")
+    dims = dict(num_layers=N_LAYERS, d_model=D_MODEL, num_heads=N_HEADS,
+                num_kv_heads=N_KV, head_dim=HEAD_DIM, d_ff=12800,
+                vocab_size=49155, tie_embeddings=True)
+    assert {k: getattr(full, k) for k in dims} == dims
+    cfg = full.replace(num_layers=T_LAYERS)
+    model = build_model(cfg, DEVICE)
+    plan = single_stage_plan(T_LAYERS, dp=1, tp=1, micro_batch=T_MICRO,
+                             grad_accum=T_ACCUM, zero=1, ckpt_layers=T_CKPT,
+                             wo=0.5, oo=0.5, ao=0.5, attn_impl="pallas",
+                             use_pallas=True, remat_policy="full")
+    want = _train_launches(T_LAYERS, T_CKPT, T_ACCUM)
+    _adam_splits_on_card()
+
+    # the main path: the launcher, at Adam's default lr
+    counts, cli_first, cli_last = _launcher_run(plan)
+    if counts != {k: LAUNCHER_STEPS * n for k, n in want.items()}:
+        raise AssertionError(f"launcher launch counts {counts} != "
+                             f"{LAUNCHER_STEPS} x {want}")
+
+    data = SyntheticLM(BatchSpec(global_batch=T_MICRO * T_ACCUM,
+                                 seq_len=T_SEQ, vocab_size=cfg.vocab_size))
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in data.batch(0).items()}
+    tokens = batch["tokens"].numel()
+
+    def fresh_state():
+        return init_train_state(model, plan,
+                                torch.Generator(DEVICE).manual_seed(0))
+
+    # one step with the plain versions, from the state and batch the
+    # kernels' first step starts from
+    t0 = time.perf_counter()
+    state = fresh_state()
+    sync()
+    params = state["params"]
+    n_params = sum(p.numel() for p in params.values())
+    n_matmul = sum(p.numel() for n, p in params.items()
+                   if not n.endswith("/scale"))
+    host_bytes = sum(x["host"].numel() * x["host"].element_size()
+                     for e in ("master", "mu", "nu")
+                     for x in state[e].values() if is_split(x))
+    ec = make_train_step(model, plan).exec_cfg
+    log(f"# training granite-3-8b at full width, {T_LAYERS} of {N_LAYERS} "
+        f"layers: {n_params / 1e9:.3f} B params; plan ckpt "
+        f"{ec.ckpt_layers} (offload {ec.offload_layers}), WO/OO 0.5, "
+        f"grad_accum {T_ACCUM} x {T_MICRO} x {T_SEQ}; pinned host state "
+        f"{host_bytes / 1e9:.2f} GB; state initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    micro = {k: v[:T_MICRO] for k, v in batch.items()}
+    grad_ratio, grad_rel = _full_width_grads(model, params, micro, ec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    adam = AdamConfig(lr=T_LR)
+    state, m = make_train_step(model, plan, adam, kernel_impl="plain").fn(
+        state, batch)
+    plain = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    del state, params, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path, counted step by step: every count set to 0 just
+    # before each step and read just after
+    state = fresh_state()
+    step = make_train_step(model, plan, adam)
+    losses, gnorms, times = [], [], []
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(T_STEPS):
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, m = step.fn(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = _read_counts()
+        if launches != want:
+            raise AssertionError(f"train step launch counts {launches} != "
+                                 f"{want}")
+    peak = torch.cuda.max_memory_allocated()
+    if profile:
+        report = _device_window(lambda: step.fn(state, batch),
+                                ROOT / "build" / "profile" / "train" /
+                                "trace_step.json")
+        log(json.dumps({"profile": {"train_step": report},
+                        "model": "granite-3-8b (training)"}))
+    log(f"# train steps on one batch: losses {losses}, grad norms {gnorms}; "
+        f"plain versions' first step: {plain}; launches per step {launches}")
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step_ms = statistics.median(times[1:])
+    pairs = T_SEQ * (T_SEQ + 1) // 2
+    flops = 6 * n_matmul * tokens \
+        + 12 * T_LAYERS * T_MICRO * T_ACCUM * N_HEADS * HEAD_DIM * pairs
+    tflops = flops / (step_ms / 1e3) / 1e12
+    log(json.dumps({"train": dict(
+        model="granite-3-8b", layers=T_LAYERS,
+        reduced=f"layers {N_LAYERS} -> {T_LAYERS}",
+        tokens_per_step=tokens, step_ms=step_ms, step_ms_all=times,
+        tokens_per_s=tokens / (step_ms / 1e3), model_tflops=tflops,
+        mfu_989=tflops / 989.0,
+        flops_counted="6 * N_matmul * tokens + 12 * L * sequences * H * hd "
+                      "* causal pairs (remat recompute not counted)",
+        n_params=n_params, n_matmul_params=n_matmul,
+        max_memory_allocated=peak, pinned_host_bytes=host_bytes,
+        lr=T_LR, losses=losses, grad_norms=gnorms, plain_first_step=plain,
+        grads_vs_f32_max_ratio=grad_ratio, grads_rel_vs_plain=grad_rel,
+        launcher_losses=[cli_first, cli_last])}))
+    if not all(math.isfinite(x) for x in losses + gnorms + [cli_last]):
+        raise AssertionError("non-finite loss or grad norm")
+    # the launcher's first step starts from the same state and batch
+    if abs(cli_first - losses[0]) > LAUNCHER_LOSS_ATOL:
+        raise AssertionError(f"launcher's first loss {cli_first} vs "
+                             f"{losses[0]}")
+    if abs(losses[0] - plain["loss"]) > TRAIN_LOSS_RTOL * abs(plain["loss"]) \
+            or abs(gnorms[0] - plain["grad_norm"]) > \
+            TRAIN_GNORM_RTOL * plain["grad_norm"]:
+        raise AssertionError("first step: kernels vs plain versions differ")
+    if not (losses[1] < losses[0] and losses[2] < losses[1]
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss does not fall: {losses}")
+
+    _train_reduced_vs_cpu()
+    return launches
+
+
 def _time_serve(arch, model, params, prompts, plan, peak):
     """The serve loop: prefill, decode per step, whole generate()."""
     from repro_torch.launch.serve import generate
@@ -783,10 +1439,27 @@ def _device_window(fn, trace: Path):
             busy += b - end
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    groups = {}
+    for n, (t, _) in by_name.items():
+        g = next((label for label, keys in _KERNEL_GROUPS
+                  if any(k in n for k in keys)), "other")
+        groups[g] = groups.get(g, 0.0) + t / 1e3
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / wall_us, "device_events": len(spans),
+            "groups_ms": groups,
             "top": [{"name": n[:90], "ms": t / 1e3, "count": c}
                     for n, (t, c) in top]}
+
+
+# device time by kind in a profile window: the first group whose keys occur
+# in a kernel's name takes it
+_KERNEL_GROUPS = (
+    ("memcpy/memset", ("Memcpy", "Memset")),
+    ("flash (port)", ("flash_fwd", "fa_bwd")),
+    ("rmsnorm (port)", ("rmsnorm",)),
+    ("ssd (port)", ("ssd_scan",)),
+    ("gemm (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "Kernel2")),
+)
 
 
 def phase_profile(arch, model, params, prompts, plan):
@@ -848,8 +1521,20 @@ def main() -> int:
     _time_serve("granite-3-8b", model, params, prompts, plan, peak)
     if profile:
         phase_profile("granite-3-8b", model, params, prompts, plan)
-    # free granite's weights so that zamba2's peak memory is its own
+    # free granite's weights so that training's and zamba2's peak memory
+    # are their own
     del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # training granite-3-8b (8 layers)
+    train_launches = phase_train(profile)
+    kernels += [
+        _time_flash_bwd(train_launches["flash_attention_bwd"],
+                        errs["flash_attention_bwd"]),
+        _time_rmsnorm_bwd(train_launches["rmsnorm_bwd"],
+                          errs["rmsnorm_bwd"])]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

@@ -1,10 +1,13 @@
-"""Weights and serving state across the two packages, through numpy.
+"""Weights, serving state and train state across the two packages, through
+numpy.
 
 The reference's flat param dict (stacked names included: ``(L, ...)`` and
 the hybrid's ``(groups, per, ...)``) and its cache trees (the dense
 ``{k, v, pos}`` and the hybrid's nested ``{"attn", "mamba"}``) cross by
 name with identical shapes.  numpy has no bf16, so bf16 crosses as
-f32 (exact) and is rounded back here (exact again).
+f32 (exact) and is rounded back here (exact again).  A train state
+``{"step", "params", "master", "mu", "nu"}`` crosses leaf by leaf, split
+leaves ``{"host", "dev"}`` included.
 """
 from __future__ import annotations
 
@@ -66,3 +69,51 @@ def caches_to_numpy(caches: Mapping) -> Dict:
     """The same tree with numpy leaves; bf16 becomes f32."""
     return {key: caches_to_numpy(val) if isinstance(val, Mapping)
             else _to_numpy(val) for key, val in caches.items()}
+
+
+def _state_leaf_from_numpy(val, device: torch.device) -> object:
+    """An f32 optimizer leaf: a split ``{"host", "dev"}`` keeps its host part
+    on the CPU (pinned when ``device`` is CUDA)."""
+    if isinstance(val, Mapping):
+        host = _to_torch(val["host"], torch.float32, "cpu")
+        if device.type == "cuda":
+            host = host.pin_memory()
+        return {"host": host,
+                "dev": _to_torch(val["dev"], torch.float32, device)}
+    return _to_torch(val, torch.float32, device)
+
+
+def train_state_from_numpy(tree: Mapping, *,
+                           param_dtype: torch.dtype = torch.bfloat16,
+                           device: Device = "cpu") -> Dict:
+    """The reference's train state as numpy -> the port's: ``step`` int32,
+    ``params`` in ``param_dtype``, master/mu/nu f32 (split leaves kept)."""
+    device = torch.device(device)
+    return {
+        "step": _to_torch(np.asarray(tree["step"], np.int32), None, device),
+        "params": params_from_numpy(tree["params"], dtype=param_dtype,
+                                    device=device),
+        **{e: {n: _state_leaf_from_numpy(v, device)
+               for n, v in tree[e].items()}
+           for e in ("master", "mu", "nu")},
+    }
+
+
+def train_state_to_numpy(state: Mapping) -> Dict:
+    """The port's train state -> numpy leaves (bf16 as f32, ``step`` as an
+    int32 scalar, split leaves as ``{"host", "dev"}``)."""
+    if state["step"].is_cuda:
+        # adam_update writes the host parts back with non-blocking copies
+        torch.cuda.synchronize(state["step"].device)
+
+    def leaf(v):
+        if isinstance(v, Mapping):
+            return {k: _to_numpy(x) for k, x in v.items()}
+        return _to_numpy(v)
+
+    return {
+        "step": np.asarray(_to_numpy(state["step"]), np.int32),
+        "params": params_to_numpy(state["params"]),
+        **{e: {n: leaf(v) for n, v in state[e].items()}
+           for e in ("master", "mu", "nu")},
+    }

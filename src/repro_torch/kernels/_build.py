@@ -115,8 +115,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mist_flash_attn_fwd.argtypes = (
         [p] * 5 + [i] * 6 + [ll] * 9 + [f, i, p])
     lib.mist_flash_attn_fwd.restype = i
+    lib.mist_flash_attn_bwd.argtypes = [p] * 10 + [i] * 6 + [f, i, p]
+    lib.mist_flash_attn_bwd.restype = i
     lib.mist_rmsnorm.argtypes = [p, p, p, i, i, f, i, i, i, p]
     lib.mist_rmsnorm.restype = i
+    lib.mist_rmsnorm_bwd.argtypes = [p] * 6 + [i, i, f, i, i, i, i, p]
+    lib.mist_rmsnorm_bwd.restype = i
     lib.mist_ssd_scan.argtypes = [p] * 9 + [i] * 8 + [ll] * 12 + [p]
     lib.mist_ssd_scan.restype = i
     lib.mist_error_string.argtypes = [i]

@@ -32,6 +32,24 @@
 //   that re-reads x (from L1/L2) and the scale from global memory, with
 //   16-byte vectors when the rows are aligned and scalar loads otherwise.
 // Stores are 16-byte vectors wherever the loads are.
+//
+// The backward (mist_rmsnorm_bwd) replaces the gradient that jax.grad takes
+// through the reference's norm (src/repro/models/layers.py:30-40), which
+// the JAX model differentiates.  Per row, from x and the incoming gradient
+// g, it recomputes r = rsqrt(mean(x^2) + eps) and, in f32,
+//   dx = r * (g * s - xhat * mean(g * s * xhat)),  xhat = x * r,
+// rounded once to x's dtype, and dscale = sum over rows of g * xhat in f32,
+// rounded to scale's dtype.  Memory bounds it too: it reads x and g and
+// writes dx (100.7 MB at 4096 x 4096 bf16, ~30 us at 3.35 TB/s).  dscale is
+// a sum over rows, so here a block owns columns and not a row: a block of 8
+// warps takes BWD_ROWS rows at a time, each thread the same columns of
+// every row (16-byte vectors when the rows are aligned), so each thread's
+// column partial of dscale sits in shared memory that no other thread
+// touches.  The two row sums (x^2 and g s x, from which mean(g s xhat) =
+// r mean(g s x)) are one block reduction per BWD_ROWS rows; the second pass
+// re-reads the rows (from L1/L2) to write dx.  Each block writes its column
+// partials to a (blocks, d) f32 scratch, and a second small kernel adds
+// them in block order: deterministic, no atomics.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -254,6 +272,159 @@ int launch(const void* x, const void* scale, void* y, int rows, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+constexpr int BWD_ROWS = 4;  // rows per block reduction
+// dynamic shared memory a block may have on an H100, less the static part
+constexpr int BWD_SMEM_MAX = 232448 - 1024;
+
+template <typename T, typename S>
+__global__ void __launch_bounds__(NUM_THREADS)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                   const S* __restrict__ scale, T* __restrict__ dx,
+                   float* __restrict__ part, int rows, int d, float eps,
+                   int vec_ok) {
+  constexpr int V = 16 / sizeof(T);
+  // the column partials; with vectors, element j of vector u sits at
+  // j * nvec + u, so that a warp's updates fall in distinct banks
+  extern __shared__ __align__(16) float s_part[];
+  __shared__ float s_red[2][WARPS][2 * BWD_ROWS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nvec = vec_ok ? d / V : 0;
+  for (int j = tid; j < d; j += NUM_THREADS) s_part[j] = 0.f;
+  __syncthreads();
+
+  int it = 0;
+  for (int r0 = blockIdx.x * BWD_ROWS; r0 < rows;
+       r0 += gridDim.x * BWD_ROWS, ++it) {
+    // pass 1: per row, sum x^2 and sum g s x over this thread's columns
+    float acc[2 * BWD_ROWS];
+#pragma unroll
+    for (int i = 0; i < 2 * BWD_ROWS; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int rr = 0; rr < BWD_ROWS; ++rr) {
+      const int row = r0 + rr;
+      if (row >= rows) break;
+      const T* xr = x + static_cast<long long>(row) * d;
+      const T* gr = gy + static_cast<long long>(row) * d;
+      float ss = 0.f, gsx = 0.f;
+      if (vec_ok) {
+        for (int u = tid; u < nvec; u += NUM_THREADS) {
+          const uint4 xv = reinterpret_cast<const uint4*>(xr)[u];
+          const uint4 gv = reinterpret_cast<const uint4*>(gr)[u];
+          const T* xe = reinterpret_cast<const T*>(&xv);
+          const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float xf = to_f32(xe[j]);
+            ss = fmaf(xf, xf, ss);
+            gsx = fmaf(to_f32(ge[j]) * to_f32(scale[u * V + j]), xf, gsx);
+          }
+        }
+      } else {
+        for (int j = tid; j < d; j += NUM_THREADS) {
+          const float xf = to_f32(xr[j]);
+          ss = fmaf(xf, xf, ss);
+          gsx = fmaf(to_f32(gr[j]) * to_f32(scale[j]), xf, gsx);
+        }
+      }
+      acc[2 * rr] = ss;
+      acc[2 * rr + 1] = gsx;
+    }
+    // one block reduction for all BWD_ROWS rows (s_red double-buffered, so
+    // one barrier an iteration suffices)
+    float (*red)[2 * BWD_ROWS] = s_red[it & 1];
+#pragma unroll
+    for (int i = 0; i < 2 * BWD_ROWS; ++i) {
+      const float v = warp_sum(acc[i]);
+      if (lane == 0) red[warp][i] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2 * BWD_ROWS; ++i) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) v += red[w][i];
+      acc[i] = v;
+    }
+    // pass 2: dx = r g s - x r^3 mean(g s x); dscale partial += g x r
+#pragma unroll
+    for (int rr = 0; rr < BWD_ROWS; ++rr) {
+      const int row = r0 + rr;
+      if (row >= rows) break;
+      const float r = rsqrtf(acc[2 * rr] / static_cast<float>(d) + eps);
+      const float c = r * r * r * (acc[2 * rr + 1] / static_cast<float>(d));
+      const T* xr = x + static_cast<long long>(row) * d;
+      const T* gr = gy + static_cast<long long>(row) * d;
+      T* dr = dx + static_cast<long long>(row) * d;
+      if (vec_ok) {
+        for (int u = tid; u < nvec; u += NUM_THREADS) {
+          const uint4 xv = reinterpret_cast<const uint4*>(xr)[u];
+          const uint4 gv = reinterpret_cast<const uint4*>(gr)[u];
+          const T* xe = reinterpret_cast<const T*>(&xv);
+          const T* ge = reinterpret_cast<const T*>(&gv);
+          uint4 out;
+          T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float xf = to_f32(xe[j]), gf = to_f32(ge[j]);
+            oe[j] = from_f32<T>(r * gf * to_f32(scale[u * V + j]) - xf * c);
+            float& sp = s_part[j * nvec + u];
+            sp = fmaf(gf, xf * r, sp);
+          }
+          reinterpret_cast<uint4*>(dr)[u] = out;
+        }
+      } else {
+        for (int j = tid; j < d; j += NUM_THREADS) {
+          const float xf = to_f32(xr[j]), gf = to_f32(gr[j]);
+          dr[j] = from_f32<T>(r * gf * to_f32(scale[j]) - xf * c);
+          s_part[j] = fmaf(gf, xf * r, s_part[j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float* pb = part + static_cast<long long>(blockIdx.x) * d;
+  for (int j = tid; j < d; j += NUM_THREADS)
+    pb[j] = s_part[vec_ok ? (j % V) * nvec + j / V : j];
+}
+
+// dscale[j] = sum over blocks of part[b][j], in block order
+template <typename S>
+__global__ void rmsnorm_dscale_kernel(const float* __restrict__ part,
+                                      S* __restrict__ dscale, int blocks,
+                                      int d) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d) return;
+  float acc = 0.f;
+  for (int b = 0; b < blocks; ++b)
+    acc += part[static_cast<long long>(b) * d + j];
+  dscale[j] = from_f32<S>(acc);
+}
+
+template <typename T, typename S>
+int launch_bwd(const void* x, const void* gy, const void* scale, void* dx,
+               void* dscale, void* part, int rows, int d, float eps,
+               int vec_ok, int blocks, cudaStream_t stream) {
+  const int smem = d * static_cast<int>(sizeof(float));
+  if (smem > BWD_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = rmsnorm_bwd_kernel<T, S>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM_MAX);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<blocks, NUM_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gy),
+      static_cast<const S*>(scale), static_cast<T*>(dx),
+      static_cast<float*>(part), rows, d, eps, vec_ok);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_dscale_kernel<S><<<(d + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<S*>(dscale), blocks, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, y (rows, d) contiguous; scale (d,) contiguous.  dtype codes: 0 = f32,
@@ -273,5 +444,34 @@ extern "C" int mist_rmsnorm(const void* x, const void* scale, void* y,
     return launch<float, float>(x, scale, y, rows, d, eps, vec_ok, s);
   if (x_dtype == 0 && scale_dtype == 1)
     return launch<float, __nv_bfloat16>(x, scale, y, rows, d, eps, vec_ok, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+
+// x, gy, dx (rows, d) contiguous, gy and dx of x's dtype; scale and dscale
+// (d,) of scale's dtype; part (blocks, d) f32 scratch.  dtype codes and
+// vec_ok as in mist_rmsnorm (vec_ok also covers gy and dx).  `blocks` is
+// the grid: each block writes one row of part.  Returns cudaGetLastError()
+// after the launches.
+extern "C" int mist_rmsnorm_bwd(const void* x, const void* gy,
+                                const void* scale, void* dx, void* dscale,
+                                void* part, int rows, int d, float eps,
+                                int x_dtype, int scale_dtype, int vec_ok,
+                                int blocks, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || d <= 0 || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (x_dtype == 1 && scale_dtype == 1)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
+        x, gy, scale, dx, dscale, part, rows, d, eps, vec_ok, blocks, s);
+  if (x_dtype == 1 && scale_dtype == 0)
+    return launch_bwd<__nv_bfloat16, float>(x, gy, scale, dx, dscale, part,
+                                            rows, d, eps, vec_ok, blocks, s);
+  if (x_dtype == 0 && scale_dtype == 0)
+    return launch_bwd<float, float>(x, gy, scale, dx, dscale, part, rows, d,
+                                    eps, vec_ok, blocks, s);
+  if (x_dtype == 0 && scale_dtype == 1)
+    return launch_bwd<float, __nv_bfloat16>(x, gy, scale, dx, dscale, part,
+                                            rows, d, eps, vec_ok, blocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,7 @@
-"""Flash-attention forward: the Hopper kernel, its wrapper and its plain
-version (the port of ``repro/kernels/flash_attention.py``).
+"""Flash attention, forward and backward: the Hopper kernels, their wrappers,
+their plain versions and the autograd Function over both (the port of
+``repro/kernels/flash_attention.py`` and of the custom VJP in
+``repro/kernels/ops.py``).
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``_fa_kernel``.  It takes q/k/v in the model's own layout -- q
@@ -15,6 +17,17 @@ tensor and the plain version for a CPU tensor; ``impl="plain"`` forces the
 plain version on either device (a test hook for comparing the two on the
 card).  A CUDA tensor never falls back: a wrong dtype, an unsupported shape
 or a failed launch raises.
+
+The backward kernel (``csrc/flash_attention_bwd.cu``) replaces the
+reference's gradient, ``jax.custom_vjp`` around the Pallas forward with the
+blocked jnp backward ``ops._blocked_bwd``.  It takes q/k/v, o, dO and lse in
+the same layouts and returns dq ``(B, Sq, H, hd)`` and dk/dv
+``(B, Sk, KV, hd)`` in bf16, summing the GQA group's contributions to one
+KV head in f32.  Its plain version is ``blocked_bwd``, a line-for-line port
+of ``_blocked_bwd``.  ``FlashAttention`` is the autograd Function: its
+forward runs ``flash_attention`` and saves q, k, v, o and lse, its
+backward runs ``flash_attention_bwd``; under ``torch.inference_mode`` it is
+the forward alone.
 """
 from __future__ import annotations
 
@@ -26,8 +39,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF
 
-# launches of the CUDA kernel in this process (the wrapper's count)
+# launches of the CUDA kernels in this process (the wrappers' counts): the
+# forward, and the backward (one per call of its wrapper)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 HEAD_DIMS = (32, 64, 80, 128)
 
@@ -98,22 +113,80 @@ def blocked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l[..., None]).to(q.dtype), m + torch.log(l)
 
 
+def blocked_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                causal: bool, scale: float, block: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q/k/v/out/dout (BH, S, D), lse (BH, Sq) f32 -> dq, dk, dv in the
+    input dtypes (``ops._blocked_bwd``, with its roundings): P goes to
+    dout's dtype before P^T dO, dS to q's dtype before dS K and dS^T q, and
+    dq sums in f32 across KV blocks of ``block`` rows (``block`` divides
+    Sk)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    assert sk % block == 0, (sk, block)
+    dev = q.device
+    delta = (dout.float() * out.float()).sum(-1)
+    qf, dof = q.float(), dout.float()
+    qpos = torch.arange(sq, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for ki in range(sk // block):
+        kc = k[:, ki * block:(ki + 1) * block]
+        vc = v[:, ki * block:(ki + 1) * block]
+        s = torch.einsum("bqd,bkd->bqk", qf, kc.float()) * scale
+        if causal:
+            kpos = ki * block + torch.arange(block, device=dev)
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, neg)
+        p = torch.exp(s - lse[..., None])
+        dvs.append(torch.einsum("bqk,bqd->bkd", p.to(dout.dtype), dout))
+        dp = torch.einsum("bqd,bkd->bqk", dof, vc.float())
+        ds = (p * (dp - delta[..., None]) * scale).to(q.dtype)
+        dq = dq + torch.einsum("bqk,bkd->bqd", ds, kc).float()
+        dks.append(torch.einsum("bqk,bqd->bkd", ds, q))
+    return (dq.to(q.dtype), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+def _heads_first(x, g):
+    """(B, S, KV, hd) -> (B*KV*g, S, hd), each KV head repeated over its
+    group of g query heads (g = 1: (B, S, H, hd) -> (B*H, S, hd))."""
+    b, s, kv, hd = x.shape
+    return x[:, :, :, None, :].expand(b, s, kv, g, hd) \
+        .permute(0, 2, 3, 1, 4).reshape(b * kv * g, s, hd)
+
+
 def _plain(q, k, v, causal, scale, kv_block):
     """GQA broadcast to (B*H, S, hd) as ops.attention does, blocked_fwd, and
     back to the kernel's output layouts."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
-    qf = q.reshape(b, sq, kv, g, hd).permute(0, 2, 3, 1, 4) \
-        .reshape(b * h, sq, hd)
-    kf = k[:, :, :, None, :].expand(b, sk, kv, g, hd) \
-        .permute(0, 2, 3, 1, 4).reshape(b * h, sk, hd)
-    vf = v[:, :, :, None, :].expand(b, sk, kv, g, hd) \
-        .permute(0, 2, 3, 1, 4).reshape(b * h, sk, hd)
-    of, lse = blocked_fwd(qf, kf, vf, causal, scale, fit_block(kv_block, sk))
-    o = of.reshape(b, kv, g, sq, hd).permute(0, 3, 1, 2, 4) \
-        .reshape(b, sq, h, hd)
+    of, lse = blocked_fwd(_heads_first(q, 1), _heads_first(k, g),
+                          _heads_first(v, g), causal, scale,
+                          fit_block(kv_block, sk))
+    o = of.reshape(b, h, sq, hd).transpose(1, 2).contiguous()
     return o, lse.reshape(b, h, sq)
+
+
+def _plain_bwd(q, k, v, o, lse, dout, causal, scale, kv_block):
+    """blocked_bwd on the GQA broadcast, as the reference differentiates
+    ops.attention; dk/dv sum over each KV head's group in f32."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    dqf, dkf, dvf = blocked_bwd(
+        _heads_first(q, 1), _heads_first(k, g), _heads_first(v, g),
+        _heads_first(o, 1), lse.reshape(b * h, sq), _heads_first(dout, 1),
+        causal, scale, fit_block(kv_block, sk))
+
+    def group_sum(x, dtype):
+        return x.float().reshape(b, kv, g, sk, hd).sum(2) \
+            .transpose(1, 2).to(dtype).contiguous()
+
+    dq = dqf.reshape(b, h, sq, hd).transpose(1, 2).contiguous()
+    return dq, group_sum(dkf, k.dtype), group_sum(dvf, v.dtype)
 
 
 def _check_cuda_inputs(q, k, v):
@@ -160,6 +233,82 @@ def _launch(q, k, v, causal, scale):
     _build.check(err, "flash attention kernel")
     LAUNCHES += 1
     return o, lse
+
+
+def _launch_bwd(q, k, v, o, lse, dout, causal, scale):
+    global BWD_LAUNCHES
+    _check_cuda_inputs(q, k, v)
+    q, k, v, o, dout = (t.contiguous() for t in (q, k, v, o, dout))
+    for name, t in (("o", o), ("dout", dout)):
+        if t.dtype != torch.bfloat16 or t.shape != q.shape \
+                or t.device != q.device:
+            raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device} for q {tuple(q.shape)}")
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if lse.dtype != torch.float32 or lse.shape != (b, h, sq):
+        raise ValueError(f"lse {lse.dtype} {tuple(lse.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("dout", dout)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.mist_flash_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kv, hd,
+            float(scale), int(causal), stream)
+    _build.check(err, "flash attention backward kernel")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        scale: Optional[float] = None, kv_block: int = 512,
+                        impl: str = "kernel"
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention``: q/o/dout (B, Sq, H, hd), k/v
+    (B, Sk, KV, hd), lse (B, H, Sq) f32 -> dq, dk, dv in q/k/v's layouts and
+    dtypes.  ``impl`` as in ``flash_attention``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if impl == "plain" or (impl == "kernel" and q.device.type == "cpu"):
+        return _plain_bwd(q, k, v, o, lse, dout, causal, scale, kv_block)
+    if impl != "kernel":
+        raise ValueError(f"impl {impl!r}: 'kernel' or 'plain'")
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return _launch_bwd(q, k, v, o, lse, dout, causal, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v) with the gradient of the reference's custom
+    VJP: the forward saves q, k, v, o and the log-sum-exp, and the backward
+    recomputes P from them (``flash_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float],
+                kv_block: int, impl: str):
+        o, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                 kv_block=kv_block, impl=impl)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, scale=scale, kv_block=kv_block,
+                        impl=impl)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

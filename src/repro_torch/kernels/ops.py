@@ -13,6 +13,11 @@
 their plain versions on CPU tensors.  ``kernel_impl="plain"`` keeps every
 kernel op on its plain version on the card too: a test hook, not a
 fallback.
+
+Flash attention and RMSNorm go through their autograd Functions
+(``FlashAttention``, ``RMSNorm``), so the same call serves prefill (under
+``torch.inference_mode``, the forward kernel alone) and training (the
+backward kernel too).
 """
 from __future__ import annotations
 
@@ -22,8 +27,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import fit_block, flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.flash_attention import FlashAttention, fit_block
+from repro_torch.kernels.rmsnorm import RMSNorm
 from repro_torch.kernels.ssd_scan import ssd_scan as ssd_scan_kernel
 
 DEFAULT_BLOCK = 512
@@ -41,7 +46,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_block``/``kv_block`` are the plan's TPU tiles: the plain blocked
     version tiles KV by ``kv_block`` (fitted as the reference fits it); the
-    Hopper kernel uses its own 64 x 64 tiles (docs/port.md)."""
+    Hopper kernels use their own tiles (docs/port.md): the forward, work
+    items of 128 query rows and K/V tiles of 128 keys; the backward, tiles
+    of 64 keys and of 32 or 64 query rows."""
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -59,18 +66,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             .reshape(b, sq, h, hd)
     if impl not in ("blocked", "pallas"):
         raise ValueError(f"attention impl {impl!r}")
-    out, _ = flash_attention(q, k, v, causal=causal, scale=scale,
-                             kv_block=kv_block if kv_block is not None
-                             else block, impl=kernel_impl)
-    return out
+    return FlashAttention.apply(q, k, v, causal, scale,
+                                kv_block if kv_block is not None else block,
+                                kernel_impl)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, impl: str = "pallas",
             eps: float = 1e-6, kernel_impl: str = "kernel") -> torch.Tensor:
-    """``impl="pallas"``: the RMSNorm kernel wrapper (the kernel on CUDA,
-    the plain version on the CPU); anything else: ``ref.rmsnorm_ref``."""
+    """``impl="pallas"``: the RMSNorm Function over the kernel wrappers (the
+    kernels on CUDA, the plain versions on the CPU); anything else:
+    ``ref.rmsnorm_ref``, differentiated by autograd."""
     if impl == "pallas":
-        return rmsnorm_kernel(x, scale, eps=eps, impl=kernel_impl)
+        return RMSNorm.apply(x, scale, eps, kernel_impl)
     return ref.rmsnorm_ref(x, scale, eps)
 
 

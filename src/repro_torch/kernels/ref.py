@@ -33,6 +33,20 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6):
+    """The gradient of ``rmsnorm_ref`` in f32: per row, with r the rsqrt of
+    the mean square and xhat = x r, dx = r (dy s - xhat mean(dy s xhat))
+    in x's dtype, and dscale = sum over rows of dy xhat in scale's dtype."""
+    xf = x.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    gs = dy.float() * scale.float()
+    dx = r * (gs - xhat * torch.mean(gs * xhat, dim=-1, keepdim=True))
+    dscale = (dy.float() * xhat).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
 def ssd_ref(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             bb: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
     """Exact sequential SSD recurrence (the strongest oracle -- independent

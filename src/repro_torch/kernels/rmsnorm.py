@@ -12,16 +12,28 @@ plain version is ``ref.rmsnorm_ref``.  ``rmsnorm`` runs the kernel for a
 CUDA tensor and the plain version for a CPU tensor; ``impl="plain"`` forces
 the plain version (a test hook).  A CUDA tensor never falls back: an
 unsupported dtype or a failed launch raises.
+
+The backward kernel (``mist_rmsnorm_bwd`` in the same source) replaces the
+gradient ``jax.grad`` takes through the reference's ``layers.norm``: from x
+and the incoming gradient it recomputes the row's rsqrt and returns dx (x's
+dtype) and dscale (scale's dtype), the dscale column sums taken per block
+into a ``(blocks, d)`` f32 scratch and added in block order by a second
+small kernel.  Its plain version is ``rmsnorm_bwd_ref``.  ``RMSNorm`` is
+the autograd Function over the two.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import rmsnorm_ref
+from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
-# launches of the CUDA kernel in this process (the wrapper's count)
+# launches of the CUDA kernels in this process (the wrappers' counts): the
+# forward, and the backward (one per call of its wrapper)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -29,6 +41,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # block; rows of these widths are held in registers
 WARPS_PER_BLOCK = 8
 RESIDENT_WIDTHS = (2560, 4096)
+
+
+# the backward's launch shape: a block of 8 warps takes BWD_ROWS rows at a
+# time, BWD_BLOCKS_PER_SM blocks per SM; its column partials of dscale take
+# d * 4 bytes of shared memory, which bounds the width
+BWD_ROWS = 4
+BWD_BLOCKS_PER_SM = 2
+BWD_MAX_WIDTH = (232448 - 1024) // 4
+
+
+def bwd_blocks(rows: int, sms: int) -> int:
+    """Blocks of the backward's grid (rows of its dscale scratch)."""
+    return max(1, min(-(-rows // BWD_ROWS), BWD_BLOCKS_PER_SM * sms))
 
 
 def blocks_wanted(rows: int) -> int:
@@ -72,6 +97,75 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     _build.check(err, "rmsnorm kernel")
     LAUNCHES += 1
     return y
+
+
+def _launch_bwd(x, scale, dy, eps):
+    global BWD_LAUNCHES
+    if x.dtype not in _DTYPE_CODES or scale.dtype not in _DTYPE_CODES:
+        raise TypeError(f"rmsnorm kernel takes bf16/f32; x {x.dtype}, "
+                        f"scale {scale.dtype}")
+    d = x.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or scale.shape != (d,) \
+            or dy.device != x.device or scale.device != x.device:
+        raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)}, scale "
+                         f"{tuple(scale.shape)} for x {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if d > BWD_MAX_WIDTH:
+        raise ValueError(f"rmsnorm backward kernel takes rows of at most "
+                         f"{BWD_MAX_WIDTH}; got {d}")
+    x, dy, scale = x.contiguous(), dy.contiguous(), scale.contiguous()
+    dx = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, torch.zeros_like(scale)
+    dscale = torch.empty_like(scale)
+    blocks = bwd_blocks(rows, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    vec_ok = int(all(t.data_ptr() % 16 == 0 for t in (x, dy, dx))
+                 and (d * x.element_size()) % 16 == 0)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mist_rmsnorm_bwd(
+            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), part.data_ptr(), rows, d, float(eps),
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], vec_ok, blocks,
+            stream)
+    _build.check(err, "rmsnorm backward kernel")
+    BWD_LAUNCHES += 1
+    return dx, dscale
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-6, impl: str = "kernel"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``rmsnorm``: x, dy (..., d), scale (d,) -> dx in x's
+    dtype, dscale in scale's dtype.  ``impl`` as in ``rmsnorm``."""
+    if impl == "plain" or (impl == "kernel" and x.device.type == "cpu"):
+        return rmsnorm_bwd_ref(x, scale, dy, eps)
+    if impl != "kernel":
+        raise ValueError(f"impl {impl!r}: 'kernel' or 'plain'")
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return _launch_bwd(x, scale, dy, eps)
+
+
+class RMSNorm(torch.autograd.Function):
+    """y = rmsnorm(x, scale) with its gradient from ``rmsnorm_bwd``, which
+    recomputes the row statistics from the saved x."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float, impl: str):
+        ctx.save_for_backward(x, scale)
+        ctx.opts = dict(eps=eps, impl=impl)
+        return rmsnorm(x, scale, eps=eps, impl=impl)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), **ctx.opts)
+        return dx, dscale, None, None
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,

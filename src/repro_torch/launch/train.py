@@ -1,0 +1,101 @@
+"""Training launcher (the port of ``repro/launch/train.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
+        --smoke --steps 2 [--plan-json P] [--seq S] [--global-batch B] \
+        [--layers L] [--device cpu]
+
+Runs ``build_model`` -> ``init_train_state`` -> ``make_train_step`` and
+takes ``--steps`` steps over ``SyntheticLM`` batches, on ``cuda`` unless
+``--device cpu`` is given.  ``--smoke`` trains the reduced config (seq 128,
+global batch 8, as the reference's smoke run); ``--layers`` cuts the depth
+of the config (a full-width config whose optimizer state does not fit one
+card).  With no ``--plan-json`` the plan is the reference's smoke plan:
+remat on half the layers and ``grad_accum`` 2 at dp = tp = 1, with the
+port's flash-attention kernel.  ``--tune``, ``--memo-dir`` and
+``--calibrate`` wait for the tuner, and ``TrainLoop`` with its checkpoints
+for the training surface (ROADMAP.md): the loop here is a plain step loop.
+"""
+from __future__ import annotations
+
+import argparse
+import pathlib
+import time
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.models.common import resolve_device
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq", type=int, default=None,
+                    help="sequence length (default 4096; 128 with --smoke)")
+    ap.add_argument("--global-batch", type=int, default=None,
+                    help="sequences per step (default 8)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
+    ap.add_argument("--plan-json", default=None)
+    ap.add_argument("--smoke", action="store_true",
+                    help="train the reduced config")
+    ap.add_argument("--tune", action="store_true",
+                    help="(not ported yet) run the Mist tuner")
+    ap.add_argument("--memo-dir", default=None,
+                    help="(not ported yet) the tuner's memo store")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="(not ported yet) fit a calibration profile")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    for flag, on in (("--tune", args.tune), ("--memo-dir", args.memo_dir),
+                     ("--calibrate", args.calibrate)):
+        if on:
+            raise SystemExit(f"{flag} is not ported yet: the port has no "
+                             "tuner (ROADMAP.md, queue A)")
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.plan import Plan, single_stage_plan
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training.data import BatchSpec, SyntheticLM
+    from repro_torch.training.step import init_train_state, make_train_step
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
+    seq = args.seq or (128 if args.smoke else 4096)
+    gbs = args.global_batch or 8
+    model = build_model(cfg, device)
+    if args.plan_json:
+        plan = Plan.from_json(pathlib.Path(args.plan_json).read_text())
+    else:
+        plan = single_stage_plan(cfg.num_layers, dp=1, tp=1,
+                                 micro_batch=gbs // 2 or 1, grad_accum=2,
+                                 zero=1, ckpt_layers=cfg.num_layers // 2,
+                                 attn_impl="pallas", use_pallas=True)
+    step = make_train_step(model, plan)
+    state = init_train_state(model, plan,
+                             torch.Generator(device).manual_seed(0))
+    data = SyntheticLM(BatchSpec(global_batch=gbs, seq_len=seq,
+                                 vocab_size=cfg.vocab_size))
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch(i).items()}
+        state, metrics = step.fn(state, batch)
+        losses.append(float(metrics["loss"]))  # syncs the device
+    dt = time.perf_counter() - t0
+    n = len(losses)
+    print(f"trained {n} steps in {dt:.1f}s ({dt / max(1, n):.2f}s/step) on "
+          f"{device}; loss {losses[0]:.3f} -> {losses[-1]:.3f}"
+          if n else f"trained 0 steps on {device}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -43,6 +43,13 @@ def check_plan_mesh(plan: Plan, world_size: int = 1) -> None:
                          "runs dp = tp = 1 only (multi-device slice pending)")
 
 
+def train_exec_cfg(plan: Plan) -> ExecConfig:
+    """The training exec config: the plan's CKPT/AO segmentation, remat
+    policy and kernel choice for its one stage."""
+    check_plan_mesh(plan)
+    return stage_exec_config(plan, plan.stages[0])
+
+
 def serve_exec_cfg(plan: Plan) -> ExecConfig:
     """Inference never remats/offloads activations."""
     check_plan_mesh(plan)

@@ -4,19 +4,27 @@ Params are a *flat dict* ``{"path/to/param": Tensor}`` with the reference's
 names and stacked-layer shapes (leading ``L`` dim, or ``(groups, per)``
 dims for the hybrid's Mamba stack), so weights cross
 between the two packages by name (``repro_torch.bridge``).  The layer loop
-is a Python loop over views ``w[i]`` of the stacked tensors.
+is a Python loop: serving takes views ``w[i]`` of the stacked tensors
+(``layer``); training unbinds them once per loss (``unbind_layers``).
 
-``shard_act``/``name_act`` are no-ops on one device and are not ported;
-``segmented_layer_scan`` belongs to the training slice.
+``segmented_layer_scan`` realises a plan's CKPT_i/AO_i as the reference
+does, as segments ``[offload-remat | remat | saved]`` of the layer loop:
+remat is ``torch.utils.checkpoint`` (non-reentrant), and the offload
+segment also moves the layer inputs that checkpoint saves to pinned host
+memory (``OffloadActivations``).  ``shard_act``/``name_act`` are no-ops on
+one device and are not ported: the offload hook needs no activation tags.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 Params = Dict[str, torch.Tensor]
 Axes = Dict[str, Tuple[Optional[str], ...]]
@@ -184,3 +192,132 @@ def subtree(params: Params, prefix: str) -> Params:
 def layer(params: Params, i: int) -> Params:
     """Layer ``i`` of a stacked flat dict: views ``w[i]``, no copies."""
     return {k: v[i] for k, v in params.items()}
+
+
+def unbind_layers(stacked: Params, num_layers: int) -> List[Params]:
+    """The per-layer dicts of a stacked flat dict, from one ``unbind`` per
+    tensor.  Under autograd, ``unbind``'s backward stacks the per-layer
+    gradients once; indexing ``w[i]`` per layer (``layer``) would instead
+    give each layer's view a zero gradient of the whole stacked size."""
+    names = list(stacked)
+    per = [stacked[n].unbind(0) for n in names]
+    assert all(len(t) == num_layers for t in per), num_layers
+    return [dict(zip(names, ts)) for ts in zip(*per)]
+
+
+# ---------------------------------------------------------------------------
+# Segmented layer loop with per-segment remat (CKPT_i / AO_i realization)
+# ---------------------------------------------------------------------------
+
+# bytes of activations the offload hook has taken in this process (moved to
+# pinned host memory on a CUDA device; kept where they are on the CPU)
+OFFLOADED_BYTES = 0
+
+
+class OffloadActivations(torch.autograd.graph.saved_tensors_hooks):
+    """Saved-tensor hooks that move activations to pinned host memory.
+
+    Around a non-reentrant checkpoint these see what checkpoint itself
+    saves: the layer's input (the residual stream) and the layer's
+    parameter views.  Tensors whose storage is one of ``params``' are left
+    in place, so only activations move.  On a CUDA tensor, pack copies to a
+    pinned host buffer (asynchronously, on the current stream) and unpack
+    copies back; on the CPU both are no-ops, as the reference keeps the
+    offload segment resident when the backend has no host memory space."""
+
+    def __init__(self, params: Sequence[torch.Tensor]):
+        keep = {t.untyped_storage().data_ptr() for t in params}
+
+        def pack(t):
+            global OFFLOADED_BYTES
+            if t.untyped_storage().data_ptr() in keep:
+                return t
+            OFFLOADED_BYTES += t.numel() * t.element_size()
+            if t.device.type != "cuda":
+                return t
+            host = torch.empty(t.size(), dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            return t.device, host
+
+        def unpack(packed):
+            if isinstance(packed, tuple):
+                dev, host = packed
+                return host.to(dev, non_blocking=True)
+            return packed
+
+        super().__init__(pack, unpack)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of plain matmuls and recompute everything else (the
+    batched products included), as ``checkpoint_dots_with_no_batch_dims``
+    does in the reference."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_call(body: Callable, carry, lp: Params, policy: str,
+                offload: bool):
+    """``body(carry, lp)`` for one layer, under the segment's remat."""
+    if policy == "none" and not offload:
+        return body(carry, lp)
+    names = list(lp)
+
+    def fn(h, *tensors):
+        return body((h,) + tuple(carry[1:]), dict(zip(names, tensors)))
+
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if offload:
+        with OffloadActivations(lp.values()):
+            return checkpoint(fn, carry[0], *lp.values(), **kw)
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    elif policy != "full":
+        raise ValueError(policy)
+    return checkpoint(fn, carry[0], *lp.values(), **kw)
+
+
+def segmented_layer_scan(body: Callable, carry, layers: Sequence[Params],
+                         num_layers: int, exec_cfg: ExecConfig):
+    """The layer loop, split into [offload-remat | remat | saved].
+
+    ``body(carry, layer_params) -> carry``, with the residual stream first
+    in ``carry``.  The first ``offload_layers`` rematerialize *and* offload
+    their saved inputs to host; the next ``ckpt - offload`` only
+    rematerialize (under ``remat_policy``); the rest save all
+    intermediates.  This realizes Mist's (CKPT_i, AO_i) knobs as the
+    reference's scan-split points; with autograd off (serving) checkpoint
+    runs its function plainly."""
+    ckpt = min(exec_cfg.ckpt_layers, num_layers)
+    off = min(exec_cfg.offload_layers, ckpt)
+    segments = []  # (start, stop, policy, offload)
+    if off:
+        segments.append((0, off, exec_cfg.remat_policy, True))
+    if ckpt - off:
+        segments.append((off, ckpt, exec_cfg.remat_policy, False))
+    if num_layers - ckpt:
+        segments.append((ckpt, num_layers, "none", False))
+    for lo, hi, policy, offload in segments:
+        for i in range(lo, hi):
+            carry = _remat_call(body, carry, layers[i], policy, offload)
+    return carry
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy; logits (..., V) f32, labels int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

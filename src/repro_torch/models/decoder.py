@@ -1,9 +1,11 @@
 """Stacked decoder LM, dense GQA blocks (the port of
 ``repro/models/decoder.py``).
 
-Init / prefill / decode over flat-dict params with stacked-``L`` tensors;
-the layer loop is a Python loop over views of layer ``i``.  MoE, Mamba2 and
-mLSTM blocks, the loss and remat segmentation wait for their slices.
+Init / loss / prefill / decode over flat-dict params with stacked-``L``
+tensors.  ``run_layers`` (training and the cache-less prefill) runs the
+layers through ``segmented_layer_scan`` over the unbound stack; the serving
+paths loop over views of layer ``i``.  MoE, Mamba2 and mLSTM blocks wait
+for their slices.
 """
 from __future__ import annotations
 
@@ -11,11 +13,14 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.common import (Axes, ExecConfig, ParamBuilder, Params,
-                                       StackedBuilder, layer, subtree)
+                                       StackedBuilder, layer,
+                                       segmented_layer_scan, softmax_xent,
+                                       subtree, unbind_layers)
 
 # ---------------------------------------------------------------------------
 # Block kinds
@@ -105,14 +110,68 @@ def _logits(params: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def run_layers(params: Params, x: torch.Tensor, cfg: ArchConfig,
                ec: ExecConfig) -> Tuple[torch.Tensor, float]:
-    """All layers then the final norm.  Returns (h, aux_loss)."""
-    stacked = subtree(params, "layers")
-    h, aux = x, 0.0
-    for i in range(cfg.num_layers):
-        h, a, _ = apply_block(layer(stacked, i), h, cfg, ec)
-        aux += a
+    """All layers (through ``segmented_layer_scan``, so the exec config's
+    remat and offload segments apply) then the final norm.  Returns
+    (h, aux_loss)."""
+    layers = unbind_layers(subtree(params, "layers"), cfg.num_layers)
+
+    def body(carry, lp):
+        h, aux = carry
+        h, a, _ = apply_block(lp, h, cfg, ec)
+        return h, aux + a
+
+    h, aux = segmented_layer_scan(body, (x, 0.0), layers, cfg.num_layers, ec)
     return L.norm(subtree(params, "final_norm"), h, cfg,
                   impl=ec.kernel_impl), aux
+
+
+def _chunk_nll(hh, w_out, ll, mm):
+    logits = (hh @ w_out).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, ll[..., None])[..., 0]
+    nll = (lse - gold) * mm
+    return nll.sum(), mm.sum()
+
+
+def chunked_xent(h: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None, chunk: int = 512
+                 ) -> torch.Tensor:
+    """Cross-entropy without materializing full (B, S, V) logits: a loop over
+    sequence chunks, each checkpointed so that its logits are recomputed in
+    the backward (the reference's ``jax.checkpoint`` scan body).  A sequence
+    the chunk does not divide takes the full logits, as in the reference."""
+    b_, s, _ = h.shape
+    c = min(chunk, s)
+    nc = s // c
+    if nc * c != s:  # fall back for ragged smoke shapes
+        return softmax_xent((h @ w_out).float(), labels, mask)
+    labels = labels.long()
+    mask = mask.float() if mask is not None else \
+        torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nc):
+        sl = slice(i * c, (i + 1) * c)
+        t, n = checkpoint(_chunk_nll, h[:, sl], w_out, labels[:, sl],
+                          mask[:, sl], use_reentrant=False,
+                          preserve_rng_state=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+AUX_COEF = 0.01
+
+
+def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            ec: ExecConfig) -> torch.Tensor:
+    """Mean next-token loss of a batch ``{"tokens", "labels"[,
+    "loss_mask"]}`` (B, S), plus ``AUX_COEF`` times the mean aux loss (0 for
+    dense blocks)."""
+    x = embed_tokens(params, batch["tokens"], cfg, ec)
+    h, aux = run_layers(params, x, cfg, ec)
+    loss = chunked_xent(h, unembed_matrix(params, cfg), batch["labels"],
+                        batch.get("loss_mask"))
+    return loss + AUX_COEF * aux / cfg.num_layers
 
 
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],

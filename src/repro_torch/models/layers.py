@@ -3,7 +3,9 @@
 
 Every layer is an (init, apply) pair over flat-dict params.  Attention
 covers prefill (full sequence, ``cache=None``) and scalar-``pos`` decode
-(one token against a KV cache).  MLA, cross-attention, per-request
+(one token against a KV cache).  The prefill route is differentiable: the
+projections, RoPE, flash attention and the norm carry gradients, the
+latter two through their kernels' autograd Functions.  MLA, cross-attention, per-request
 positions and the int8 KV cache wait for their slices (ROADMAP.md).
 """
 from __future__ import annotations
@@ -16,7 +18,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models.common import ExecConfig, Params, ScopedBuilder
 
 NEG_INF = -1e30
@@ -34,10 +35,11 @@ def init_norm(b: ScopedBuilder, cfg: ArchConfig):
 
 def norm(p: Params, x: torch.Tensor, cfg: ArchConfig,
          impl: str = "kernel") -> torch.Tensor:
-    """RMSNorm goes through the RMSNorm kernel wrapper (``impl`` as in
-    ``kernels.rmsnorm.rmsnorm``); LayerNorm stays plain torch."""
+    """RMSNorm goes through ``ops.rmsnorm``, the RMSNorm kernels' autograd
+    Function (``impl`` is its ``kernel_impl``); LayerNorm stays plain
+    torch."""
     if cfg.norm_type == "rmsnorm":
-        return rmsnorm(x, p["scale"], eps=1e-6, impl=impl)
+        return kops.rmsnorm(x, p["scale"], eps=1e-6, kernel_impl=impl)
     dtype = x.dtype
     xf = x.float()
     xf = xf - xf.mean(-1, keepdim=True)

@@ -1,6 +1,7 @@
 """Model registry (the port of ``repro/models/zoo.py``): the uniform
-init / prefill / decode / caches interface over the ported families --
-dense decoders and the Zamba2 hybrid."""
+init / loss / prefill / decode / caches interface over the ported families
+-- dense decoders and the Zamba2 hybrid (whose loss waits for hybrid
+training)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -32,6 +33,17 @@ class Model:
         values drawn from ``generator`` (on the model's device)."""
         return _FAMILIES[self.cfg.family][0](self.cfg, generator, dtype,
                                              self.device)
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
+                ec: ExecConfig) -> torch.Tensor:
+        """The training loss (a scalar tensor) of ``batch`` ``{"tokens",
+        "labels"[, "loss_mask"]}``."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the {self.cfg.family} loss is not ported "
+                "yet; hybrid training needs an SSD backward kernel "
+                "(ROADMAP.md, queue A: hybrid training)")
+        return DEC.lm_loss(params, batch, self.cfg, ec)
 
     def prefill_fn(self, params: Params, batch: Dict[str, torch.Tensor],
                    ec: ExecConfig, return_cache: bool = False):

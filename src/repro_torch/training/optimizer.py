@@ -1,0 +1,160 @@
+"""Mixed-precision AdamW with host-offloadable state (the port of
+``repro/training/optimizer.py``).
+
+State layout (flat dicts keyed by param name), as in the reference:
+  state = {"step": int32, "params": bf16, "master": f32, "mu": f32, "nu": f32}
+
+Any of master/mu/nu may be *split* along the stacked-layer dim into
+``{"host": x[:k], "dev": x[k:]}`` to realize Mist's WO/OO offload ratios:
+master by WO, mu/nu by OO.  On a CUDA device the host part is a pinned CPU
+tensor, staged through device memory for its update and copied back (the
+reference's ``to_dev``/``to_host``); on the CPU it is a plain CPU tensor and
+the staging is a no-op.  Overlapping those copies with the update (Mist's
+repositioned optimizer step) is later work (ROADMAP.md).
+
+The update runs in place on the state (the reference's jitted step donates
+it instead) and takes the reference's f32 arithmetic step for step.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.core.plan import StageConfig
+from repro_torch.models.common import Axes, Params
+
+# the stacked-layer axis names (a copy of the reference's
+# ``lowering/state_layout.py:58``)
+LAYER_AXES = ("layers", "layers1", "layers2")
+
+
+@dataclass(frozen=True)
+class AdamConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+def is_split(leaf) -> bool:
+    return isinstance(leaf, dict) and set(leaf) == {"host", "dev"}
+
+
+def split_k(name: str, shape, axes_table: Axes, ratio: float) -> int:
+    """How many leading (stacked-layer) slices go to host for this tensor."""
+    if ratio <= 0.0 or not shape:
+        return 0
+    axes = axes_table.get(name, ())
+    if not axes or axes[0] not in LAYER_AXES:
+        return 0
+    return int(round(ratio * shape[0]))
+
+
+def _host_empty(shape, like: torch.Tensor) -> torch.Tensor:
+    """An f32 host buffer: pinned when the state lives on a CUDA device."""
+    return torch.empty(shape, dtype=torch.float32,
+                       pin_memory=like.device.type == "cuda")
+
+
+# ---------------------------------------------------------------------------
+# state init
+# ---------------------------------------------------------------------------
+
+
+def init_opt_entry(params: Params, axes_table: Axes, ratio: float,
+                   like: str) -> Dict[str, Any]:
+    """like: 'master' copies params to f32; 'zeros' makes f32 zeros.  A
+    split leaf's device part is its own tensor (no view of a full one)."""
+    out = {}
+    for name, p in params.items():
+        k = split_k(name, p.shape, axes_table, ratio)
+        if not k:
+            out[name] = p.detach().to(torch.float32, copy=True) \
+                if like == "master" else \
+                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            continue
+        host = _host_empty((k,) + tuple(p.shape[1:]), p)
+        if like == "master":
+            host.copy_(p[:k])
+            dev = p[k:].detach().to(torch.float32, copy=True)
+        else:
+            host.zero_()
+            dev = torch.zeros((p.shape[0] - k,) + tuple(p.shape[1:]),
+                              dtype=torch.float32, device=p.device)
+        out[name] = {"host": host, "dev": dev}
+    return out
+
+
+def init_state(params: Params, axes_table: Axes, stage: StageConfig
+               ) -> Dict[str, Any]:
+    dev = next(iter(params.values())).device
+    return {
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+        "params": dict(params),
+        "master": init_opt_entry(params, axes_table, stage.wo, "master"),
+        "mu": init_opt_entry(params, axes_table, stage.oo, "zeros"),
+        "nu": init_opt_entry(params, axes_table, stage.oo, "zeros"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# update
+# ---------------------------------------------------------------------------
+
+
+def global_norm(grads: Params) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in grads.values()))
+
+
+@torch.no_grad()
+def adam_update(state: Dict[str, Any], grads: Params, acfg: AdamConfig
+                ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step, in place.  grads: f32 flat dict (same keys as
+    params).  Host parts of split leaves are staged through the params'
+    device for the update and copied back; on a CUDA device the copy back
+    is asynchronous, so synchronize before reading a host part on the host
+    (``bridge.train_state_to_numpy`` does)."""
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    clip = torch.clamp(acfg.grad_clip / (gnorm + 1e-12), max=1.0)
+    c1 = 1.0 - acfg.b1 ** step.float()
+    c2 = 1.0 - acfg.b2 ** step.float()
+
+    def upd(m, mu, nu, gg):
+        mu.mul_(acfg.b1).add_((1 - acfg.b1) * gg)
+        nu.mul_(acfg.b2).add_((1 - acfg.b2) * gg * gg)
+        u = (mu / c1) / (torch.sqrt(nu / c2) + acfg.eps)
+        m.sub_(acfg.lr * (u + acfg.weight_decay * m))
+
+    for name, g in grads.items():
+        g = g.float() * clip
+        p = state["params"][name]
+        leaves = [state[e][name] for e in ("master", "mu", "nu")]
+        if not any(is_split(x) for x in leaves):
+            upd(*leaves, g)
+            p.copy_(leaves[0])
+            continue
+        kh = next(x["host"].shape[0] for x in leaves if is_split(x))
+        for lo, hi in ((0, kh), (kh, g.shape[0])):
+            parts, staged = [], []
+            for x in leaves:
+                if not is_split(x):
+                    parts.append(x[lo:hi])
+                elif lo == 0:   # the host part, staged on the device
+                    parts.append(x["host"].to(p.device, non_blocking=True))
+                    staged.append((x["host"], parts[-1]))
+                else:
+                    parts.append(x["dev"])
+            upd(*parts, g[lo:hi])
+            p[lo:hi].copy_(parts[0])
+            for host, dev in staged:
+                if dev is not host:
+                    host.copy_(dev, non_blocking=True)
+
+    state["step"] = step
+    return state, {"grad_norm": gnorm}

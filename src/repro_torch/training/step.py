@@ -1,21 +1,93 @@
-"""Step builders (the port of ``repro/training/step.py``): serve steps only.
+"""Step builders (the port of ``repro/training/step.py``).
 
-``make_prefill_step`` / ``make_serve_step`` are closures that bind the
-plan's serve ``ExecConfig``; PyTorch runs eagerly, so there is no ``jit``
-and no buffer donation (decode writes its cache in place instead).  The
-train step waits for the training slice.
+``make_train_step`` realizes a single-stage, one-device plan: CKPT/AO remat
+segmentation (``segmented_layer_scan``), WO/OO host offload of the
+optimizer state, optional int8 gradient compression and gradient
+accumulation over G micro-batches.  ``make_prefill_step`` /
+``make_serve_step`` bind the plan's serve ``ExecConfig``.  All are closures:
+PyTorch runs eagerly, so there is no ``jit`` and no buffer donation; the
+train step updates its state in place, and decode writes its cache in
+place.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.core.plan import Plan
-from repro_torch.lowering import serve_exec_cfg
+from repro_torch.lowering import serve_exec_cfg, train_exec_cfg
 from repro_torch.models.common import ExecConfig
 from repro_torch.models.zoo import Model
+from repro_torch.parallel.compression import fake_compress
+from repro_torch.training import optimizer as OPT
+
+
+@dataclass
+class TrainStep:
+    fn: Callable
+    exec_cfg: ExecConfig
+
+
+def make_train_step(model: Model, plan: Plan,
+                    adam: OPT.AdamConfig = OPT.AdamConfig(),
+                    kernel_impl: str = "kernel") -> TrainStep:
+    """``fn(state, batch)`` -> ``(state, {"loss", "grad_norm", "step"})``.
+
+    The batch (B, S) splits into G = ``plan.grad_accum`` contiguous
+    micro-batches; each micro-batch's gradients (in the params' dtype) add
+    into f32 sums, divided by G at the end, and the loss is the mean of the
+    micro-batch losses.  Then ``fake_compress`` if the plan asks for it, and
+    ``adam_update`` on the state, in place.  ``kernel_impl="plain"`` is the
+    test hook of ``ExecConfig.kernel_impl``.  Activations take the params'
+    dtype (bf16, as the reference trains; f32 params compute in f32)."""
+    ec = train_exec_cfg(plan).replace(kernel_impl=kernel_impl)
+    G = plan.grad_accum
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        names = list(state["params"])
+        leaves = [state["params"][n].detach().requires_grad_(True)
+                  for n in names]
+        params = dict(zip(names, leaves))
+        run_ec = ec.replace(compute_dtype=params["embed/w"].dtype)
+        b = batch["tokens"].shape[0]
+        if b % G:
+            raise ValueError(f"batch {b} does not split into {G} "
+                             "micro-batches")
+        mb = b // G
+        sums, losses = None, []
+        for i in range(G):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss = model.loss_fn(params, micro, run_ec)
+            grads = torch.autograd.grad(loss, leaves)
+            if sums is None:
+                sums = [g.float() for g in grads]
+            else:
+                for acc, g in zip(sums, grads):
+                    acc.add_(g)
+            losses.append(loss.detach())
+            del grads, loss
+        grads = {n: acc.div_(G) for n, acc in zip(names, sums)}
+        del sums, params, leaves
+        if plan.grad_compression:
+            grads = fake_compress(grads)
+        state, om = OPT.adam_update(state, grads, adam)
+        metrics = {"loss": torch.stack(losses).mean(), **om,
+                   "step": state["step"]}
+        return state, metrics
+
+    return TrainStep(fn=train_step, exec_cfg=ec)
+
+
+def init_train_state(model: Model, plan: Plan, generator: torch.Generator
+                     ) -> Dict[str, Any]:
+    """A fresh train state on the model's device (the counterpart of the
+    reference's ``init_sharded_state``): params from ``generator``, f32
+    master/mu/nu split to host by the stage's WO/OO."""
+    params, axes = model.init(generator)
+    return OPT.init_state(params, axes, plan.stages[0])
 
 
 @dataclass

@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs.base import get_arch
 from repro_torch.core.plan import single_stage_plan
 from repro_torch.kernels import _build
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.lowering import check_plan_mesh
 from repro_torch.models.zoo import Model, build_model
 
@@ -110,6 +110,15 @@ def test_main_needs_cuda_unless_asked_for_cpu(no_cuda, capsys):
         serve.main(argv)
     assert serve.main(argv + ["--device", "cpu"]) == 0
     assert "generated 2 tokens" in capsys.readouterr().out
+
+
+def test_train_main_needs_cuda_unless_asked_for_cpu(no_cuda, capsys):
+    argv = ["--arch", "granite-3-8b", "--smoke", "--steps", "1",
+            "--seq", "16", "--global-batch", "2"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(argv)
+    assert train.main(argv + ["--device", "cpu"]) == 0
+    assert "trained 1 steps" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flag", ["--tune", "--continuous"])

@@ -45,8 +45,10 @@ def no_kernel_build(monkeypatch):
         raise AssertionError("a CPU tensor reached the kernel loader")
     monkeypatch.setattr(_build, "load_library", refuse)
     FA.LAUNCHES = RN.LAUNCHES = SS.LAUNCHES = 0
+    FA.BWD_LAUNCHES = RN.BWD_LAUNCHES = 0
     yield
     assert FA.LAUNCHES == 0 and RN.LAUNCHES == 0 and SS.LAUNCHES == 0
+    assert FA.BWD_LAUNCHES == 0 and RN.BWD_LAUNCHES == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -111,6 +113,145 @@ def test_gqa_wrapper_lse_layout_and_ragged_keys():
     np.testing.assert_allclose(lse.numpy(),
                                np.asarray(want_lse).reshape(b, h, sq),
                                atol=2e-5, rtol=2e-5)
+
+
+# the reference's own bf16 tolerance for its blocked backward
+# (tests/test_kernels.py:59-62)
+BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blocked_bwd_matches_reference(causal, dtype):
+    """blocked_bwd against the reference's _blocked_bwd on the same out, lse
+    and dout: the same roundings (bf16 P and dS as product operands, f32
+    dq sums across KV blocks)."""
+    rng = np.random.default_rng(12)
+    bh, s, d, block = 3, 64, 32, 16
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = (
+        _pair(rng.standard_normal((bh, s, d), dtype=np.float32), dtype)
+        for _ in range(4))
+    jo, jlse = jops._blocked_fwd(jq, jk, jv, causal, d ** -0.5, block)
+    to = torch.from_numpy(np.array(_np(jo))).to(tq.dtype)
+    tlse = torch.from_numpy(np.array(jlse))
+    want = jops._blocked_bwd(jq, jk, jv, jo, jlse, jdo, causal, d ** -0.5,
+                             block)
+    got = FA.blocked_bwd(tq, tk, tv, to, tlse, tdo, causal, d ** -0.5, block)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        np.testing.assert_allclose(_np(g), _np(w), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,kv,sq,sk", [(8, 2, 48, 48), (4, 4, 40, 72)],
+                         ids=["gqa4", "g1-ragged"])
+def test_flash_attention_function_grads_match_reference(causal, h, kv, sq,
+                                                        sk):
+    """FlashAttention's gradients (plain versions on the CPU) against
+    jax.grad of the reference's ops.attention(impl="pallas"), its Pallas
+    forward in interpret mode with the blocked backward, in f32 at GQA
+    shapes: 1e-3 (tests/test_kernels.py:121-125)."""
+    import jax
+    rng = np.random.default_rng(13)
+    b, hd = 2, 32
+    arrs = [rng.standard_normal(sh, dtype=np.float32) for sh in
+            ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd),
+             (b, sq, h, hd))]
+
+    def jloss(q, k, v):
+        o = jops.attention(q, k, v, causal=causal, impl="pallas",
+                           q_block=16, kv_block=8)
+        return jnp.sum(o * jnp.asarray(arrs[3]))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in arrs[:3]))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in arrs[:3])
+    o = tops.attention(tq, tk, tv, causal=causal, impl="pallas", q_block=16,
+                       kv_block=8)
+    got = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(arrs[3]))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3,
+                                   rtol=1e-3)
+
+
+def _bf16_step(x):
+    """One bf16 step (ulp) at each value's magnitude."""
+    ax = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(ax)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(6, 128), (2, 5, 96)])
+def test_rmsnorm_function_grads_match_reference(dtype, shape):
+    """RMSNorm's dx and dscale (the plain backward on the CPU) against
+    jax.grad of the reference's layers.norm, which the JAX model
+    differentiates: f32 within 1e-5, bf16 within one bf16 step."""
+    import jax
+    from repro.configs.base import get_arch as jax_get_arch
+    from repro.models import layers as JL
+    jcfg = jax_get_arch("granite-3-8b").reduced().replace(d_model=shape[-1])
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    sc = 1 + 0.1 * rng.standard_normal(shape[-1:], dtype=np.float32)
+    dy = rng.standard_normal(shape, dtype=np.float32)
+    (jx, tx), (js, ts), (jdy, tdy) = (_pair(a, dtype) for a in (x, sc, dy))
+
+    def jloss(xx, ss):
+        y = JL.norm({"scale": ss}, xx, jcfg)
+        return jnp.sum(y.astype(jnp.float32) * jdy.astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1))(jx, js)
+    tx.requires_grad_(True)
+    ts.requires_grad_(True)
+    y = tops.rmsnorm(tx, ts)
+    got = torch.autograd.grad(y, (tx, ts), tdy)
+    for g, w, t in zip(got, want, (tx, ts)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        g, w = _np(g), _np(w)
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5)
+        else:
+            assert (np.abs(g - w) <= _bf16_step(w)).all()
+
+
+def test_rmsnorm_bwd_ref_is_the_gradient_of_rmsnorm_ref():
+    """The plain backward against autograd through the plain forward, in
+    f64 (no rounding to compare)."""
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((7, 40))).requires_grad_(True)
+    sc = torch.from_numpy(rng.standard_normal(40)).requires_grad_(True)
+    dy = torch.from_numpy(rng.standard_normal((7, 40)))
+    want = torch.autograd.grad(tops.ref.rmsnorm_ref(x, sc), (x, sc), dy)
+    got = RN.rmsnorm_bwd(x.detach(), sc.detach(), dy)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5)
+
+
+def test_functions_run_forward_only_under_inference_mode():
+    """Prefill calls the same ops under inference_mode: no graph, the
+    forward's values, and the backward wrappers never run."""
+    q = torch.randn(1, 8, 2, 32)
+    with torch.inference_mode():
+        o = tops.attention(q, q, q, impl="pallas")
+        y = tops.rmsnorm(q, torch.ones(32))
+    assert o.grad_fn is None and y.grad_fn is None
+    assert torch.equal(o, FA.flash_attention(q, q, q)[0])
+    assert torch.equal(y, RN.rmsnorm(q, torch.ones(32)))
+
+
+def test_backward_wrappers_reject_unknown_impl_and_devices():
+    q = torch.zeros(1, 4, 2, 32)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError):
+        FA.flash_attention_bwd(q, q, q, q, lse, q, impl="triton")
+    with pytest.raises(ValueError):
+        RN.rmsnorm_bwd(q, torch.ones(32), q, impl="triton")
+    meta = torch.zeros(2, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        RN.rmsnorm_bwd(meta, torch.ones(8, device="meta"), meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        FA.flash_attention_bwd(*(t.to("meta") for t in (q, q, q, q, lse, q)))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -395,6 +536,45 @@ def test_rmsnorm_plan_holds_the_serving_widths_in_registers(d, esize, vec_ok,
     assert nv == want
     if nv:
         assert nv * 32 * (16 // esize) == d and nv * 4 <= 128
+
+
+def test_flash_bwd_kernel_head_dims_and_shared_memory():
+    """The backward kernel takes the forward's head dims, and its two
+    kernels' tiles (rows padded by 8 elements) fit a block's shared
+    memory at each of them."""
+    src = (CSRC / "flash_attention_bwd.cu").read_text()
+    entry = src[src.index('extern "C" int mist_flash_attn_bwd'):]
+    cases = tuple(int(c) for c in re.findall(r"case (\d+):", entry))
+    assert cases == FA.HEAD_DIMS
+    kn, qm = _cu_int("flash_attention_bwd.cu", "DKV_KN"), \
+        _cu_int("flash_attention_bwd.cu", "DKV_QM")
+    dq_qm, dq_kn = _cu_int("flash_attention_bwd.cu", "DQ_QM"), \
+        _cu_int("flash_attention_bwd.cu", "DQ_KN")
+    threads = _cu_int("flash_attention_bwd.cu", "THREADS")
+    assert kn == dq_qm == threads // 32 * 16  # 16 rows per warp
+    for hd in FA.HEAD_DIMS:
+        row = (hd + 8) * 2
+        assert row % 16 == 0 and (row // 16) % 2 == 1  # ldmatrix: no conflicts
+        assert (2 * kn + 2 * qm) * row + 2 * qm * 4 <= FA.SMEM_LIMIT
+        assert (2 * dq_qm + 2 * dq_kn) * row <= FA.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("rows,sms,blocks", [(1, 132, 1), (9, 132, 3),
+                                             (4096, 132, 264), (4096, 4, 8)])
+def test_rmsnorm_bwd_grid_and_widths_mirror_the_kernel(rows, sms, blocks):
+    """BWD_ROWS rows per block reduction, at most BWD_BLOCKS_PER_SM blocks
+    per SM (rows of the dscale scratch), and rows up to the width whose
+    column partials fit shared memory."""
+    assert RN.BWD_ROWS == _cu_int("rmsnorm.cu", "BWD_ROWS")
+    assert RN.bwd_blocks(rows, sms) == blocks
+    smem = re.findall(r"constexpr int BWD_SMEM_MAX = (\d+) - (\d+);",
+                      (CSRC / "rmsnorm.cu").read_text())
+    assert len(smem) == 1
+    assert RN.BWD_MAX_WIDTH == (int(smem[0][0]) - int(smem[0][1])) // 4
+    big = torch.zeros(2, RN.BWD_MAX_WIDTH + 1, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most"):
+        RN._launch_bwd(big, torch.ones(big.shape[-1], dtype=torch.bfloat16),
+                       big, 1e-6)
 
 
 @pytest.mark.parametrize("rows,blocks", [(1, 1), (4, 1), (8, 1), (9, 2),
