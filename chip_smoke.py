@@ -26,10 +26,13 @@ non-zero (no phase catches another's exception):
    attention's dq/dk/dv, per element and in relative error per 128-row
    tile (granite's training shape, with a second call that must agree bit
    for bit and a planted late-tile fault the rule must reject; every head
-   dim with Sq off the query tile, Sk
-   shorter than one key tile, H = KV, causal with Sq > Sk, non-causal with
-   a ragged last tile) and RMSNorm's dx/dscale (4096 x 4096 and d 2560
-   bf16, the generic widths 1001 and 8192, f32, mixed x/scale types).
+   dim with Sq off the query tile, Sk shorter than one key tile, H = KV,
+   causal with Sq > Sk, non-causal with a ragged last tile; B 2, S 1024,
+   whose second call must agree bit for bit too; then the training shape
+   again, right after that other shape, against its plain version) and
+   RMSNorm's dx/dscale (4096 x 4096 and d 2560 bf16, the generic widths
+   1001 and 8192, f32, mixed x/scale types).  Phase 1 logs the backward
+   kernel's registers and spills per head dim from ptxas.
 3. Full-width granite-3-8b (all 40 layers, bf16, random weights from a
    seed): prefill logits with the kernels against the same model with the
    plain versions; ``generate(gen=32)`` with the launch counters checked
@@ -78,6 +81,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -275,6 +279,34 @@ def phase_device_and_build():
         if any(w in line for w in ("registers", "spill", "Compiling",
                                    "wgmma", "arning")):
             log(f"#   ptxas: {line.strip()}")
+    for fn, hd, regs, stores, loads in ptxas_report(_build.BUILD_LOG,
+                                                    "flash_bwd_kernel"):
+        log(f"# ptxas {fn}<{hd}>: {regs} registers, {stores} bytes spill "
+            f"stores, {loads} bytes spill loads")
+
+
+def ptxas_report(build_log: str, kernel: str):
+    """[(kernel, head dim, registers, spill store bytes, spill load
+    bytes)] of each instance of ``kernel`` in nvcc's ``-Xptxas -v`` output
+    (empty when the library was already built)."""
+    out, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(rf"Compiling entry function '\S*{kernel}ILi(\d+)E", line)
+        if m:
+            cur = [kernel, int(m.group(1)), None, None, None]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur[3], cur[4] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur[2] = int(m.group(1))
+            out.append(tuple(cur))
+            cur = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -493,19 +525,9 @@ def _backward_kernels_vs_plain():
         (2, 129, 200, 8, 2, 32, False),
         (2, 256, 333, 8, 8, 80, False),
     ]
-    for i, (b, sq, sk, h, kv, hd, causal) in enumerate(cases):
-        q, k, v = _qkv(b, sq, sk, h, kv, hd, seed=70 + i)
-        dout = _qkv(b, sq, 1, h, 1, hd, seed=90 + i)[0]
-        o, lse = FA.flash_attention(q, k, v, causal=causal)
-        got = FA.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal)
-        sync()
-        want = FA.flash_attention_bwd(q.float(), k.float(), v.float(),
-                                      o.float(), lse, dout.float(),
-                                      causal=causal, impl="plain")
-        sync()
+    def check(what, got, want):
         res = [flash_bwd_close(g, w) for g, w in zip(got, want)]
-        log(f"# flash bwd B{b} Sq{sq} Sk{sk} H{h} KV{kv} hd{hd} "
-            f"causal={causal}: dq/dk/dv max err "
+        log(f"# flash bwd {what}: dq/dk/dv max err "
             f"{'/'.join(f'{r[1]:.3e}' for r in res)} (max |ref| "
             f"{'/'.join(f'{float(w.abs().max()):.2f}' for w in want)}); "
             f"relative, worst tile "
@@ -513,8 +535,31 @@ def _backward_kernels_vs_plain():
             f"{'/'.join(f'{r[3]:.3e}' for r in res)}")
         if not all(r[0] for r in res):
             raise AssertionError("flash attention backward kernel disagrees "
-                                 f"with its plain version (case {i})")
+                                 f"with its plain version ({what})")
+        return res
+
+    def inputs(b, sq, sk, h, kv, hd, causal, seed):
+        q, k, v = _qkv(b, sq, sk, h, kv, hd, seed=seed)
+        dout = _qkv(b, sq, 1, h, 1, hd, seed=seed + 20)[0]
+        o, lse = FA.flash_attention(q, k, v, causal=causal)
+        return q, k, v, o, lse, dout
+
+    def plain(q, k, v, o, lse, dout, causal):
+        want = FA.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                      o.float(), lse, dout.float(),
+                                      causal=causal, impl="plain")
+        sync()
+        return want
+
+    for i, (b, sq, sk, h, kv, hd, causal) in enumerate(cases):
+        q, k, v, o, lse, dout = inputs(b, sq, sk, h, kv, hd, causal, 70 + i)
+        got = FA.flash_attention_bwd(q, k, v, o, lse, dout, causal=causal)
+        sync()
+        want = plain(q, k, v, o, lse, dout, causal)
+        res = check(f"B{b} Sq{sq} Sk{sk} H{h} KV{kv} hd{hd} causal={causal}",
+                    got, want)
         if i == 0:
+            train = (q, k, v, o, lse, dout), want
             errs["flash_attention_bwd"] = max(r[1] for r in res)
             # the rule must see a fault confined to late tiles: the late
             # half of dq (or of dk) at 0.8x its value fails it
@@ -538,6 +583,27 @@ def _backward_kernels_vs_plain():
             if not same:
                 raise AssertionError("flash backward kernel: two calls "
                                      "differ")
+    # the dQ parts add in a fixed order per (batch, head, query tile): two
+    # calls agree bit for bit where the ordered adds cross batches and heads
+    args = inputs(2, 1024, 1024, N_HEADS, N_KV, HEAD_DIM, True, 60)
+    got = FA.flash_attention_bwd(*args, causal=True)
+    again = FA.flash_attention_bwd(*args, causal=True)
+    sync()
+    check(f"B2 Sq1024 Sk1024 H{N_HEADS} KV{N_KV} hd{HEAD_DIM} causal=True",
+          got, plain(*args, True))
+    same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    log(f"# flash bwd B2 S1024, second call bitwise equal: {same}")
+    if not same:
+        raise AssertionError("flash backward kernel: two calls differ at "
+                             "B 2, S 1024")
+    # the scratch (dq_accum, the ticket and the counters) is set up by each
+    # call: the training shape right after another shape still agrees with
+    # its plain version
+    (q, k, v, o, lse, dout), want = train
+    got = FA.flash_attention_bwd(q, k, v, o, lse, dout, causal=True)
+    sync()
+    check("training shape again, after B2 S1024", got, want)
+    del train, args, got, again, want
 
     bf16, f32 = torch.bfloat16, torch.float32
     rn_cases = [  # (rows, d, x dtype, scale dtype)
@@ -932,6 +998,31 @@ def _time_ssd(launches, err):
         shape=f"B{b} S{s} H{h} P{p} N{n} G{g} chunk {q} bf16")
 
 
+def kernel_split_us(fn, reps: int = 10) -> dict:
+    """Device microseconds per launch of each CUDA kernel that ``fn``
+    launches (a torch.profiler window over ``reps`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    out = {}
+    for ev in prof.key_averages():
+        dev = getattr(ev, "device_time_total", 0) or \
+            getattr(ev, "cuda_time_total", 0)
+        if dev and ev.count and \
+                ev.device_type == torch.autograd.DeviceType.CUDA:
+            # "void (anonymous namespace)::name<128>(args)" -> "name"
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[(<]", name.removeprefix("void "))[0]
+            out[name] = out.get(name, 0.0) + dev / ev.count
+    return out
+
+
 def flash_bwd_bound(b, sq, sk, h, kv, hd, causal):
     """(bound_ms, bound_by, arithmetic) for one flash-attention backward:
     five products (S, dP, dV, dK, dQ) over the causal pairs, 2 flop per
@@ -984,6 +1075,9 @@ def _time_flash_bwd(launches, err):
     lib_cold = time_ms(lib, cold=True, device_only=True)
     plain = time_ms(lambda: FA.flash_attention_bwd(
         q, k, v, o, lse, dout, causal=True, impl="plain"), reps=3, warmup=1)
+    parts = kernel_split_us(kernel)
+    log("# flash bwd, device us per call by kernel (torch.profiler): "
+        + ", ".join(f"{name} {us:.1f}" for name, us in parts.items()))
     bound, by, how = flash_bwd_bound(b, s, s, h, kv, hd, True)
     log(f"# flash bwd: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 "
         f"{cold:.4f}), plain {plain:.4f} ms, SDPA backward {lib_ms:.4f} ms "
@@ -998,7 +1092,7 @@ def _time_flash_bwd(launches, err):
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=lib_ms, device_ms=dev,
         library_device_ms=lib_dev, cold_ms=cold, library_cold_ms=lib_cold,
-        model="granite-3-8b (training)",
+        parts_us=parts, model="granite-3-8b (training)",
         shape=f"B{b} S{s} H{h} KV{kv} hd{hd} causal bf16")
 
 
@@ -1455,7 +1549,7 @@ def _device_window(fn, trace: Path):
 # in a kernel's name takes it
 _KERNEL_GROUPS = (
     ("memcpy/memset", ("Memcpy", "Memset")),
-    ("flash (port)", ("flash_fwd", "fa_bwd")),
+    ("flash (port)", ("flash_fwd", "flash_bwd", "fa_bwd")),
     ("rmsnorm (port)", ("rmsnorm",)),
     ("ssd (port)", ("ssd_scan",)),
     ("gemm (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "Kernel2")),

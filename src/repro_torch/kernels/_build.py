@@ -5,8 +5,9 @@ the checkout's own files: every source to an object at once (one ``nvcc``
 process each, in parallel), then linked into one ``libmist_kernels.so``
 with a plain C interface, loaded with ``ctypes``.  The library goes to
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
-sources and flags: an unchanged tree loads the built library at once, a
-changed source builds anew.  A missing ``nvcc`` or a failed build raises;
+sources, the header they share (``*.cuh``) and the flags: an unchanged
+tree loads the built library at once, a changed source or header builds
+anew.  A missing ``nvcc`` or a failed build raises;
 nothing falls back to the plain versions.
 """
 from __future__ import annotations
@@ -50,12 +51,18 @@ def find_nvcc() -> Optional[str]:
 
 
 def _sources():
+    """The sources compiled, one object each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def _hashed_files():
+    """Every file a build reads: the sources and the headers they include."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
 
 
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

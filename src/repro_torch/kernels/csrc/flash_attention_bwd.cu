@@ -14,203 +14,395 @@
 //
 // What bounds it on an H100: tensor-core operations.  At granite's training
 // shape (B 1, S 4096, H 32, KV 8, hd 128, causal) the five products take
-// 343.6 GFLOP against ~100 MB of traffic, far above the ~295 FLOP/byte bf16
-// ridge: 0.347 ms at 989 TFLOP/s.
+// 343.7 GFLOP against ~100 MB of traffic, far above the ~295 FLOP/byte bf16
+// ridge: 0.3475 ms at 989 TFLOP/s.
 //
-// What the design does about that, as a first, simple kernel: every product
-// is mma.sync m16n8k16 (bf16 operands from ldmatrix or from registers, f32
-// sums), and nothing is written but the outputs.  It is deterministic and
-// uses no atomics, at the price of forming S and dP twice:
-// - fa_bwd_delta_kernel: delta, one warp per (batch, row, head).
-// - fa_bwd_dkdv_kernel: one block of 4 warps per (batch, KV head, tile of 64
-//   keys); each warp owns 16 keys, holds their dK and dV in registers, and
-//   walks the group's query heads and, for each, the query tiles of 32 rows
-//   at or after its key tile (causal) with K and V staying in shared memory.
-//   Working with S^T = K q^T puts keys on the rows of every accumulator, so
-//   P^T and dS^T feed dV and dK straight from registers as A fragments.
-// - fa_bwd_dq_kernel: one block of 4 warps per (batch, head, tile of 64
-//   query rows), heaviest causal tiles first; each warp owns 16 rows and
-//   their dQ, and walks the key tiles of 64 up to the diagonal.
-// Tiles sit in shared memory in rows padded by 8 elements, so that ldmatrix
-// reads are free of bank conflicts, and are loaded with cp.async; rows past
-// the end of q or k are zero-filled and masked.  Single-buffered: the loads
-// of the next tile wait for the last product of this one.  wgmma, TMA and
-// warp specialisation are left for later work.
+// What the design does about that (the FlashAttention-3 backward, kept
+// deterministic):
+// - One pass over the keys, 5 products: a block owns 128 keys of one
+//   (batch, KV head); each of its two consumer warpgroups holds dK and dV of
+//   64 keys in f32 registers.  The block walks the query tiles of 64 rows at
+//   or after its keys (causal), last tile first, and in each all H / KV
+//   query heads of the group.  Per (key tile, query tile) every warpgroup
+//   forms S^T = K q^T and dP^T = V dO^T (wgmma, both operands in shared
+//   memory), then P^T and dS^T in registers (exp in the log2 domain, as the
+//   forward).  dS^T goes to shared memory in bf16 and P^T is re-packed in
+//   place to bf16 A fragments for dV += P^T dO (wgmma RS, dO MN-major).
+//   Both warpgroups read the dS^T tile: dQ = dS K over the block's 128 keys
+//   (SS, both operands MN-major; each warpgroup one 64-column head_dim panel
+//   of K, at hd 64 and 32 the first alone), then dK += dS^T q over their own
+//   rows (SS, q MN-major), so the dQ part is staged while dK runs.
+// - A producer warpgroup hands its registers to the consumers (setmaxnreg:
+//   a block launches with 168 a thread, 64,512 in all, and 24 x 128 +
+//   240 x 256 fits them).  One thread loads K and V once and the q and dO
+//   tiles, with their rows of lse and delta, by TMA through a ring of
+//   Q_STAGES on full/empty mbarriers, so the next tile's loads overlap this
+//   tile's products.  A second thread writes dQ out (below).
+// - dQ without a second pass, and deterministic: the consumers stage each
+//   dQ part (64 rows, f32) in shared memory, and the writer thread adds it
+//   into an f32 dq_accum (B, Sq, H, hd) with a TMA store (key tile 0) or a
+//   TMA reduce-add (the others), in ascending key-tile order: it waits, with
+//   acquire loads, until the counter of its (batch, head, query tile) equals
+//   its key tile's index n (the number of key tiles before it, all of which
+//   reach every query tile that it reaches), frees the stage once the copy
+//   has read it, waits for the copy to complete, and bumps the counter with
+//   release semantics.  No add is unordered, so two calls agree bit for bit.
+// - No deadlock: a block waits only on blocks of smaller key tiles of its
+//   (batch, KV head), which never wait on it.  So every block a block waits
+//   on must have started before it.  Laying the grid out with key tiles
+//   varying slowest in blockIdx would give that only if the hardware
+//   dispatched blocks in blockIdx order; instead a block takes its (key
+//   tile, batch, KV head) from an atomic ticket, key-tile-major (every key
+//   tile 0 first, the heaviest under causal masking): the blocks it waits
+//   on hold smaller tickets, taken by blocks already running.  The ticket
+//   decides only which block computes which tile, not any result.  Blocks
+//   of one (batch, KV head) walk the query tiles in the same order, so each
+//   finds its predecessor ahead of it.
+// - A pre-pass writes delta and lse * log2(e) in rows padded to whole query
+//   tiles (padding rows: delta 0, lse +inf, so P = 0 there without a mask)
+//   and zeroes the ticket and the counters; a post-pass rounds dq_accum to
+//   bf16.  The wrapper allocates the scratch with torch.empty.
+// - Registers: dK and dV of 64 keys (hd / 2 f32 each a thread), S^T and
+//   dP^T of a 64-row query tile (32 each); the dQ part reuses dP^T's.
+//   Query tiles of 64 keep every head dim inside the 240 a consumer thread
+//   has, with no spill.  Shared memory: 230,480 bytes at hd 128.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
-constexpr int THREADS = 128;  // 4 warps of 16 rows each
-constexpr int PAD = 8;        // bf16 elements of padding per shared row
-constexpr int DKV_KN = 64;    // dK/dV kernel: keys per block
-constexpr int DKV_QM = 32;    // dK/dV kernel: query rows per inner tile
-constexpr int DQ_QM = 64;     // dQ kernel: query rows per block
-constexpr int DQ_KN = 64;     // dQ kernel: keys per inner tile
+constexpr int BLOCK_N = 128;    // keys per block, 64 per consumer warpgroup
+constexpr int BLOCK_M = 64;     // query rows per tile
+constexpr int Q_STAGES = 2;     // q and dO tiles (with lse, delta) in the ring
+constexpr int DS_STAGES = 2;    // dS^T tiles: the next tile's is written
+                                // while the other warpgroup's dQ reads this
+constexpr int DQ_STAGES = 2;    // f32 dQ parts on their way out
+constexpr int CONSUMERS = 256;  // two warpgroups of 64 keys
+constexpr int NUM_THREADS = CONSUMERS + 128;  // and a producer warpgroup
+// registers a thread after the producer hands its share to the consumers
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+// mbarriers: K/V loaded; q/dO full and empty; dQ part full and empty
+constexpr int N_BARS = 1 + 2 * Q_STAGES + 2 * DQ_STAGES;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__host__ __device__ constexpr int dkdv_smem_bytes(int hd) {
-  return (2 * DKV_KN + 2 * DKV_QM) * (hd + PAD) * 2 + 2 * DKV_QM * 4;
+__host__ __device__ constexpr int kv_tile_bytes(int hd) {
+  return BLOCK_N * hd * 2;
 }
-__host__ __device__ constexpr int dq_smem_bytes(int hd) {
-  return (2 * DQ_QM + 2 * DQ_KN) * (hd + PAD) * 2;
+__host__ __device__ constexpr int q_tile_bytes(int hd) {
+  return BLOCK_M * hd * 2;
+}
+__host__ __device__ constexpr int ds_tile_bytes() {
+  return BLOCK_N * BLOCK_M * 2;
+}
+__host__ __device__ constexpr int dq_tile_bytes(int hd) {
+  return BLOCK_M * hd * 4;
+}
+__host__ __device__ constexpr int smem_bytes(int hd) {
+  return 2 * kv_tile_bytes(hd) + 2 * Q_STAGES * q_tile_bytes(hd) +
+         DS_STAGES * ds_tile_bytes() + DQ_STAGES * dq_tile_bytes(hd) +
+         2 * Q_STAGES * BLOCK_M * 4 + 8 * N_BARS + 8;  // + the ticket
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// TMA descriptors: q, dO (boxes of 64 rows), k, v (128 rows), each in its
+// head_dim panels; dq_accum (f32, 64 rows) in panels of 32 columns (128-byte
+// rows) and, at hd 80, one of 16
+struct alignas(64) Maps {
+  CUtensorMap q[2], k[2], v[2], dout[2], dq[2];
+};
+
+// The f32 dQ part of one tile (64 x HD) in shared memory as the TMA reads
+// it: 32-column panels of 128-byte rows with the 128-byte swizzle, and at
+// hd 80 a last panel of 16 columns (64-byte rows and swizzle).
+template <int HD>
+struct DqPanels {
+  static constexpr int FULL = HD / 32;
+  static constexpr int REST = HD % 32;
+  static constexpr int COUNT = FULL + (REST ? 1 : 0);
+  __host__ __device__ static constexpr int offset(int p) {
+    return p * BLOCK_M * 128;
+  }
+  // byte offset of (row, col) in the part
+  __device__ static uint32_t at(int row, int col) {
+    const int p = col / 32;
+    const int rowbytes = (p < FULL ? 32 : REST) * 4;
+    const uint32_t lin = row * rowbytes + (col - 32 * p) * 4;
+    return offset(p) + (lin ^ (((lin >> 7) & (rowbytes / 16 - 1)) << 4));
+  }
+};
+
+// Pre-pass.  For every (b, i, h) row, i < SqP (Sq padded to whole query
+// tiles): delta[b, h, i] = sum_d dO * O in f32 and lse2[b, h, i] =
+// lse * log2(e); padding rows get 0 and +inf.  Zeroes the n_sync ints of
+// `sync` (the ticket and the dQ counters).  Half a warp per row, 16 bytes
+// of O and of dO a lane.
+__global__ void __launch_bounds__(256)
+fa_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ lse2,
+                   float* __restrict__ delta, int* __restrict__ sync,
+                   int n_sync, int Sq, int SqP, int H, int hd) {
+  const int b = blockIdx.y;  // rows of one batch: (i, h), i < SqP
+  if (b == 0)
+    for (int i = blockIdx.x * 256 + threadIdx.x; i < n_sync;
+         i += gridDim.x * 256)
+      sync[i] = 0;
+  const int lane = threadIdx.x & 31, sub = lane & 15;
+  const int r = blockIdx.x * 16 + (threadIdx.x >> 4);
+  const int h = r % H, i = r / H;
+  const bool real = r < SqP * H && i < Sq;
+  float acc = 0.f;
+  if (real) {
+    const long long row =
+        ((static_cast<long long>(b) * Sq + i) * H + h) * hd;
+    for (int c = sub * 8; c < hd; c += 128) {
+      const uint4 a = *reinterpret_cast<const uint4*>(o + row + c);
+      const uint4 d = *reinterpret_cast<const uint4*>(dout + row + c);
+      const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+      const uint32_t dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&av[e]));
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&dv[e]));
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)  // within the half warp
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (sub == 0 && r < SqP * H) {
+    const long long out = (static_cast<long long>(b) * H + h) * SqP + i;
+    delta[out] = acc;
+    lse2[out] = real ? lse[(static_cast<long long>(b) * H + h) * Sq + i] *
+                           LOG2E
+                     : __int_as_float(0x7f800000);  // +inf: P = 0
+  }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
+// Post-pass: dq = bf16(dq_accum), 4 elements a thread and step
+__global__ void __launch_bounds__(256)
+fa_bwd_dq_round_kernel(const float4* __restrict__ acc,
+                       uint2* __restrict__ dq, long long n4) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    const float4 a = acc[i];
+    dq[i] = make_uint2(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w));
+  }
+}
+
+// dK += dS^T q for queries [16 kk, 16 kk + 16): A = the warpgroup's rows
+// of the dS^T tile `dst` (K-major), B = the q tile `qt` (64 rows, MN-major),
+// N = head_dim in the panels pv_product uses
+template <int HD>
+__device__ __forceinline__ void dk_product(float (&acc)[HD / 8][4],
+                                           uint32_t dst, int wg, uint32_t qt,
+                                           int kk) {
+  using P = Panels<HD>;
+  const uint64_t da = kmajor_desc<BLOCK_M, BLOCK_N>(dst, wg * 64, kk);
+  const int rows = kk * 16;
+  if constexpr (HD == 128) {
+    wgmma_ss_mn128<0>(acc, da,
+                      smem_desc(qt + rows * 128,
+                                P::template offset<BLOCK_M>(1), 1024, 1));
+  } else if constexpr (HD == 80) {
+    wgmma_ss_mn64<0>(acc, da, smem_desc(qt + rows * 128, 16, 1024, 1));
+    wgmma_ss_mn16<8>(acc, da,
+                     smem_desc(qt + P::template offset<BLOCK_M>(1) +
+                                   rows * 32,
+                               16, 256, 3));
+  } else if constexpr (HD == 64) {
+    wgmma_ss_mn64<0>(acc, da, smem_desc(qt + rows * 128, 16, 1024, 1));
+  } else {
+    wgmma_ss_mn32<0>(acc, da, smem_desc(qt + rows * 64, 16, 512, 2));
+  }
+}
+
+// dQ (64 x one head_dim panel) = dS K over the block's 128 keys: A = dS
+// from the dS^T tile `dst` (keys x 64 queries, 128-byte rows: MN-major),
+// B = the warpgroup's panel `p` of the K tile `kt` (MN-major).
+template <int HD>
+__device__ __forceinline__ void dq_product(float (&dq)[8][4], uint32_t dst,
+                                           uint32_t kt, int p) {
+  using P = Panels<HD>;
+#pragma unroll
+  for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
+    const uint64_t da = smem_desc(dst + kk * 16 * 128, 16, 1024, 1);
+    const int keys = kk * 16;
+    if constexpr (HD == 32) {
+      wgmma_ss_t<32>(reinterpret_cast<float(&)[4][4]>(dq), da,
+                     smem_desc(kt + keys * 64, 16, 512, 2), kk > 0);
+    } else if (P::cols(p) == 64) {
+      wgmma_ss_t<64>(dq, da,
+                     smem_desc(kt + P::template offset<BLOCK_N>(p) +
+                                   keys * 128,
+                               16, 1024, 1),
+                     kk > 0);
+    } else {
+      wgmma_ss_t<16>(reinterpret_cast<float(&)[2][4]>(dq), da,
+                     smem_desc(kt + P::template offset<BLOCK_N>(p) +
+                                   keys * 32,
+                               16, 256, 3),
+                     kk > 0);
+    }
+  }
+}
+
+// x, hidden from the optimiser: the wgmma descriptors and per-thread
+// shared-memory offsets derived from it are recomputed in the loop where
+// they are used, instead of being hoisted out of it and held in registers
+// across every item
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ void ld_shared_f2(uint32_t addr, float& x,
+                                             float& y) {
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(x), "=f"(y)
+               : "r"(addr));
+}
+__device__ __forceinline__ void st_shared_f2(uint32_t addr, float x,
+                                             float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(x),
+               "f"(y)
                : "memory");
 }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-// four 8 x 8 bf16 matrices, the rows of matrix i addressed by lanes 8i..8i+7
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a b: m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// (lo, hi) rounded to a bf16 pair, lo in the low half
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// ROWS rows of HD elements from g (row r at g + (row0 + r) * stride) into
-// shared rows of HD + PAD; rows at or past `nrows` are zero-filled
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* s, const bf16* g,
-                                          long long stride, int row0,
-                                          int nrows) {
-  constexpr int CH = HD / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CH; c += THREADS) {
-    const int r = c / CH, cc = c - r * CH;
-    bf16* dst = s + r * (HD + PAD) + cc * 8;
-    if (row0 + r < nrows)
-      cp_async16(dst, g + (row0 + r) * stride + cc * 8);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in f32, one warp
-// per (b, i, h) row of the contiguous (B, Sq, H, hd) tensors
-__global__ void __launch_bounds__(256)
-fa_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                    float* __restrict__ delta, int B, int Sq, int H,
-                    int hd) {
-  const int lane = threadIdx.x & 31;
-  const long long rows = static_cast<long long>(B) * Sq * H;
-  const long long stride = static_cast<long long>(gridDim.x) * 8;
-  for (long long r = blockIdx.x * 8LL + (threadIdx.x >> 5); r < rows;
-       r += stride) {
-    const __nv_bfloat162* o2 =
-        reinterpret_cast<const __nv_bfloat162*>(o + r * hd);
-    const __nv_bfloat162* d2 =
-        reinterpret_cast<const __nv_bfloat162*>(dout + r * hd);
-    float acc = 0.f;
-    for (int j = lane; j < hd / 2; j += 32) {
-      const float2 a = __bfloat1622float2(o2[j]);
-      const float2 b = __bfloat1622float2(d2[j]);
-      acc = fmaf(a.x, b.x, acc);
-      acc = fmaf(a.y, b.y, acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      const long long h = r % H, i = (r / H) % Sq, b = r / (static_cast<long long>(H) * Sq);
-      delta[(b * H + h) * Sq + i] = acc;
-    }
-  }
-}
-
-// dK and dV of DKV_KN keys of one (batch, KV head)
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int Sq, int Sk, int H, int KV,
-                   float scale, int causal) {
-  constexpr int LD = HD + PAD, KS = HD / 16, NT = HD / 8;
-  constexpr int QN = DKV_QM / 8;  // n-tiles of query columns
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + DKV_KN * LD;
-  bf16* sQ = sV + DKV_KN * LD;
-  bf16* sO = sQ + DKV_QM * LD;  // dO
-  float* sL = reinterpret_cast<float*>(sO + DKV_QM * LD);  // lse * log2(e)
-  float* sD = sL + DKV_QM;                                  // delta
+__global__ void __launch_bounds__(NUM_THREADS, 1)
+flash_bwd_kernel(const __grid_constant__ Maps maps,
+                 const float* __restrict__ lse2,
+                 const float* __restrict__ delta, int* __restrict__ sync,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H,
+                 int KV, int Sq, int Sk, int SqP, float scale, int causal) {
+  constexpr int KSTEPS = HD / 16;       // k16 steps of S^T, dP^T over hd
+  constexpr int NT = HD / 8;            // 8-column chunks of dK, dV
+  constexpr int NT_S = BLOCK_M / 8;     // 8-column chunks of S^T, dP^T
+  constexpr int PSTEPS = BLOCK_M / 16;  // k16 steps of dV, dK over queries
+  constexpr int KV_TILE = kv_tile_bytes(HD), Q_TILE = q_tile_bytes(HD);
+  constexpr int DS_TILE = ds_tile_bytes(), DQ_TILE = dq_tile_bytes(HD);
+  using DQ = DqPanels<HD>;
 
-  const int k0 = blockIdx.x * DKV_KN, kvh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // fragment row, column pair
-  const int G = H / KV;
-  const long long qstride = static_cast<long long>(H) * HD;
-  const long long kstride = static_cast<long long>(KV) * HD;
-  const long long kbase = (static_cast<long long>(b) * Sk * KV + kvh) * HD;
-  load_rows<HD, DKV_KN>(sK, k + kbase, kstride, k0, Sk);
-  load_rows<HD, DKV_KN>(sV, v + kbase, kstride, k0, Sk);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sK = smem_u32(smem_raw);
+  const uint32_t sV = sK + KV_TILE;
+  const uint32_t sQ = sV + KV_TILE;
+  const uint32_t sDO = sQ + Q_STAGES * Q_TILE;
+  const uint32_t sDS = sDO + Q_STAGES * Q_TILE;
+  const uint32_t sDQ = sDS + DS_STAGES * DS_TILE;
+  const uint32_t sL = sDQ + DQ_STAGES * DQ_TILE;  // lse2 rows, per stage
+  const uint32_t sD = sL + Q_STAGES * BLOCK_M * 4;  // delta rows
+  const uint32_t kvfull = sD + Q_STAGES * BLOCK_M * 4;
+  const uint32_t qfull = kvfull + 8, qempty = qfull + 8 * Q_STAGES;
+  const uint32_t dqfull = qempty + 8 * Q_STAGES;
+  const uint32_t dqempty = dqfull + 8 * DQ_STAGES;
+  int* s_ticket =  // after the mbarriers
+      reinterpret_cast<int*>(smem_raw + (dqempty + 8 * DQ_STAGES - sK));
 
-  // ldmatrix lane addresses: A from row-major rows; B from rows indexed by
-  // n (non-transposed); B from rows indexed by k (transposed)
-  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3),
-            b_col = ((lane >> 3) & 1) * 8;
-  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3),
-            t_col = (lane >> 4) * 8;
-  const uint32_t sK_a = smem_addr(sK + (warp * 16 + a_row) * LD + a_col);
-  const uint32_t sV_a = smem_addr(sV + (warp * 16 + a_row) * LD + a_col);
-  const uint32_t sQ_b = smem_addr(sQ + b_row * LD + b_col);
-  const uint32_t sO_b = smem_addr(sO + b_row * LD + b_col);
-  const uint32_t sQ_t = smem_addr(sQ + t_row * LD + t_col);
-  const uint32_t sO_t = smem_addr(sO + t_row * LD + t_col);
+  const int tid = threadIdx.x;
+  const int warp_id = tid >> 5, lane = tid & 31;
+  const int nm = SqP / BLOCK_M, G = H / KV;
+  if (tid == 0) {
+    *s_ticket = atomicAdd(sync, 1);
+    mbar_init(kvfull, 1);
+    for (int i = 0; i < Q_STAGES; ++i) {
+      mbar_init(qfull + 8 * i, 1);  // the producer's arrival
+      mbar_init(qempty + 8 * i, CONSUMERS / 32);
+    }
+    for (int i = 0; i < DQ_STAGES; ++i) {
+      mbar_init(dqfull + 8 * i, CONSUMERS / 32);
+      mbar_init(dqempty + 8 * i, 1);  // the writer's arrival
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the work: key tile n (key-tile-major tickets), batch b, KV head kvh
+  const int ticket = *s_ticket;
+  const int n = ticket / (B * KV), b = (ticket % (B * KV)) / KV,
+            kvh = ticket % KV;
+  const int k0 = n * BLOCK_N;
+  // query tiles [m0, nm) reach these keys; items run last tile first and,
+  // in each, over the group's heads
+  const int m0 = causal ? min(nm, k0 / BLOCK_M) : 0;
+  const int n_items = (nm - m0) * G;
+  int* counters = sync + 1;
+  auto item = [&](int it, int& m, int& h) {
+    m = nm - 1 - it / G;
+    h = kvh * G + it % G;
+  };
+
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);  // warp-uniform
+  if (role == CONSUMERS / 128) {
+    regs_down<PRODUCER_REGS>();
+    if (tid == CONSUMERS && n_items > 0) {
+      // the loader: K and V once, then q, dO, lse2 and delta per item
+      mbar_expect(kvfull, 2 * KV_TILE);
+      load_panels<HD, BLOCK_N>(sK, maps.k, k0, kvh, b, kvfull);
+      load_panels<HD, BLOCK_N>(sV, maps.v, k0, kvh, b, kvfull);
+#pragma unroll 1
+      for (int it = 0; it < n_items; ++it) {
+        int m, h;
+        item(it, m, h);
+        const int s = it % Q_STAGES;
+        mbar_wait(qempty + 8 * s, ((it / Q_STAGES) & 1) ^ 1);
+        const uint32_t bar = qfull + 8 * s;
+        mbar_expect(bar, 2 * Q_TILE + 2 * BLOCK_M * 4);
+        load_panels<HD, BLOCK_M>(sQ + s * Q_TILE, maps.q, m * BLOCK_M, h, b,
+                                 bar);
+        load_panels<HD, BLOCK_M>(sDO + s * Q_TILE, maps.dout, m * BLOCK_M,
+                                 h, b, bar);
+        const long long row = (static_cast<long long>(b) * H + h) * SqP +
+                              m * BLOCK_M;
+        bulk_load(sL + s * BLOCK_M * 4, lse2 + row, BLOCK_M * 4, bar);
+        bulk_load(sD + s * BLOCK_M * 4, delta + row, BLOCK_M * 4, bar);
+      }
+    } else if (tid == CONSUMERS + 32) {
+      // the dQ writer: each part, in ascending key-tile order per
+      // (batch, head, query tile)
+#pragma unroll 1
+      for (int it = 0; it < n_items; ++it) {
+        int m, h;
+        item(it, m, h);
+        const int s = it % DQ_STAGES;
+        mbar_wait(dqfull + 8 * s, (it / DQ_STAGES) & 1);
+        int* cnt = counters + (static_cast<long long>(b) * H + h) * nm + m;
+        while (ld_acquire(cnt) < n) __nanosleep(32);
+        fence_proxy_async_global();
+        const uint32_t part = sDQ + s * DQ_TILE;
+#pragma unroll
+        for (int p = 0; p < DQ::COUNT; ++p)
+          tma_store_or_add(maps.dq + (p < DQ::FULL ? 0 : 1),
+                           part + DQ::offset(p), 32 * p, m * BLOCK_M, h, b,
+                           n > 0);
+        bulk_commit_if(true);
+        bulk_wait_if<true>(true);  // the part is read: its stage is free
+        mbar_arrive_if(dqempty + 8 * s, true);
+        bulk_wait_if<false>(true);  // complete: visible in global memory
+        fence_proxy_async_global();
+        red_release_add(cnt, 1);
+      }
+    }
+    return;
+  }
+
+  // The consumers: two warpgroups of 64 keys each
+  regs_up<CONSUMER_REGS>();
+  const int wg = role;
+  const int warp = __shfl_sync(0xffffffffu, warp_id & 3, 0);  // in the wg
+  const int g = lane >> 2, t = lane & 3;
+  const float c = scale * LOG2E;
+  const int kw0 = k0 + wg * 64;  // the warpgroup's first key
+  const int key[2] = {kw0 + warp * 16 + g, kw0 + warp * 16 + g + 8};
+  const bool has_dq = wg < Panels<HD>::COUNT;  // a head_dim panel of dQ
 
   float dka[NT][4], dva[NT][4];
 #pragma unroll
@@ -218,330 +410,227 @@ fa_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
 
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
-  const float sl2 = scale * LOG2E;
-  const int nq = (Sq + DKV_QM - 1) / DKV_QM;
-  const int qt0 = causal ? k0 / DKV_QM : 0;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const long long qbase = (static_cast<long long>(b) * Sq * H + h) * HD;
-    const float* lrow = lse + (static_cast<long long>(b) * H + h) * Sq;
-    const float* drow = delta + (static_cast<long long>(b) * H + h) * Sq;
-    for (int qt = qt0; qt < nq; ++qt) {
-      const int q0 = qt * DKV_QM;
-      __syncthreads();  // every warp is done with the last tile
-      load_rows<HD, DKV_QM>(sQ, q + qbase, qstride, q0, Sq);
-      load_rows<HD, DKV_QM>(sO, dout + qbase, qstride, q0, Sq);
-      for (int i = threadIdx.x; i < DKV_QM; i += THREADS) {
-        const bool in = q0 + i < Sq;
-        sL[i] = in ? lrow[q0 + i] * LOG2E : 0.f;
-        sD[i] = in ? drow[q0 + i] : 0.f;
-      }
-      cp_async_wait_all();
-      __syncthreads();
+  if (n_items > 0) mbar_wait(kvfull, 0);
+  for (int it = 0; it < n_items; ++it) {
+    int m, h;
+    item(it, m, h);
+    const int q0 = m * BLOCK_M;
+    const int s = it % Q_STAGES;
+    const uint32_t qt = sQ + s * Q_TILE, dot = sDO + s * Q_TILE;
+    const uint32_t dst = sDS + (it % DS_STAGES) * DS_TILE;
+    const uint32_t kt = opaque(sK), vt = kt + KV_TILE;
+    const int ln = static_cast<int>(opaque(lane));
+    const int g = ln >> 2, t = ln & 3;
+    const int key0 = kw0 + warp * 16 + g;  // this thread's first key
+    mbar_wait(qfull + 8 * s, (it / Q_STAGES) & 1);
 
-      // S^T = K q^T: 16 keys x DKV_QM queries per warp
-      float s[QN][4];
+    // S^T = K q^T and dP^T = V dO^T, 64 keys x 64 queries
+    float st[NT_S][4], dp[NT_S][4];
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < QN; ++j)
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      wgmma_ss<BLOCK_M>(st, kmajor_desc<HD, BLOCK_N>(kt, wg * 64, kk),
+                        kmajor_desc<HD, BLOCK_M>(qt, 0, kk), kk > 0);
+    wgmma_commit();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      wgmma_ss<BLOCK_M>(dp, kmajor_desc<HD, BLOCK_N>(vt, wg * 64, kk),
+                        kmajor_desc<HD, BLOCK_M>(dot, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T is done; dP^T may still run
+    fence_regs(st);
+
+    // P^T = exp2(S^T c - lse2), 0 where masked (rows past Sq: lse2 = +inf)
+    const uint32_t lrow = sL + s * BLOCK_M * 4, drow = sD + s * BLOCK_M * 4;
+    const bool mask = (causal && q0 < kw0 + 63) || kw0 + 64 > Sk;
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, sK_a + kk * 32);
+    for (int j = 0; j < NT_S; ++j) {
+      float l[2];
+      ld_shared_f2(lrow + (j * 8 + 2 * t) * 4, l[0], l[1]);
 #pragma unroll
-        for (int jp = 0; jp < QN / 2; ++jp) {
-          uint32_t bq[4];
-          ldsm_x4(bq, sQ_b + (jp * 16 * LD + kk * 16) * 2);
-          mma(s[2 * jp], a, bq[0], bq[1]);
-          mma(s[2 * jp + 1], a, bq[2], bq[3]);
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_approx(fmaf(st[j][e], c, -l[e & 1]));
+        if (mask) {
+          const int kp = key0 + 8 * (e >> 1), qp = q0 + j * 8 + 2 * t + (e & 1);
+          if (kp >= Sk || (causal && qp < kp)) p = 0.f;
         }
-      }
-      // P^T = exp(S^T scale - lse), 0 where masked
-      const bool edge = (causal && q0 < k0 + DKV_KN) || q0 + DKV_QM > Sq;
-#pragma unroll
-      for (int j = 0; j < QN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * t4 + (e & 1);
-          float p = ex2(fmaf(s[j][e], sl2, -sL[qi]));
-          if (edge) {
-            const int qp = q0 + qi, kp = e < 2 ? key0 : key1;
-            if ((causal && qp < kp) || qp >= Sq) p = 0.f;
-          }
-          s[j][e] = p;
-        }
-      // dV += P^T dO, P^T as bf16 A fragments straight from registers
-#pragma unroll
-      for (int kk = 0; kk < QN / 2; ++kk) {
-        const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                               pack(s[2 * kk][2], s[2 * kk][3]),
-                               pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bo[4];
-          ldsm_x4_t(bo, sO_t + (kk * 16 * LD + np * 16) * 2);
-          mma(dva[2 * np], a, bo[0], bo[1]);
-          mma(dva[2 * np + 1], a, bo[2], bo[3]);
-        }
-      }
-      // dP^T = V dO^T
-      float dp[QN][4];
-#pragma unroll
-      for (int j = 0; j < QN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, sV_a + kk * 32);
-#pragma unroll
-        for (int jp = 0; jp < QN / 2; ++jp) {
-          uint32_t bo[4];
-          ldsm_x4(bo, sO_b + (jp * 16 * LD + kk * 16) * 2);
-          mma(dp[2 * jp], a, bo[0], bo[1]);
-          mma(dp[2 * jp + 1], a, bo[2], bo[3]);
-        }
-      }
-      // dS^T = P^T (dP^T - delta) scale
-#pragma unroll
-      for (int j = 0; j < QN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * t4 + (e & 1);
-          s[j][e] = s[j][e] * (dp[j][e] - sD[qi]) * scale;
-        }
-      // dK += dS^T q
-#pragma unroll
-      for (int kk = 0; kk < QN / 2; ++kk) {
-        const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                               pack(s[2 * kk][2], s[2 * kk][3]),
-                               pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bq[4];
-          ldsm_x4_t(bq, sQ_t + (kk * 16 * LD + np * 16) * 2);
-          mma(dka[2 * np], a, bq[0], bq[1]);
-          mma(dka[2 * np + 1], a, bq[2], bq[3]);
-        }
+        st[j][e] = p;
       }
     }
+    wgmma_wait<0>();  // dP^T is done
+    fence_regs(dp);
+
+    // per 8-query chunk: dS^T = P^T (dP^T - delta) scale, rounded to bf16
+    // into shared memory (rows of 64 queries, 128 bytes, 128-byte swizzle),
+    // and P^T re-packed in place to bf16 A fragments; a chunk's f32 P^T and
+    // dP^T die here, which keeps the warpgroup's registers inside its share
+    uint32_t pa[PSTEPS][4];
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+      float d[2];
+      ld_shared_f2(drow + (j * 8 + 2 * t) * 4, d[0], d[1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wg * 64 + warp * 16 + g + 8 * r;  // key in the block
+        st_shared_b32(
+            dst + row * 128 + ((j ^ (row & 7)) << 4) + 4 * t,
+            pack_bf16(st[j][2 * r] * (dp[j][2 * r] - d[0]) * scale,
+                      st[j][2 * r + 1] * (dp[j][2 * r + 1] - d[1]) * scale));
+        pa[j / 2][2 * (j & 1) + r] = pack_bf16(st[j][2 * r], st[j][2 * r + 1]);
+      }
+    }
+    // dV += P^T dO
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PSTEPS; ++kk)
+      pv_product<HD, BLOCK_M>(dva, pa[kk], dot, kk);
+    wgmma_commit();
+    fence_proxy_async_shared();
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+
+    // the dQ part = dS K, one head_dim panel per warpgroup, summed in dP^T's
+    // registers (dead by now: an accumulator of its own would leave S^T and
+    // dP^T too few registers to be in flight together, and ptxas would
+    // serialize every wgmma); then dK += dS^T q over the warpgroup's rows
+    // of dS^T
+    float (&dq)[8][4] = dp;
+    wgmma_fence();
+    if (has_dq) dq_product<HD>(dq, dst, kt, wg);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < PSTEPS; ++kk) dk_product<HD>(dka, dst, wg, qt, kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // dV and the dQ part are done; dK may still run
+    fence_regs(dva);
+    fence_regs(pa);
+    if (has_dq) fence_regs(dq);
+
+    // stage the dQ part (f32) for the writer, while dK runs
+    const int ps = it % DQ_STAGES;
+    mbar_wait(dqempty + 8 * ps, ((it / DQ_STAGES) & 1) ^ 1);
+    if (has_dq) {
+      const uint32_t part = sDQ + ps * DQ_TILE;
+      const int cols = Panels<HD>::cols(wg);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j * 8 >= cols) break;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          st_shared_f2(part + DQ::at(warp * 16 + g + 8 * r,
+                                     wg * 64 + j * 8 + 2 * t),
+                       dq[j][2 * r], dq[j][2 * r + 1]);
+      }
+      fence_proxy_async_shared();
+    }
+    wgmma_wait<0>();  // dK is done too
+    fence_regs(dka);
+    mbar_arrive_if(qempty + 8 * s, lane == 0);  // q, dO of this stage read
+    __syncwarp();
+    mbar_arrive_if(dqfull + 8 * ps, lane == 0);
   }
-  cp_async_wait_all();  // K and V, when no query tile reached this block
 
-  const long long o0 = ((static_cast<long long>(b) * Sk + key0) * KV + kvh) * HD;
-  const long long o1 = o0 + 8 * kstride;
+  // dK and dV of the warpgroup's 64 keys, rounded once to bf16
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = j * 8 + 2 * t4;
-    if (key0 < Sk) {
-      *reinterpret_cast<uint32_t*>(dk + o0 + col) = pack(dka[j][0], dka[j][1]);
-      *reinterpret_cast<uint32_t*>(dv + o0 + col) = pack(dva[j][0], dva[j][1]);
-    }
-    if (key1 < Sk) {
-      *reinterpret_cast<uint32_t*>(dk + o1 + col) = pack(dka[j][2], dka[j][3]);
-      *reinterpret_cast<uint32_t*>(dv + o1 + col) = pack(dva[j][2], dva[j][3]);
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= Sk) continue;
+    const long long base =
+        ((static_cast<long long>(b) * Sk + key[r]) * KV + kvh) * HD;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = j * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dk + base + col) =
+          pack_bf16(dka[j][2 * r], dka[j][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + base + col) =
+          pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
     }
   }
 }
 
-// dQ of DQ_QM query rows of one (batch, head)
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                 int Sq, int Sk, int H, int KV, float scale, int causal) {
-  constexpr int LD = HD + PAD, KS = HD / 16, NT = HD / 8;
-  constexpr int KN8 = DQ_KN / 8;  // n-tiles of key columns
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + DQ_QM * LD;  // dO
-  bf16* sK = sO + DQ_QM * LD;
-  bf16* sV = sK + DQ_KN * LD;
-
-  // the heaviest causal tiles (the last rows) first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_QM;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long long qstride = static_cast<long long>(H) * HD;
-  const long long kstride = static_cast<long long>(KV) * HD;
-  const long long qbase = (static_cast<long long>(b) * Sq * H + h) * HD;
-  const long long kbase = (static_cast<long long>(b) * Sk * KV + kvh) * HD;
-  load_rows<HD, DQ_QM>(sQ, q + qbase, qstride, q0, Sq);
-  load_rows<HD, DQ_QM>(sO, dout + qbase, qstride, q0, Sq);
-
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float* lrow = lse + (static_cast<long long>(b) * H + h) * Sq;
-  const float* drow = delta + (static_cast<long long>(b) * H + h) * Sq;
-  const float l0 = row0 < Sq ? lrow[row0] * LOG2E : 0.f;
-  const float l1 = row1 < Sq ? lrow[row1] * LOG2E : 0.f;
-  const float d0 = row0 < Sq ? drow[row0] : 0.f;
-  const float d1 = row1 < Sq ? drow[row1] : 0.f;
-
-  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3),
-            b_col = ((lane >> 3) & 1) * 8;
-  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3),
-            t_col = (lane >> 4) * 8;
-  const uint32_t sQ_a = smem_addr(sQ + (warp * 16 + a_row) * LD + a_col);
-  const uint32_t sO_a = smem_addr(sO + (warp * 16 + a_row) * LD + a_col);
-  const uint32_t sK_b = smem_addr(sK + b_row * LD + b_col);
-  const uint32_t sV_b = smem_addr(sV + b_row * LD + b_col);
-  const uint32_t sK_t = smem_addr(sK + t_row * LD + t_col);
-
-  float dqa[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
-
-  const float sl2 = scale * LOG2E;
-  const int nk = (Sk + DQ_KN - 1) / DQ_KN;
-  const int last = (q0 + DQ_QM < Sq ? q0 + DQ_QM : Sq) - 1;
-  const int kend = causal ? min(nk, last / DQ_KN + 1) : nk;
-  for (int kt = 0; kt < kend; ++kt) {
-    const int kb = kt * DQ_KN;
-    __syncthreads();  // every warp is done with the last K/V tile
-    load_rows<HD, DQ_KN>(sK, k + kbase, kstride, kb, Sk);
-    load_rows<HD, DQ_KN>(sV, v + kbase, kstride, kb, Sk);
-    cp_async_wait_all();
-    __syncthreads();
-
-    // S = q K^T: 16 rows x DQ_KN keys per warp
-    float s[KN8][4];
-#pragma unroll
-    for (int j = 0; j < KN8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, sQ_a + kk * 32);
-#pragma unroll
-      for (int jp = 0; jp < KN8 / 2; ++jp) {
-        uint32_t bk[4];
-        ldsm_x4(bk, sK_b + (jp * 16 * LD + kk * 16) * 2);
-        mma(s[2 * jp], a, bk[0], bk[1]);
-        mma(s[2 * jp + 1], a, bk[2], bk[3]);
-      }
-    }
-    const bool edge = (causal && kb + DQ_KN - 1 > q0) || kb + DQ_KN > Sk;
-#pragma unroll
-    for (int j = 0; j < KN8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = ex2(fmaf(s[j][e], sl2, -(e < 2 ? l0 : l1)));
-        if (edge) {
-          const int kp = kb + j * 8 + 2 * t4 + (e & 1);
-          const int qp = e < 2 ? row0 : row1;
-          if ((causal && kp > qp) || kp >= Sk) p = 0.f;
-        }
-        s[j][e] = p;
-      }
-    // dP = dO V^T
-    float dp[KN8][4];
-#pragma unroll
-    for (int j = 0; j < KN8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, sO_a + kk * 32);
-#pragma unroll
-      for (int jp = 0; jp < KN8 / 2; ++jp) {
-        uint32_t bv[4];
-        ldsm_x4(bv, sV_b + (jp * 16 * LD + kk * 16) * 2);
-        mma(dp[2 * jp], a, bv[0], bv[1]);
-        mma(dp[2 * jp + 1], a, bv[2], bv[3]);
-      }
-    }
-    // dS = P (dP - delta) scale
-#pragma unroll
-    for (int j = 0; j < KN8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[j][e] = s[j][e] * (dp[j][e] - (e < 2 ? d0 : d1)) * scale;
-    // dQ += dS K, dS as bf16 A fragments straight from registers
-#pragma unroll
-    for (int kk = 0; kk < KN8 / 2; ++kk) {
-      const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]),
-                             pack(s[2 * kk][2], s[2 * kk][3]),
-                             pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, sK_t + (kk * 16 * LD + np * 16) * 2);
-        mma(dqa[2 * np], a, bk[0], bk[1]);
-        mma(dqa[2 * np + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
-
-  const long long o0 = qbase + static_cast<long long>(row0) * qstride;
-  const long long o1 = o0 + 8 * qstride;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = j * 8 + 2 * t4;
-    if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(dq + o0 + col) = pack(dqa[j][0], dqa[j][1]);
-    if (row1 < Sq)
-      *reinterpret_cast<uint32_t*>(dq + o1 + col) = pack(dqa[j][2], dqa[j][3]);
-  }
+// the scratch of one call, in one buffer: dq_accum f32 (B, Sq, H, hd), then
+// lse2 and delta f32 (B, H, SqP), then the ticket and the counters, int32
+// (1 + B * H * SqP / BLOCK_M)
+struct Scratch {
+  float *dq_accum, *lse2, *delta;
+  int* sync;
+  int n_sync;
+};
+Scratch carve(void* base, int B, int Sq, int H, int hd) {
+  const long long SqP = (Sq + BLOCK_M - 1) / BLOCK_M * BLOCK_M;
+  Scratch s;
+  s.dq_accum = static_cast<float*>(base);
+  s.lse2 = s.dq_accum + static_cast<long long>(B) * Sq * H * hd;
+  const long long rows = static_cast<long long>(B) * H * SqP;
+  s.delta = s.lse2 + rows;
+  s.sync = reinterpret_cast<int*>(s.delta + rows);
+  s.n_sync = static_cast<int>(1 + rows / BLOCK_M);
+  return s;
 }
 
 template <int HD>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-           const bf16* dout, const float* lse, float* delta, bf16* dq,
+           const bf16* dout, const float* lse, void* scratch, bf16* dq,
            bf16* dk, bf16* dv, int B, int Sq, int Sk, int H, int KV,
            float scale, int causal, cudaStream_t stream) {
-  constexpr int smem_dkdv = dkdv_smem_bytes(HD), smem_dq = dq_smem_bytes(HD);
-  static const cudaError_t attr_dkdv = cudaFuncSetAttribute(
-      fa_bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_dkdv);
-  static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      fa_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_dq);
-  if (attr_dkdv != cudaSuccess) return static_cast<int>(attr_dkdv);
-  if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
+  constexpr int smem = smem_bytes(HD);
+  if (encode_fn() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
 
-  const long long rows = static_cast<long long>(B) * Sq * H;
-  const long long want = (rows + 7) / 8;
-  const int delta_grid = static_cast<int>(want < 4096 ? want : 4096);
-  fa_bwd_delta_kernel<<<delta_grid, 256, 0, stream>>>(o, dout, delta, B, Sq,
-                                                       H, HD);
+  const Scratch s = carve(scratch, B, Sq, H, HD);
+  const int SqP = (Sq + BLOCK_M - 1) / BLOCK_M * BLOCK_M;
+  Maps maps;
+  const long long qs = static_cast<long long>(H) * HD;  // contiguous rows
+  const long long ks = static_cast<long long>(KV) * HD;
+  if (!make_maps(maps.q, q, B, Sq, H, HD, qs * Sq, qs, HD, BLOCK_M) ||
+      !make_maps(maps.dout, dout, B, Sq, H, HD, qs * Sq, qs, HD, BLOCK_M) ||
+      !make_maps(maps.k, k, B, Sk, KV, HD, ks * Sk, ks, HD, BLOCK_N) ||
+      !make_maps(maps.v, v, B, Sk, KV, HD, ks * Sk, ks, HD, BLOCK_N) ||
+      !make_map(&maps.dq[0], s.dq_accum, B, Sq, H, HD, qs * Sq, qs, HD,
+                32, BLOCK_M, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4) ||
+      (HD % 32 != 0 &&
+       !make_map(&maps.dq[1], s.dq_accum, B, Sq, H, HD, qs * Sq, qs, HD,
+                 HD % 32, BLOCK_M, CU_TENSOR_MAP_SWIZZLE_64B,
+                 CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4)))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  // both passes move bytes: half a warp for every row (a thread for every
+  // 4 elements), all in flight at once
+  const dim3 prep_grid((SqP * H + 15) / 16, B);
+  fa_bwd_prep_kernel<<<prep_grid, 256, 0, stream>>>(
+      o, dout, lse, s.lse2, s.delta, s.sync, s.n_sync, Sq, SqP, H, HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_dkdv((Sk + DKV_KN - 1) / DKV_KN, KV, B);
-  fa_bwd_dkdv_kernel<HD><<<grid_dkdv, THREADS, smem_dkdv, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, H, KV, scale, causal);
+  const int nk = (Sk + BLOCK_N - 1) / BLOCK_N;
+  flash_bwd_kernel<HD><<<nk * B * KV, NUM_THREADS, smem, stream>>>(
+      maps, s.lse2, s.delta, s.sync, dk, dv, B, H, KV, Sq, Sk, SqP, scale,
+      causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_dq((Sq + DQ_QM - 1) / DQ_QM, H, B);
-  fa_bwd_dq_kernel<HD><<<grid_dq, THREADS, smem_dq, stream>>>(
-      q, k, v, dout, lse, delta, dq, Sq, Sk, H, KV, scale, causal);
+  const long long n4 = static_cast<long long>(B) * Sq * H * HD / 4;
+  fa_bwd_dq_round_kernel<<<static_cast<int>((n4 + 255) / 256), 256, 0,
+                           stream>>>(
+      reinterpret_cast<const float4*>(s.dq_accum), reinterpret_cast<uint2*>(dq),
+      n4);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o, dout, dq (B, Sq, H, hd) and k, v, dk, dv (B, Sk, KV, hd): bf16,
-// contiguous, 16-byte aligned.  lse (B, H, Sq) f32 from the forward;
-// delta (B, H, Sq) f32 scratch, written here.  Returns cudaGetLastError()
-// after the launches (the first error stops them).
+// contiguous, 16-byte aligned.  lse (B, H, Sq) f32 from the forward.
+// scratch: 16-byte aligned, 4 * (B Sq H hd + 2 B H SqP + 1 + B H SqP / 64)
+// bytes, SqP = Sq rounded up to a multiple of 64; nothing in it is read
+// before this call writes it.  Returns cudaGetLastError() after the
+// launches (the first error stops them).
 extern "C" int mist_flash_attn_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
-                                   void* delta, void* dq, void* dk, void* dv,
-                                   int B, int Sq, int Sk, int H, int KV,
-                                   int hd, float scale, int causal,
+                                   void* scratch, void* dq, void* dk,
+                                   void* dv, int B, int Sq, int Sk, int H,
+                                   int KV, int hd, float scale, int causal,
                                    void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -550,22 +639,21 @@ extern "C" int mist_flash_attn_bwd(const void* q, const void* k,
              *v_ = static_cast<const bf16*>(v), *o_ = static_cast<const bf16*>(o),
              *do_ = static_cast<const bf16*>(dout);
   const float* l_ = static_cast<const float*>(lse);
-  float* d_ = static_cast<float*>(delta);
   bf16 *dq_ = static_cast<bf16*>(dq), *dk_ = static_cast<bf16*>(dk),
        *dv_ = static_cast<bf16*>(dv);
   switch (hd) {
     case 32:
-      return launch<32>(q_, k_, v_, o_, do_, l_, d_, dq_, dk_, dv_, B, Sq, Sk,
-                        H, KV, scale, causal, s);
+      return launch<32>(q_, k_, v_, o_, do_, l_, scratch, dq_, dk_, dv_, B,
+                        Sq, Sk, H, KV, scale, causal, s);
     case 64:
-      return launch<64>(q_, k_, v_, o_, do_, l_, d_, dq_, dk_, dv_, B, Sq, Sk,
-                        H, KV, scale, causal, s);
+      return launch<64>(q_, k_, v_, o_, do_, l_, scratch, dq_, dk_, dv_, B,
+                        Sq, Sk, H, KV, scale, causal, s);
     case 80:
-      return launch<80>(q_, k_, v_, o_, do_, l_, d_, dq_, dk_, dv_, B, Sq, Sk,
-                        H, KV, scale, causal, s);
+      return launch<80>(q_, k_, v_, o_, do_, l_, scratch, dq_, dk_, dv_, B,
+                        Sq, Sk, H, KV, scale, causal, s);
     case 128:
-      return launch<128>(q_, k_, v_, o_, do_, l_, d_, dq_, dk_, dv_, B, Sq,
-                         Sk, H, KV, scale, causal, s);
+      return launch<128>(q_, k_, v_, o_, do_, l_, scratch, dq_, dk_, dv_, B,
+                         Sq, Sk, H, KV, scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

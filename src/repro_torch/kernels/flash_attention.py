@@ -23,7 +23,8 @@ reference's gradient, ``jax.custom_vjp`` around the Pallas forward with the
 blocked jnp backward ``ops._blocked_bwd``.  It takes q/k/v, o, dO and lse in
 the same layouts and returns dq ``(B, Sq, H, hd)`` and dk/dv
 ``(B, Sk, KV, hd)`` in bf16, summing the GQA group's contributions to one
-KV head in f32.  Its plain version is ``blocked_bwd``, a line-for-line port
+KV head in f32, and dq over the key tiles in f32 in ascending key-tile
+order (a scratch buffer the wrapper allocates, ``bwd_scratch_elems``).  Its plain version is ``blocked_bwd``, a line-for-line port
 of ``_blocked_bwd``.  ``FlashAttention`` is the autograd Function: its
 forward runs ``flash_attention`` and saves q, k, v, o and lse, its
 backward runs ``flash_attention_bwd``; under ``torch.inference_mode`` it is
@@ -56,6 +57,37 @@ SMEM_LIMIT = 232448
 # blocks per SM the design counts on: a persistent grid of one block per SM
 # (registers for two warpgroups' S, O and P fragments admit no more)
 RESIDENT_BLOCKS = 1
+
+
+# the backward kernel's launch shape (csrc/flash_attention_bwd.cu): keys per
+# block (64 per consumer warpgroup), query rows per tile, and the stages of
+# the q/dO ring, of the dS^T tiles and of the f32 dQ parts in shared memory
+BWD_BLOCK_N = 128
+BWD_BLOCK_M = 64
+BWD_Q_STAGES, BWD_DS_STAGES, BWD_DQ_STAGES = 2, 2, 2
+
+
+def bwd_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one backward block (``smem_bytes`` in
+    ``flash_attention_bwd.cu``): K and V tiles, the q/dO ring, the dS^T
+    tiles, the f32 dQ parts, the lse/delta rows of each stage, 9 mbarriers
+    and the ticket."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
+    n_bars = 1 + 2 * BWD_Q_STAGES + 2 * BWD_DQ_STAGES
+    return (2 * BWD_BLOCK_N * hd * 2 + 2 * BWD_Q_STAGES * BWD_BLOCK_M * hd * 2
+            + BWD_DS_STAGES * BWD_BLOCK_N * BWD_BLOCK_M * 2
+            + BWD_DQ_STAGES * BWD_BLOCK_M * hd * 4
+            + 2 * BWD_Q_STAGES * BWD_BLOCK_M * 4 + 8 * n_bars + 8)
+
+
+def bwd_scratch_elems(b: int, sq: int, h: int, hd: int) -> int:
+    """4-byte elements of the backward's scratch (``carve`` in the source):
+    dq_accum f32 (B, Sq, H, hd); lse * log2(e) and delta f32 (B, H, SqP)
+    with SqP = Sq padded to whole query tiles; the ticket and one counter
+    per (batch, head, query tile), int32."""
+    sqp = -(-sq // BWD_BLOCK_M) * BWD_BLOCK_M
+    return b * sq * h * hd + 2 * b * h * sqp + 1 + b * h * sqp // BWD_BLOCK_M
 
 
 def smem_bytes(hd: int) -> int:
@@ -253,15 +285,16 @@ def _launch_bwd(q, k, v, o, lse, dout, causal, scale):
             raise ValueError(f"{name} must be 16-byte aligned")
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    scratch = torch.empty(bwd_scratch_elems(b, sq, h, hd),
+                          dtype=torch.float32, device=q.device)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.mist_flash_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kv, hd,
             float(scale), int(causal), stream)
     _build.check(err, "flash attention backward kernel")

@@ -538,25 +538,102 @@ def test_rmsnorm_plan_holds_the_serving_widths_in_registers(d, esize, vec_ok,
         assert nv * 32 * (16 // esize) == d and nv * 4 <= 128
 
 
+BWD_SRC = "flash_attention_bwd.cu"
+
+
+@pytest.mark.parametrize("name", ["BLOCK_N", "BLOCK_M", "Q_STAGES",
+                                  "DS_STAGES", "DQ_STAGES"])
+def test_flash_bwd_wrapper_mirrors_the_kernels_tile_constants(name):
+    assert getattr(FA, f"BWD_{name}") == _cu_int(BWD_SRC, name)
+
+
 def test_flash_bwd_kernel_head_dims_and_shared_memory():
-    """The backward kernel takes the forward's head dims, and its two
-    kernels' tiles (rows padded by 8 elements) fit a block's shared
-    memory at each of them."""
-    src = (CSRC / "flash_attention_bwd.cu").read_text()
+    """The backward kernel is instantiated for the forward's head dims, and
+    its block's shared memory (``bwd_smem_bytes``, checked against the
+    source's constants below) fits at each of them."""
+    src = (CSRC / BWD_SRC).read_text()
     entry = src[src.index('extern "C" int mist_flash_attn_bwd'):]
     cases = tuple(int(c) for c in re.findall(r"case (\d+):", entry))
     assert cases == FA.HEAD_DIMS
-    kn, qm = _cu_int("flash_attention_bwd.cu", "DKV_KN"), \
-        _cu_int("flash_attention_bwd.cu", "DKV_QM")
-    dq_qm, dq_kn = _cu_int("flash_attention_bwd.cu", "DQ_QM"), \
-        _cu_int("flash_attention_bwd.cu", "DQ_KN")
-    threads = _cu_int("flash_attention_bwd.cu", "THREADS")
-    assert kn == dq_qm == threads // 32 * 16  # 16 rows per warp
     for hd in FA.HEAD_DIMS:
-        row = (hd + 8) * 2
-        assert row % 16 == 0 and (row // 16) % 2 == 1  # ldmatrix: no conflicts
-        assert (2 * kn + 2 * qm) * row + 2 * qm * 4 <= FA.SMEM_LIMIT
-        assert (2 * dq_qm + 2 * dq_kn) * row <= FA.SMEM_LIMIT
+        assert FA.bwd_smem_bytes(hd) <= FA.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+def test_flash_bwd_shared_memory_fits_every_head_dim(hd):
+    """K and V tiles, the q/dO ring, the dS^T tiles, the f32 dQ parts, the
+    lse/delta rows, the mbarriers and the ticket, from the source's own
+    constants, within the 232,448 bytes a block may take; every tile starts
+    on the 1024 bytes its swizzle needs."""
+    n, m = _cu_int(BWD_SRC, "BLOCK_N"), _cu_int(BWD_SRC, "BLOCK_M")
+    qs, ds, dqs = (_cu_int(BWD_SRC, k) for k in ("Q_STAGES", "DS_STAGES",
+                                                  "DQ_STAGES"))
+    tiles = [n * hd * 2] * 2 + [m * hd * 2] * (2 * qs) + [n * m * 2] * ds \
+        + [m * hd * 4] * dqs
+    assert all(t % 1024 == 0 for t in tiles)
+    n_bars = 1 + 2 * qs + 2 * dqs
+    total = sum(tiles) + 2 * qs * m * 4 + 8 * n_bars + 8
+    assert total == FA.bwd_smem_bytes(hd) <= FA.SMEM_LIMIT == 232448
+
+
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+def test_flash_bwd_tiles_are_legal_wgmma_shapes(hd):
+    """Every product is a wgmma of M 64 (a warpgroup's rows), N a multiple
+    of 8 up to 256 and K whole steps of 16: S^T and dP^T (64 keys x BLOCK_M
+    queries over hd), dV and dK (64 keys x hd over BLOCK_M queries), dQ (64
+    queries x one head_dim panel of 64, 32 or 16 columns over BLOCK_N keys,
+    one panel per consumer warpgroup); the dS^T rows of BLOCK_M bf16 are one
+    128-byte swizzle row."""
+    n, m = _cu_int(BWD_SRC, "BLOCK_N"), _cu_int(BWD_SRC, "BLOCK_M")
+    warpgroups = _cu_int(BWD_SRC, "CONSUMERS") // 128
+    assert n == 64 * warpgroups and m == 64
+    panels = [64] * (hd // 64) + ([hd % 64] if hd % 64 else [])
+    assert len(panels) <= warpgroups and sum(panels) == hd
+    for mm, nn, kk in [(64, m, hd), (64, hd, m)] + \
+            [(64, p, n) for p in panels]:
+        assert mm == 64 and nn % 8 == 0 and 8 <= nn <= 256 and kk % 16 == 0
+    assert m * 2 == 128
+
+
+@pytest.mark.parametrize("b,sq,h,hd", [(1, 4096, 32, 128), (2, 330, 8, 128),
+                                        (2, 129, 8, 32), (2, 1, 32, 80)])
+def test_flash_bwd_scratch_matches_the_kernels_carve(b, sq, h, hd):
+    """The wrapper's scratch (4-byte elements) is what ``carve`` in the
+    source lays out: dq_accum (B, Sq, H, hd) f32, then lse2 and delta over
+    Sq padded to whole query tiles, then the ticket and one counter per
+    (batch, head, query tile); each piece the kernel copies in bulk starts
+    on 16 bytes (64 MB of dq_accum at granite's training shape)."""
+    src = (CSRC / BWD_SRC).read_text()
+    carve = src[src.index("Scratch carve("):]
+    carve = carve[:carve.index("\n}\n")]
+    assert "B) * Sq * H * hd" in carve and "s.lse2 + rows" in carve
+    assert "s.delta + rows" in carve and "1 + rows / BLOCK_M" in carve
+    m = FA.BWD_BLOCK_M
+    sqp = -(-sq // m) * m
+    acc = b * sq * h * hd
+    assert FA.bwd_scratch_elems(b, sq, h, hd) == \
+        acc + 2 * b * h * sqp + 1 + b * h * sqp // m
+    assert acc % 4 == 0 and (b * h * sqp) % 4 == 0 and sqp * 4 % 16 == 0
+    if (b, sq, h, hd) == (1, 4096, 32, 128):
+        assert acc * 4 == 64 * 2**20
+
+
+def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """Both attention sources include csrc/hopper.cuh: an edit to it must
+    give a new build directory, or a stale library would load."""
+    for src in _build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    assert (tmp_path / "hopper.cuh").is_file()
+    for name in ("flash_attention.cu", BWD_SRC):
+        assert '#include "hopper.cuh"' in (tmp_path / name).read_text()
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._build_dir()
+    assert before == _build._build_dir()
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build._build_dir() != before
+    assert all(p.suffix == ".cu" for p in _build._sources())
 
 
 @pytest.mark.parametrize("rows,sms,blocks", [(1, 132, 1), (9, 132, 3),
@@ -679,6 +756,112 @@ def test_ssd_scores_need_the_hi_lo_split():
         return float(((got.float() - want.float()).abs() / bound).max())
 
     assert worst(False) > 1.0 > 2 * worst(True)
+
+
+# -- the flash backward kernel's plan, on the CPU ------------------------------
+
+LOG2E = 1.4426950408889634
+# chip_smoke.py's relative rule for the flash backward (FLASH_BWD_REL,
+# FLASH_BWD_TILE): ||got - want|| / ||want|| in every (batch, 128-row tile,
+# head), and max |got - want| / max |want|
+FLASH_BWD_REL, FLASH_BWD_TILE = 1e-2, 128
+
+
+def _flash_bwd_kernel_rounding(q, k, v, o, lse, dout, causal, scale):
+    """The backward kernel's arithmetic in its order, q/o/dout
+    (B, Sq, H, hd) and k/v (B, Sk, KV, hd) bf16, lse (B, H, Sq) f32: per key
+    tile of BWD_BLOCK_N, S^T and dP^T summed in f32, P = exp2(S c - lse
+    log2(e)) with c = scale log2(e) (0 where masked), P and dS rounded to
+    bf16 as product operands, dK and dV summed in f32 over the query tiles
+    and the group's heads, dQ's per-key-tile parts added in f32 in
+    ascending key-tile order; each output rounded once.  -> dq, dk, dv."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    heads = lambda x: x.float().permute(0, 2, 1, 3)  # noqa: E731
+    qf, of, dof = heads(q), heads(o), heads(dout)   # (B, H, Sq, hd)
+    kf = heads(k).repeat_interleave(g, 1)           # (B, H, Sk, hd)
+    vf = heads(v).repeat_interleave(g, 1)
+    delta = (dof * of).sum(-1, keepdim=True)
+    lse2 = lse[..., None] * LOG2E
+    c = scale * LOG2E
+    qpos = torch.arange(sq)[:, None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for n0 in range(0, sk, FA.BWD_BLOCK_N):
+        kt, vt = kf[:, :, n0:n0 + FA.BWD_BLOCK_N], vf[:, :, n0:n0 + FA.BWD_BLOCK_N]
+        kpos = n0 + torch.arange(kt.shape[2])[None, :]
+        p = torch.exp2(qf @ kt.transpose(-1, -2) * c - lse2)
+        if causal:
+            p = torch.where(qpos >= kpos, p, torch.zeros(()))
+        dvs.append(_bf16(p).transpose(-1, -2) @ dof)
+        dp = dof @ vt.transpose(-1, -2)
+        ds = _bf16(p * (dp - delta) * scale)
+        dks.append(ds.transpose(-1, -2) @ qf)
+        dq = dq + ds @ kt
+
+    def out(x, heads_):  # (B, H, S, hd) f32 -> (B, S, heads_, hd) bf16
+        x = x.reshape(b, heads_, h // heads_, x.shape[2], hd).sum(2)
+        return x.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+    return out(dq, h), out(torch.cat(dks, 2), kv), out(torch.cat(dvs, 2), kv)
+
+
+def _tile_rel(got, want, tile=FLASH_BWD_TILE):
+    """chip_smoke.tile_rel_err: the worst relative error over (batch, tile
+    of rows, head) blocks of a (B, S, heads, hd) gradient, and max err /
+    max |want|."""
+    got, want = got.float(), want.float()
+    b, s, h, _ = want.shape
+    pad = (-s) % tile
+
+    def block_sq(x):
+        x = torch.nn.functional.pad(x.square().sum(-1), (0, 0, 0, pad))
+        return x.view(b, (s + pad) // tile, tile, h).sum(2)
+
+    rel = (block_sq(got - want) / block_sq(want).clamp_min(1e-30)).sqrt()
+    return float(rel.max()), float((got - want).abs().max()
+                                   / want.abs().max())
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", [
+    (1, 320, 320, 4, 2, 64, True),     # GQA, 3 key tiles, 5 query tiles
+    (2, 150, 200, 2, 1, 32, False),    # ragged query and key tiles
+], ids=["causal-gqa", "full-ragged"])
+def test_flash_bwd_kernel_rounding_plan_holds_the_tolerances(
+        b, sq, sk, h, kv, hd, causal):
+    """The kernel's rounding points and summation order, rehearsed on the
+    CPU against the reference's _blocked_bwd run in f32 on the same bf16
+    values (dk/dv of the broadcast heads summed over each group): the
+    reference's bf16 tolerance per element (5e-2) and chip_smoke.py's
+    relative rule (1e-2) on dq, dk and dv."""
+    rng = np.random.default_rng(16)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(torch.bfloat16) for shape in
+        ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd), (b, sq, h, hd)))
+    g, scale = h // kv, hd ** -0.5
+    flat = lambda x, rep: jnp.asarray(  # noqa: E731  (B*H, S, hd) f32
+        x.float().repeat_interleave(rep, 2).permute(0, 2, 1, 3)
+        .reshape(b * h, x.shape[1], hd).numpy())
+    jq, jk, jv, jdo = flat(q, 1), flat(k, g), flat(v, g), flat(dout, 1)
+    block = tops._fit_block(64, sk)
+    jo, jlse = jops._blocked_fwd(jq, jk, jv, causal, scale, block)
+    want = jops._blocked_bwd(jq, jk, jv, jo, jlse, jdo, causal, scale, block)
+    o = torch.from_numpy(np.array(jo)).reshape(b, h, sq, hd) \
+        .permute(0, 2, 1, 3).to(torch.bfloat16)
+    lse = torch.from_numpy(np.array(jlse)).reshape(b, h, sq)
+    got = _flash_bwd_kernel_rounding(q, k, v, o, lse, dout, causal, scale)
+    for name, gt, w, heads_ in zip("qkv", got, want, (h, kv, kv)):
+        w = torch.from_numpy(np.array(w)).reshape(b, heads_, h // heads_,
+                                                  -1, hd).sum(2) \
+            .permute(0, 2, 1, 3)
+        assert gt.shape == w.shape, name
+        np.testing.assert_allclose(_np(gt), w.numpy(),
+                                   atol=BWD_TOL["bfloat16"],
+                                   rtol=BWD_TOL["bfloat16"])
+        tile, top = _tile_rel(gt, w)
+        assert tile <= FLASH_BWD_REL and top <= FLASH_BWD_REL, \
+            (name, tile, top)
 
 
 @pytest.mark.parametrize("name", ["TC_WARPS", "ROW_BLOCK", "SMEM_PAD"])
