@@ -30,9 +30,13 @@ non-zero (no phase catches another's exception):
    causal with Sq > Sk, non-causal with a ragged last tile; B 2, S 1024,
    whose second call must agree bit for bit too; then the training shape
    again, right after that other shape, against its plain version) and
-   RMSNorm's dx/dscale (4096 x 4096 and d 2560 bf16, the generic widths
-   1001 and 8192, f32, mixed x/scale types).  Phase 1 logs the backward
-   kernel's registers and spills per head dim from ptxas.
+   RMSNorm's dx/dscale (4096 x 4096 and d 2560 bf16, f32 d 4096 and 2560,
+   mixed x/scale types and 3 rows, all on the ring route; the generic
+   widths 1001 and 8192; at the training shape a second call, made right
+   after another shape, must agree with its plain version and bit for bit
+   with the first, and a planted fault, a dscale that leaves out one
+   block's band of rows, must fail the dscale check).  Phase 1 logs the
+   backward kernels' registers and spills per instance from ptxas.
 3. Full-width granite-3-8b (all 40 layers, bf16, random weights from a
    seed): prefill logits with the kernels against the same model with the
    plain versions; ``generate(gen=32)`` with the launch counters checked
@@ -279,21 +283,54 @@ def phase_device_and_build():
         if any(w in line for w in ("registers", "spill", "Compiling",
                                    "wgmma", "arning")):
             log(f"#   ptxas: {line.strip()}")
-    for fn, hd, regs, stores, loads in ptxas_report(_build.BUILD_LOG,
-                                                    "flash_bwd_kernel"):
-        log(f"# ptxas {fn}<{hd}>: {regs} registers, {stores} bytes spill "
-            f"stores, {loads} bytes spill loads")
+    for kernel in ("flash_bwd_kernel", "rmsnorm_bwd_ring_kernel",
+                   "rmsnorm_bwd_kernel"):
+        for fn, args, regs, stores, loads in ptxas_report(_build.BUILD_LOG,
+                                                          kernel):
+            log(f"# ptxas {fn}<{args}>: {regs} registers, {stores} bytes "
+                f"spill stores, {loads} bytes spill loads")
+
+
+# the mangled names of the kernels' template types
+_MANGLED_TYPES = (("13__nv_bfloat16", "bf16"), ("f", "f32"))
+
+
+def template_args(mangled: str) -> str:
+    """'13__nv_bfloat16S1_Li8EE...' -> 'bf16, bf16, 8': the template
+    arguments that open a mangled kernel name's tail (a substitution
+    ``S..._`` repeats the type before it)."""
+    out = []
+    while mangled and not mangled.startswith("E"):
+        m = re.match(r"Li(\d+)E", mangled)
+        if m:
+            out.append(m.group(1))
+            mangled = mangled[m.end():]
+            continue
+        m = re.match(r"S\d*_", mangled)
+        if m and out:
+            out.append(out[-1])
+            mangled = mangled[m.end():]
+            continue
+        for code, name in _MANGLED_TYPES:
+            if mangled.startswith(code):
+                out.append(name)
+                mangled = mangled[len(code):]
+                break
+        else:
+            break
+    return ", ".join(out)
 
 
 def ptxas_report(build_log: str, kernel: str):
-    """[(kernel, head dim, registers, spill store bytes, spill load
-    bytes)] of each instance of ``kernel`` in nvcc's ``-Xptxas -v`` output
-    (empty when the library was already built)."""
+    """[(kernel, template arguments, registers, spill store bytes, spill
+    load bytes)] of each instance of ``kernel`` in nvcc's ``-Xptxas -v``
+    output (empty when the library was already built)."""
     out, cur = [], None
     for line in build_log.splitlines():
-        m = re.search(rf"Compiling entry function '\S*{kernel}ILi(\d+)E", line)
+        m = re.search(rf"Compiling entry function '\S*?\d{kernel}I(\S+)'",
+                      line)
         if m:
-            cur = [kernel, int(m.group(1)), None, None, None]
+            cur = [kernel, template_args(m.group(1)), None, None, None]
             continue
         if cur is None:
             continue
@@ -615,29 +652,82 @@ def _backward_kernels_vs_plain():
         (7, 1001, f32, f32),
         (300, D_MODEL, f32, bf16),                # mixed types
         (300, D_MODEL, bf16, f32),
+        (300, Z_D_MODEL, f32, f32),               # the ring's other cases:
+        (3, D_MODEL, bf16, bf16),                 # f32 d 2560, 3 blocks
     ]
-    for rows, d, xdt, sdt in rn_cases:
+
+    def rn_inputs(rows, d, xdt, sdt):
         g = torch.Generator(DEVICE).manual_seed(rows + d + 1)
         x = torch.randn((rows, d), generator=g, device=DEVICE).to(xdt)
         dy = torch.randn((rows, d), generator=g, device=DEVICE).to(xdt)
         scale = (1 + 0.1 * torch.randn((d,), generator=g, device=DEVICE)
                  ).to(sdt)
-        dx, ds = RN.rmsnorm_bwd(x, scale, dy)
+        return x, scale, dy
+
+    def rn_close(got, want, xdt, sdt):
+        return (close(got[0], want[0], **(BF16_TOL if xdt == bf16
+                                           else F32_TOL)),
+                close(got[1], want[1], **(BF16_TOL if sdt == bf16
+                                           else DSCALE_F32_TOL)))
+
+    for rows, d, xdt, sdt in rn_cases:
+        x, scale, dy = rn_inputs(rows, d, xdt, sdt)
+        # the route the kernel's dispatch takes (mirrored by the wrapper)
+        esize = x.element_size()
+        route = RN.bwd_vectors_per_thread(
+            d, esize, x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+            and d * esize % 16 == 0)
+        got = RN.rmsnorm_bwd(x, scale, dy)
         sync()
-        want_dx, want_ds = RN.rmsnorm_bwd(x, scale, dy, impl="plain")
+        want = RN.rmsnorm_bwd(x, scale, dy, impl="plain")
         sync()
-        ok_x, err_x = close(dx, want_dx, **(BF16_TOL if xdt == bf16
-                                            else F32_TOL))
-        ok_s, err_s = close(ds, want_ds, **(BF16_TOL if sdt == bf16
-                                            else DSCALE_F32_TOL))
-        log(f"# rmsnorm bwd rows {rows} d {d} x {xdt} scale {sdt}: dx max "
-            f"err {err_x:.3e}, dscale max err {err_s:.3e} (max |dscale| "
-            f"{float(want_ds.float().abs().max()):.1f})")
+        (ok_x, err_x), (ok_s, err_s) = rn_close(got, want, xdt, sdt)
+        log(f"# rmsnorm bwd rows {rows} d {d} x {xdt} scale {sdt} ("
+            f"{f'ring, {route} vectors a thread' if route else 'generic'}"
+            f"): dx max err {err_x:.3e}, dscale max err {err_s:.3e} (max "
+            f"|dscale| {float(want[1].float().abs().max()):.1f})")
         if not (ok_x and ok_s):
             raise AssertionError("rmsnorm backward kernel disagrees with "
                                  f"its plain version ({rows}x{d})")
+        if bool(route) != (d in (D_MODEL, Z_D_MODEL)):
+            raise AssertionError(f"rmsnorm backward at d {d}: route "
+                                 f"{route or 'generic'}")
         if rows == T_MICRO * T_SEQ and d == D_MODEL:
             errs["rmsnorm_bwd"] = err_x
+            train = (x, scale, dy), got, want
+    # the training shape again, right after another shape (other grid, other
+    # route): it agrees with its plain version, and bit for bit with the
+    # first call (the dscale partials add in a fixed order)
+    (x, scale, dy), first, want = train
+    RN.rmsnorm_bwd(*rn_inputs(5, 1001, bf16, bf16))
+    again = RN.rmsnorm_bwd(x, scale, dy)
+    sync()
+    (ok_x, err_x), (ok_s, err_s) = rn_close(again, want, bf16, bf16)
+    same = all(torch.equal(a, b_) for a, b_ in zip(first, again))
+    log(f"# rmsnorm bwd training shape again, after 5 x 1001: dx max err "
+        f"{err_x:.3e}, dscale max err {err_s:.3e}; bitwise equal to the "
+        f"first call: {same}")
+    if not (ok_x and ok_s):
+        raise AssertionError("rmsnorm backward kernel disagrees with its "
+                             "plain version after another shape")
+    if not same:
+        raise AssertionError("rmsnorm backward kernel: two calls differ")
+    # the dscale check must see one block's band of rows left out
+    rows = x.shape[0]
+    blocks = RN.bwd_blocks(rows, torch.cuda.get_device_properties(
+        DEVICE).multi_processor_count)
+    lo, hi = RN.bwd_bands(rows, blocks)[blocks // 2]
+    keep = torch.ones(rows, dtype=torch.bool, device=DEVICE)
+    keep[lo:hi] = False
+    bad = RN.rmsnorm_bwd(x[keep], scale, dy[keep], impl="plain")[1]
+    ok, err = close(bad, want[1], **BF16_TOL)
+    log(f"# rmsnorm bwd training shape, planted fault (dscale without rows "
+        f"{lo}-{hi - 1}, block {blocks // 2} of {blocks}): max err "
+        f"{err:.3e}, rejected {not ok}")
+    if ok:
+        raise AssertionError("the rmsnorm backward's dscale check passes a "
+                             "planted fault")
+    del train, first, again, want, bad
     return errs
 
 
@@ -1119,6 +1209,9 @@ def _time_rmsnorm_bwd(launches, err):
     cold = time_ms(kernel, reps=50, cold=True, device_only=True)
     lib_cold = time_ms(lib, reps=50, cold=True, device_only=True)
     plain = time_ms(lambda: RN.rmsnorm_bwd(x, sc, dy, impl="plain"), reps=20)
+    parts = kernel_split_us(kernel)
+    log("# rmsnorm bwd, device us per call by kernel (torch.profiler): "
+        + ", ".join(f"{name} {us:.2f}" for name, us in parts.items()))
     bound, by, how = rmsnorm_bwd_bound(rows, d, 2)
     log(f"# rmsnorm bwd {rows}x{d} bf16: kernel {ms:.4f} ms (device "
         f"{dev:.4f}, cold L2 {cold:.4f}), plain {plain:.4f} ms, F.rms_norm "
@@ -1131,7 +1224,8 @@ def _time_rmsnorm_bwd(launches, err):
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=lib_ms, device_ms=dev,
         library_device_ms=lib_dev, cold_ms=cold, library_cold_ms=lib_cold,
-        model="granite-3-8b (training)", shape=f"{rows}x{d} bf16")
+        parts_us=parts, model="granite-3-8b (training)",
+        shape=f"{rows}x{d} bf16")
 
 
 # ---------------------------------------------------------------------------

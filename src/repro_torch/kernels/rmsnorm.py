@@ -16,13 +16,19 @@ unsupported dtype or a failed launch raises.
 The backward kernel (``mist_rmsnorm_bwd`` in the same source) replaces the
 gradient ``jax.grad`` takes through the reference's ``layers.norm``: from x
 and the incoming gradient it recomputes the row's rsqrt and returns dx (x's
-dtype) and dscale (scale's dtype), the dscale column sums taken per block
-into a ``(blocks, d)`` f32 scratch and added in block order by a second
-small kernel.  Its plain version is ``rmsnorm_bwd_ref``.  ``RMSNorm`` is
-the autograd Function over the two.
+dtype) and dscale (scale's dtype).  One block per SM owns a band of rows
+(``bwd_bands``) and reads each row once; at the ``BWD_RING_WIDTHS`` (with
+16-byte aligned rows) the rows stream through a shared-memory ring and each
+consumer thread keeps ``BWD_COLS`` columns in registers
+(``bwd_vectors_per_thread`` mirrors that choice), every other width takes
+the generic route.  Each block writes its f32 dscale partials to a
+``(blocks, d)`` scratch, and after a grid sync (a cooperative launch) the
+blocks add them in a fixed order (``bwd_dscale_order``).  Its plain version
+is ``rmsnorm_bwd_ref``.  ``RMSNorm`` is the autograd Function over the two.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -43,17 +49,69 @@ WARPS_PER_BLOCK = 8
 RESIDENT_WIDTHS = (2560, 4096)
 
 
-# the backward's launch shape: a block of 8 warps takes BWD_ROWS rows at a
-# time, BWD_BLOCKS_PER_SM blocks per SM; its column partials of dscale take
-# d * 4 bytes of shared memory, which bounds the width
+# the backward's launch shape (csrc/rmsnorm.cu): one block per SM, each
+# owning a band of rows.  Ring route: CW = d / (32 * BWD_COLS) consumer
+# warps and a producer warp, BWD_STAGE_ROWS rows of x and of dy a stage, as
+# many stages as BWD_RING_BYTES holds (at most BWD_MAX_STAGES).  Generic
+# route: 8 warps over BWD_ROWS rows at a time, its column partials in
+# d * 4 bytes of shared memory, which bounds the width.
+BWD_RING_WIDTHS = (2560, 4096)
+BWD_COLS = 16
+BWD_STAGE_ROWS = 2
+BWD_RING_BYTES = 196608
+BWD_MAX_STAGES = 8
 BWD_ROWS = 4
-BWD_BLOCKS_PER_SM = 2
 BWD_MAX_WIDTH = (232448 - 1024) // 4
 
 
 def bwd_blocks(rows: int, sms: int) -> int:
-    """Blocks of the backward's grid (rows of its dscale scratch)."""
-    return max(1, min(-(-rows // BWD_ROWS), BWD_BLOCKS_PER_SM * sms))
+    """Blocks of the backward's grid (rows of its dscale scratch): one per
+    SM, and no more than there are rows."""
+    return max(1, min(rows, sms))
+
+
+def bwd_bands(rows: int, blocks: int):
+    """The rows [lo, hi) each block owns (the kernel's ``row_band``)."""
+    return [(b * rows // blocks, (b + 1) * rows // blocks)
+            for b in range(blocks)]
+
+
+def bwd_vectors_per_thread(d: int, esize: int, vec_ok: bool) -> int:
+    """16-byte vectors of a row that each consumer thread of the ring route
+    holds, or 0 for the generic route (the dispatch in ``launch_bwd``)."""
+    if vec_ok and d in BWD_RING_WIDTHS:
+        return BWD_COLS * esize // 16
+    return 0
+
+
+def bwd_block_warps(d: int, esize: int, vec_ok: bool) -> int:
+    """Warps of a backward block: the ring route's consumer warps and its
+    producer warp, or the generic route's 8."""
+    if bwd_vectors_per_thread(d, esize, vec_ok):
+        return d // (32 * BWD_COLS) + 1
+    return WARPS_PER_BLOCK
+
+
+def bwd_ring_stages(d: int, esize: int) -> int:
+    """Stages of the ring route's ring (the kernel's ``ring_stages``)."""
+    return min(BWD_MAX_STAGES, BWD_RING_BYTES // (2 * BWD_STAGE_ROWS * d
+                                                  * esize))
+
+
+def bwd_dscale_order(blocks: int, warps: int):
+    """The order in which the kernel adds the blocks' dscale partials
+    (``combine_dscale``): runs of ceil(blocks / warps) consecutive blocks,
+    each added in ascending order, then the runs' sums in ascending
+    order."""
+    per = -(-blocks // warps)
+    return [list(range(b, min(blocks, b + per)))
+            for b in range(0, blocks, per)]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``, asked once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def blocks_wanted(rows: int) -> int:
@@ -119,9 +177,8 @@ def _launch_bwd(x, scale, dy, eps):
     if rows == 0:
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
-    blocks = bwd_blocks(rows, torch.cuda.get_device_properties(
-        x.device).multi_processor_count)
-    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    blocks = bwd_blocks(rows, _sm_count(x.device.index))
+    part = x.new_empty((blocks, d), dtype=torch.float32)
     vec_ok = int(all(t.data_ptr() % 16 == 0 for t in (x, dy, dx))
                  and (d * x.element_size()) % 16 == 0)
     lib = _build.load_library()

@@ -636,14 +636,23 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
     assert all(p.suffix == ".cu" for p in _build._sources())
 
 
-@pytest.mark.parametrize("rows,sms,blocks", [(1, 132, 1), (9, 132, 3),
-                                             (4096, 132, 264), (4096, 4, 8)])
+@pytest.mark.parametrize("rows,sms,blocks", [(1, 132, 1), (9, 132, 9),
+                                             (4096, 132, 132), (4096, 4, 4),
+                                             (300, 132, 132)])
 def test_rmsnorm_bwd_grid_and_widths_mirror_the_kernel(rows, sms, blocks):
-    """BWD_ROWS rows per block reduction, at most BWD_BLOCKS_PER_SM blocks
-    per SM (rows of the dscale scratch), and rows up to the width whose
-    column partials fit shared memory."""
-    assert RN.BWD_ROWS == _cu_int("rmsnorm.cu", "BWD_ROWS")
+    """One block per SM and no more than there are rows (rows of the dscale
+    scratch), each block a band of rows balanced to within one row; the
+    launch constants are the kernel's, and rows up to the width whose
+    generic column partials fit shared memory."""
+    for name in ("BWD_ROWS", "BWD_COLS", "BWD_STAGE_ROWS", "BWD_RING_BYTES",
+                 "BWD_MAX_STAGES"):
+        assert getattr(RN, name) == _cu_int("rmsnorm.cu", name), name
     assert RN.bwd_blocks(rows, sms) == blocks
+    bands = RN.bwd_bands(rows, blocks)
+    assert bands[0][0] == 0 and bands[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(bands, bands[1:]))
+    sizes = [hi - lo for lo, hi in bands]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
     smem = re.findall(r"constexpr int BWD_SMEM_MAX = (\d+) - (\d+);",
                       (CSRC / "rmsnorm.cu").read_text())
     assert len(smem) == 1
@@ -652,6 +661,47 @@ def test_rmsnorm_bwd_grid_and_widths_mirror_the_kernel(rows, sms, blocks):
     with pytest.raises(ValueError, match="at most"):
         RN._launch_bwd(big, torch.ones(big.shape[-1], dtype=torch.bfloat16),
                        big, 1e-6)
+
+
+def test_rmsnorm_bwd_wrapper_mirrors_the_kernels_dispatch():
+    """The widths the backward streams through its ring are the source's
+    instances, each with CW = d / (32 * BWD_COLS) consumer warps."""
+    src = (CSRC / "rmsnorm.cu").read_text()
+    entry = src[src.index("int launch_bwd(const void*"):]
+    entry = entry[:entry.index("\n}\n")]
+    widths = tuple(int(w) for w in re.findall(r"case (\d+):", entry))
+    assert widths == RN.BWD_RING_WIDTHS
+    for d in widths:
+        assert f"launch_bwd_ring<T, S, {d} / (32 * BWD_COLS)>" in entry
+        assert d % (32 * RN.BWD_COLS) == 0
+
+
+@pytest.mark.parametrize("d,esize,vec_ok,want", [
+    (4096, 2, True, 2), (2560, 2, True, 2),       # bf16 model widths
+    (4096, 4, True, 4), (2560, 4, True, 4),       # f32
+    (4096, 2, False, 0), (2560, 4, False, 0),     # rows not 16-byte aligned
+    (8192, 2, True, 0), (2048, 2, True, 0), (1000, 2, True, 0),
+    (1001, 4, False, 0), (57856, 2, True, 0)])
+def test_rmsnorm_bwd_ring_route_takes_the_model_widths(d, esize, vec_ok,
+                                                        want):
+    """The ring route for d 2560 and 4096 with 16-byte aligned rows, in bf16
+    and f32 (BWD_COLS columns a consumer thread: 2 or 4 vectors), the
+    generic route (0) otherwise.  A ring instance has at least two stages
+    with at least 64 KB in flight beside the one being read, and fits a
+    block's shared memory beside the widest generic route's."""
+    nv = RN.bwd_vectors_per_thread(d, esize, vec_ok)
+    assert nv == want
+    if not nv:
+        assert RN.bwd_block_warps(d, esize, vec_ok) == RN.WARPS_PER_BLOCK
+        return
+    assert nv * (16 // esize) == RN.BWD_COLS
+    warps = RN.bwd_block_warps(d, esize, vec_ok)
+    assert (warps - 1) * 32 * RN.BWD_COLS == d and warps <= 32
+    stages = RN.bwd_ring_stages(d, esize)
+    stage = 2 * RN.BWD_STAGE_ROWS * d * esize
+    assert 2 <= stages <= RN.BWD_MAX_STAGES
+    assert (stages - 1) * stage >= 64 * 1024
+    assert stages * stage <= RN.BWD_MAX_WIDTH * 4
 
 
 @pytest.mark.parametrize("rows,blocks", [(1, 1), (4, 1), (8, 1), (9, 2),
@@ -862,6 +912,90 @@ def test_flash_bwd_kernel_rounding_plan_holds_the_tolerances(
         tile, top = _tile_rel(gt, w)
         assert tile <= FLASH_BWD_REL and top <= FLASH_BWD_REL, \
             (name, tile, top)
+
+
+# -- the RMSNorm backward kernel's summation order, on the CPU -----------------
+
+
+def _rmsnorm_bwd_kernel_order(x, scale, dy, sms, eps=1e-6):
+    """The backward kernel's arithmetic in its order, x/dy (rows, d):
+    each block of the grid walks its band of rows in order, forms dx in f32
+    and adds g * (x r) into its f32 column partials row after row; the
+    blocks' partials are then added in the kernel's fixed order (per warp
+    a run of blocks in ascending order, then the warps' sums in ascending
+    order).  Each output is rounded once.  -> dx, dscale."""
+    rows, d = x.shape
+    xf, gf, sf = x.float(), dy.float(), scale.float()
+    blocks = RN.bwd_blocks(rows, sms)
+    dx = torch.empty_like(xf)
+    part = []
+    for lo, hi in RN.bwd_bands(rows, blocks):
+        p = torch.zeros(d)
+        for row in range(lo, hi):
+            r = torch.rsqrt((xf[row] * xf[row]).sum() / d + eps)
+            c = r * r * r * ((gf[row] * sf * xf[row]).sum() / d)
+            dx[row] = r * gf[row] * sf - xf[row] * c
+            p = p + gf[row] * (xf[row] * r)
+        part.append(p)
+    warps = RN.bwd_block_warps(d, x.element_size(), True)
+    dscale = torch.zeros(d)
+    for run in RN.bwd_dscale_order(blocks, warps):
+        acc = torch.zeros(d)
+        for b in run:
+            acc = acc + part[b]
+        dscale = dscale + acc
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d,sms", [(40, 2560, 6), (21, 96, 6),
+                                        (9, 4096, 16)],
+                         ids=["ring", "generic", "ring-rows-under-sms"])
+def test_rmsnorm_bwd_kernel_summation_order_holds_the_tolerances(
+        dtype, rows, d, sms):
+    """The kernel's per-block dscale partials, combined in its fixed order,
+    against jax.grad of the reference's layers.norm at the tolerances of
+    test_rmsnorm_function_grads_match_reference: f32 within 1e-5, bf16
+    within one bf16 step."""
+    import jax
+    from repro.configs.base import get_arch as jax_get_arch
+    from repro.models import layers as JL
+    jcfg = jax_get_arch("granite-3-8b").reduced().replace(d_model=d)
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((rows, d), dtype=np.float32)
+    sc = 1 + 0.1 * rng.standard_normal(d, dtype=np.float32)
+    dy = rng.standard_normal((rows, d), dtype=np.float32)
+    (jx, tx), (js, ts), (jdy, tdy) = (_pair(a, dtype) for a in (x, sc, dy))
+
+    def jloss(xx, ss):
+        y = JL.norm({"scale": ss}, xx, jcfg)
+        return jnp.sum(y.astype(jnp.float32) * jdy.astype(jnp.float32))
+
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jx, js)
+    got = _rmsnorm_bwd_kernel_order(tx, ts, tdy, sms)
+    assert len(RN.bwd_dscale_order(RN.bwd_blocks(rows, sms),
+                                   RN.bwd_block_warps(d, 4, True))) > 1
+    for g, w, t in zip(got, want, (tx, ts)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        g, w = _np(g), _np(w)
+        if dtype == "float32":
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5)
+        else:
+            assert (np.abs(g - w) <= _bf16_step(w)).all()
+
+
+def test_rmsnorm_bwd_dscale_order_covers_every_block_once():
+    """Every block's partial is added exactly once, in ascending order, in
+    runs of ceil(blocks / warps) blocks (the last may be shorter), at most
+    one run a warp of the block."""
+    for blocks in (1, 5, 9, 10, 132):
+        for warps in (6, 8, 9):
+            runs = RN.bwd_dscale_order(blocks, warps)
+            per = -(-blocks // warps)
+            assert 1 <= len(runs) <= warps
+            assert [b for run in runs for b in run] == list(range(blocks))
+            assert all(len(run) == per for run in runs[:-1])
+            assert 1 <= len(runs[-1]) <= per
 
 
 @pytest.mark.parametrize("name", ["TC_WARPS", "ROW_BLOCK", "SMEM_PAD"])
