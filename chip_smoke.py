@@ -65,6 +65,19 @@ T. Training granite-3-8b at its published widths, its depth cut from 40 to
    the CPU; the step's time, tokens/s, model FLOP/s, peak memory and
    pinned host bytes; the backward kernels' times at the training shapes.
    Then its state is freed.
+U. Tune then execute: the tuner's H100 spec beside the card's memory; the
+   stage cost model's memory and time tapes of granite-3-8b on numpy and
+   as float64 torch ops on the card, 2^10 to 2^20 rows (every output
+   bitwise equal; rows per second of both and the crossover), and a tape
+   of the ops those lack (sqrt, max/min on signed zeros); the port's tuner
+   for granite-3-8b cut to 8 layers, seq 4096, global batch 2, one H100,
+   with the numpy and the torch tape backend (the same plan, tape runs on
+   the card), at 40 layers (infeasible), and for 8 devices with two
+   forked workers after CUDA is up (the serial plan); the tuned plan,
+   with the flash-attention kernel in place of its ``naive`` attention,
+   through the launcher for 3 steps (exact launch counts, a finite loss;
+   predicted against measured step time and peak memory); ``serve
+   --tune`` for full-width granite (dp = tp = 1, phase 3's launch counts).
 5. Phases 3 and 4 for full-width zamba2-2.7b (all 54 Mamba2 layers in 9
    groups, one shared attention block, bf16): logits kernels vs plain
    (both held against the plain versions in f32, see ACCURACY_ROOM),
@@ -192,6 +205,11 @@ REDUCED_LOSS_RTOL = 1e-2
 # to 3 decimals: its first is this phase's first within half a unit of the
 # last place
 LAUNCHER_STEPS, LAUNCHER_LOSS_ATOL = 2, 5e-4 + 1e-6
+# tune then execute: the stage cost model's tapes run on numpy and on the
+# card at these grid sizes (rows of candidate configurations); the tuned
+# plan trains this many steps through the launcher
+TAPE_ROWS = tuple(1 << k for k in range(10, 21, 2))
+TUNED_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -1353,10 +1371,11 @@ def _adam_splits_on_card():
         f"parts) vs 0, 3 steps: {n_leaves} leaves bitwise equal")
 
 
-def _launcher_run(plan):
+def _launcher_run(plan, steps=LAUNCHER_STEPS):
     """The training entry point as a user runs it: ``launch.train.main``
     with ``--layers`` and ``--plan-json``; every count set to 0 just before
-    and read just after.  Returns (counts, first and last loss printed)."""
+    and read just after.  Returns (counts, first and last loss printed,
+    the step times in ms it printed)."""
     import contextlib
     import io
     import re
@@ -1367,7 +1386,7 @@ def _launcher_run(plan):
     plan_json.parent.mkdir(parents=True, exist_ok=True)
     plan_json.write_text(plan.to_json())
     argv = ["--arch", "granite-3-8b", "--layers", str(T_LAYERS),
-            "--plan-json", str(plan_json), "--steps", str(LAUNCHER_STEPS),
+            "--plan-json", str(plan_json), "--steps", str(steps),
             "--seq", str(T_SEQ), "--global-batch", str(T_MICRO * T_ACCUM)]
     out = io.StringIO()
     _reset_counts()
@@ -1375,14 +1394,17 @@ def _launcher_run(plan):
         rc = launch_train.main(argv)
     sync()
     counts = _read_counts()
-    line = out.getvalue().strip()
-    log(f"# python -m repro_torch.launch.train {' '.join(argv)}: {line}")
-    m = re.search(r"loss (\S+) -> (\S+)", line)
-    if rc != 0 or m is None:
+    text = out.getvalue().strip()
+    log(f"# python -m repro_torch.launch.train {' '.join(argv)}: "
+        + text.replace("\n", "; "))
+    m = re.search(r"loss (\S+) -> (\S+)", text)
+    ms = re.search(r"# step ms: (.*)", text)
+    if rc != 0 or m is None or ms is None:
         raise AssertionError(f"the training launcher failed: rc {rc}")
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, float(m.group(1)), float(m.group(2))
+    return (counts, float(m.group(1)), float(m.group(2)),
+            [float(x) for x in ms.group(1).split()])
 
 
 def _full_width_grads(model, params, micro, ec):
@@ -1442,7 +1464,7 @@ def phase_train(profile=False):
     _adam_splits_on_card()
 
     # the main path: the launcher, at Adam's default lr
-    counts, cli_first, cli_last = _launcher_run(plan)
+    counts, cli_first, cli_last, _ = _launcher_run(plan)
     if counts != {k: LAUNCHER_STEPS * n for k, n in want.items()}:
         raise AssertionError(f"launcher launch counts {counts} != "
                              f"{LAUNCHER_STEPS} x {want}")
@@ -1554,6 +1576,246 @@ def phase_train(profile=False):
 
     _train_reduced_vs_cpu()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase U: tune then execute
+# ---------------------------------------------------------------------------
+
+
+def _tape_grid(rows, seed=0):
+    """A seeded grid of stage-model candidates (every symbol bound)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def pick(vals):
+        return np.asarray(rng.choice(vals, rows), np.float64)
+    ratios = [i / 8 for i in range(9)]
+    return {"b": pick([1, 2, 4, 8]), "dp": pick([1, 2, 4, 8]),
+            "tp": pick([1, 2, 4, 8]), "zero": pick([0, 1, 2, 3]),
+            "ckpt": pick(range(T_LAYERS + 1)), "wo": pick(ratios),
+            "go": pick(ratios), "oo": pick(ratios), "ao": pick(ratios),
+            "L": float(T_LAYERS), "G": 2.0, "inflight": 1.0}
+
+
+def _bitwise(got, want) -> bool:
+    """float64 bits equal (NaN positions equal; NaN payloads not compared)."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return False
+    ng, nw = np.isnan(got), np.isnan(want)
+    return bool(np.array_equal(ng, nw)) and bool(np.array_equal(
+        got[~ng].view(np.int64), want[~nw].view(np.int64)))
+
+
+def _tape_differential():
+    """The stage cost model's memory and time tapes (granite-3-8b, seq
+    T_SEQ) on numpy and as float64 torch ops on the card, TAPE_ROWS rows
+    each: every output bitwise equal; rows per second of both (the card's
+    including the copies in and out, as the backend runs them).  Also a
+    tape of the ops the stage tapes lack (sqrt, max/min on signed zeros,
+    rint on halves).  Returns the smallest row count at which the card
+    was faster (the "auto" crossover), or None."""
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import symbolic as S
+    from repro_torch.core.costmodel import StageCostModel
+
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-8, 8, 1 << 20)
+    x[::5] = np.round(x[::5] * 2) / 2
+    x[::9] = -0.0
+    y = np.where(np.arange(x.size) % 3 == 0, 0.0, rng.uniform(-8, 8, x.size))
+    a, b = S.Sym("x"), S.Sym("y")
+    odd = S.compile_tape({
+        "sqrt": S.UnOp("sqrt", S.UnOp("abs", a)), "max": S.smax(a, b),
+        "min": S.smin(b, a), "rint": S.rint(a), "div": a / (b + 0.25),
+        "floor": S.UnOp("floor", a * 3.0), "cmp": (a >= b) * S.ceil(a)})
+    want = odd.run({"x": x, "y": y})
+    got = odd.lower_torch(DEVICE)({"x": x, "y": y})
+    bad = [k for k in want if not _bitwise(got[k].cpu().numpy(), want[k])]
+    if bad:
+        raise AssertionError(f"torch tape ops on the card differ from "
+                             f"numpy: {bad}")
+    log(f"# tape ops on the card (sqrt, max/min with signed zeros, rint, "
+        f"div, floor, compare) over {x.size} rows: bitwise equal to numpy")
+
+    scm = StageCostModel(get_arch("granite-3-8b"), T_SEQ)
+    rows_out, crossover = [], None
+    for rows in TAPE_ROWS:
+        e = scm._env(_tape_grid(rows))
+        t_np = t_card = 0.0
+        for tape in (scm.tape_mem, scm.tape_time):
+            run = tape.lower_torch(DEVICE)
+            run(e)                                     # warm-up
+            sync()
+            best_np = best_card = float("inf")
+            for _ in range(2):
+                t0 = time.perf_counter()
+                want = tape.run(e, scm._scratch[id(tape)])
+                best_np = min(best_np, time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                got = {k: v.cpu().numpy() for k, v in run(e).items()}
+                best_card = min(best_card, time.perf_counter() - t0)
+            bad = [k for k in want if not _bitwise(got[k], want[k])]
+            if bad:
+                raise AssertionError(f"{rows} rows: card tape outputs "
+                                     f"differ from numpy: {bad}")
+            t_np += best_np
+            t_card += best_card
+        rows_out.append(dict(rows=rows, numpy_rows_per_s=rows / t_np,
+                             card_rows_per_s=rows / t_card,
+                             numpy_ms=t_np * 1e3, card_ms=t_card * 1e3))
+        if crossover is None and t_card < t_np:
+            crossover = rows
+    log(json.dumps({"tape_backends": dict(
+        model="granite-3-8b", seq=T_SEQ,
+        tapes={"memory": len(scm.tape_mem), "time": len(scm.tape_time)},
+        rows=rows_out, crossover_rows=crossover,
+        bitwise_equal=True)}))
+    return crossover
+
+
+def _serve_tuned():
+    """``launch.serve --tune`` for granite-3-8b at full width (BATCH
+    prompts of PROMPT_LEN, GEN tokens): the tuned plan must be dp = tp = 1
+    and ``generate`` must launch exactly phase 3's counts."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import serve as launch_serve
+
+    argv = ["--arch", "granite-3-8b", "--tune", "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT_LEN), "--gen", str(GEN)]
+    out = io.StringIO()
+    _reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = launch_serve.main(argv)
+    sync()
+    counts = _read_counts()
+    text = out.getvalue()
+    plan = json.loads(text[text.index("\n{") + 1:text.index("\n}\n") + 2])
+    log(f"# python -m repro_torch.launch.serve {' '.join(argv)}: "
+        + " ".join(ln for ln in text.splitlines() if ln.startswith(
+            ("#", "generated"))) + f"; launches {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rc != 0:
+        raise AssertionError(f"serve --tune failed: rc {rc}")
+    if [(s["dp"], s["tp"]) for s in plan["stages"]] != [(1, 1)]:
+        raise AssertionError(f"tuned serve plan is not dp = tp = 1: {plan}")
+    want = _granite_launches(get_arch("granite-3-8b"))
+    if counts != want:
+        raise AssertionError(f"serve --tune launch counts {counts} != "
+                             f"{want}")
+    return plan
+
+
+def phase_tune_then_execute():
+    """The main path's first half on the card: the port's tuner for one
+    H100 (the tapes on numpy and on the card, bitwise), the tuned plan
+    trained through the launcher with exact launch counts, and
+    ``serve --tune``."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core import costmodel as CM
+    from repro_torch.core.hardware import H100
+    from repro_torch.core.tuner import MistTuner, TuneSpec
+    from repro_torch.lowering import check_plan_mesh
+
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(json.dumps({"tuner_hw": dataclasses.asdict(H100),
+                    "device_total_memory": total, "smi": smi_line()}))
+    crossover = _tape_differential()
+    log(f"# tape backends: the card overtakes numpy at {crossover} rows; "
+        f"the port's auto threshold is {CM.TORCH_AUTO_THRESHOLD}")
+
+    full = get_arch("granite-3-8b")
+    cfg = full.replace(num_layers=T_LAYERS)
+    spec = TuneSpec(arch=cfg, seq_len=T_SEQ, global_batch=T_MICRO * T_ACCUM,
+                    n_devices=1, space="mist")
+    reps, secs, runs = {}, {}, {}
+    for backend in ("numpy", "torch"):
+        CM.TAPE_RUNS.update(numpy=0, torch=0)
+        t0 = time.perf_counter()
+        reps[backend] = MistTuner(dataclasses.replace(
+            spec, backend=backend)).tune()
+        secs[backend] = time.perf_counter() - t0
+        runs[backend] = dict(CM.TAPE_RUNS)
+        log(f"# tune granite-3-8b, {T_LAYERS} layers, seq {T_SEQ}, global "
+            f"batch {spec.global_batch}, 1 H100, backend {backend}: "
+            f"{secs[backend]:.3f} s, tape runs {runs[backend]}")
+    rep, rep_t = reps["numpy"], reps["torch"]
+    if rep.plan is None:
+        raise AssertionError(f"{T_LAYERS} layers infeasible on one H100")
+    if runs["torch"]["torch"] == 0 or runs["torch"]["numpy"] \
+            or rep_t.plan.to_json() != rep.plan.to_json() \
+            or rep_t.objective != rep.objective:
+        raise AssertionError("backend torch: no tape ran on the card, or "
+                             "its plan differs from numpy's")
+    t0 = time.perf_counter()
+    rep40 = MistTuner(dataclasses.replace(spec, arch=full)).tune()
+    secs["40_layers"] = time.perf_counter() - t0
+    if not rep40.infeasible:
+        raise AssertionError("40 layers should not fit one H100")
+    # the fork pool after CUDA is initialised: a multi-unit workload (8
+    # devices, S in {1, 2}) at one and two workers
+    multi = TuneSpec(arch=full, seq_len=2048, global_batch=16, n_devices=8,
+                     stage_counts=(1, 2), grad_accums=(2, 4))
+    t0 = time.perf_counter()
+    serial = MistTuner(multi).tune()
+    forked = MistTuner(dataclasses.replace(multi, workers=2)).tune()
+    secs["8_devices_w1_w2"] = time.perf_counter() - t0
+    if forked.workers != 2 or forked.plan.to_json() != serial.plan.to_json():
+        raise AssertionError("the fork pool's plan differs, or no fork")
+    log(f"# 40 layers on one H100: infeasible ({secs['40_layers']:.3f} s); "
+        f"8 H100s, 2 forked workers after CUDA init: the serial plan "
+        f"({secs['8_devices_w1_w2']:.3f} s for both)")
+    log(rep.plan.to_json().replace("\n", " "))
+
+    # execute the tuned knobs with the attention the cost model priced
+    plan = rep.plan.replace(attn_impl="pallas", use_pallas=True)
+    check_plan_mesh(plan)
+    st = plan.stages[0]
+    log(f"# the tuned plan reads attn_impl {rep.plan.attn_impl!r}: the "
+        f"tuner switches it only for non-default kernel tiles, while its "
+        f"activation term prices flash attention (O(1) softmax stats, no "
+        f"S x S scores); the phase runs attn_impl 'pallas', the attention "
+        f"that was priced")
+    want = _train_launches(T_LAYERS, min(st.ckpt_layers, T_LAYERS),
+                           plan.grad_accum)
+    if st.micro_batch * plan.grad_accum != T_MICRO * T_ACCUM:
+        raise AssertionError("the tuned plan's global batch differs")
+    torch.cuda.reset_peak_memory_stats()
+    counts, first, last, step_ms = _launcher_run(plan, TUNED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if counts != {k: TUNED_STEPS * n for k, n in want.items()}:
+        raise AssertionError(f"tuned plan launch counts {counts} != "
+                             f"{TUNED_STEPS} x {want}")
+    if not (math.isfinite(first) and math.isfinite(last)):
+        raise AssertionError(f"tuned plan loss not finite: {first}, {last}")
+    est = CM.estimate_plan(cfg, ShapeConfig("t", T_SEQ, spec.global_batch,
+                                            "train"), rep.plan)
+    measured = statistics.median(step_ms[1:])
+    t0 = time.perf_counter()
+    plan_s = _serve_tuned()
+    secs["serve_tune_and_generate"] = time.perf_counter() - t0
+    secs["phase"] = time.perf_counter() - t_phase
+    log(json.dumps({"tune_then_execute": dict(
+        model="granite-3-8b", layers=T_LAYERS, seq=T_SEQ,
+        global_batch=spec.global_batch, hw=H100.name,
+        seconds=secs, plan=json.loads(rep.plan.to_json()),
+        executed_attn_impl=plan.attn_impl, launches=counts,
+        predicted_step_s=rep.objective, measured_step_ms=measured,
+        measured_step_ms_all=step_ms, predicted_peak_bytes=est[
+            "mem_peak_max"], max_memory_allocated=peak,
+        predicted_over_measured_step=rep.objective * 1e3 / measured,
+        predicted_over_measured_peak=est["mem_peak_max"] / peak,
+        losses=[first, last], serve_plan=plan_s)}))
 
 
 def _time_serve(arch, model, params, prompts, plan, peak):
@@ -1723,6 +1985,12 @@ def main() -> int:
                         errs["flash_attention_bwd"]),
         _time_rmsnorm_bwd(train_launches["rmsnorm_bwd"],
                           errs["rmsnorm_bwd"])]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # tune then execute (the tuner for one H100, its plan on the card)
+    phase_tune_then_execute()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

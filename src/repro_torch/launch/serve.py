@@ -4,8 +4,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \
         --smoke --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  ``--tune`` and
-``--continuous`` wait for their slices of the port.
+Runs on ``cuda`` unless ``--device cpu`` is given.  ``--tune`` takes the
+plan from the ``serve`` search space for one H100 (``tuned_serve_plan``),
+as the reference does for its devices; the tuned plan's attention reads
+``naive``, and the launcher runs it with the flash-attention kernel, the
+attention the cost model prices (ROADMAP.md §C).  The reference's check
+that the predicted serve memory equals the lowered plan's report waits
+for ``lowering/memory.py`` (ROADMAP.md); ``--continuous`` waits for its
+slice.
 """
 from __future__ import annotations
 
@@ -47,6 +53,19 @@ def generate(model, params, prompts: torch.Tensor, gen: int, plan,
         return torch.cat(out, dim=1)
 
 
+def tuned_serve_plan(cfg, *, batch: int, max_len: int):
+    """Run the ``serve`` search space for one H100 and return (plan,
+    report)."""
+    from repro_torch.core.tuner import MistTuner, TuneSpec
+    spec = TuneSpec(arch=cfg, seq_len=max_len, global_batch=batch,
+                    n_devices=1, space="serve")
+    report = MistTuner(spec).tune()
+    if report.plan is None:
+        raise SystemExit("serve tuner: no feasible plan "
+                         f"(swept {report.n_swept} candidates)")
+    return report.plan, report
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -55,8 +74,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--tune", action="store_true",
-                    help="(not ported yet) pick the plan via the 'serve' "
-                         "search space")
+                    help="pick the plan via the 'serve' search space "
+                         "(one H100; the reference's predicted-vs-lowered "
+                         "memory check waits for lowering/memory.py, "
+                         "ROADMAP.md)")
     ap.add_argument("--continuous", action="store_true",
                     help="(not ported yet) serve through the continuous-"
                          "batching engine")
@@ -66,9 +87,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.tune:
-        raise SystemExit("--tune is not ported yet: the port has no tuner "
-                         "(ROADMAP.md, queue A)")
     if args.continuous:
         raise SystemExit("--continuous is not ported yet: continuous "
                          "batching is a later slice (ROADMAP.md, queue A)")
@@ -82,8 +100,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.smoke:
         cfg = cfg.reduced()
     model = build_model(cfg, device)
-    plan = single_stage_plan(cfg.num_layers, dp=1, tp=1, micro_batch=1,
-                             grad_accum=1, zero=0, ckpt_layers=0)
+    if args.tune:
+        plan, report = tuned_serve_plan(
+            cfg, batch=args.batch, max_len=args.prompt_len + args.gen)
+        st = plan.stages[0]
+        print(f"# tuned serve plan: dp={st.dp} tp={st.tp} zero={st.zero} "
+              f"kv={plan.kv_cache_dtype} page_size={plan.page_size} "
+              f"(objective {report.objective:.4f}s, "
+              f"{report.throughput_tokens:.1f} tok/s predicted)")
+        print(plan.to_json())
+        print(f"# the tuned plan reads attn_impl {plan.attn_impl!r}; the "
+              "cost model prices flash attention, so serving runs the "
+              "flash-attention kernel")
+        plan = plan.replace(attn_impl="pallas", use_pallas=True)
+    else:
+        plan = single_stage_plan(cfg.num_layers, dp=1, tp=1, micro_batch=1,
+                                 grad_accum=1, zero=0, ckpt_layers=0)
     params, _ = model.init(torch.Generator(device).manual_seed(0))
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=torch.Generator(device).manual_seed(1),

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
         --smoke --steps 2 [--plan-json P] [--seq S] [--global-batch B] \
         [--layers L] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
+        --tune --devices 16 [--space mist] [--memo-dir D] --device cpu
 
 Runs ``build_model`` -> ``init_train_state`` -> ``make_train_step`` and
 takes ``--steps`` steps over ``SyntheticLM`` batches, on ``cuda`` unless
@@ -11,9 +13,17 @@ global batch 8, as the reference's smoke run); ``--layers`` cuts the depth
 of the config (a full-width config whose optimizer state does not fit one
 card).  With no ``--plan-json`` the plan is the reference's smoke plan:
 remat on half the layers and ``grad_accum`` 2 at dp = tp = 1, with the
-port's flash-attention kernel.  ``--tune``, ``--memo-dir`` and
-``--calibrate`` wait for the tuner, and ``TrainLoop`` with its checkpoints
-for the training surface (ROADMAP.md): the loop here is a plain step loop.
+port's flash-attention kernel.
+
+``--tune`` runs the port's Mist tuner for ``--devices`` H100s (the
+``repro_torch.core.hardware.H100`` spec) on the config, cut by
+``--layers`` if given, at ``--seq`` and ``--global-batch``, prints the plan
+JSON and the predicted step time, and returns, as the reference does; with
+``--smoke`` it then trains the reduced config's own smoke plan, as the
+reference does.  The reference also prints the tuned plan's predicted
+against its lowered memory (``lowering/memory.py``), whose port waits
+(ROADMAP.md); ``--calibrate`` and ``TrainLoop`` with its checkpoints wait
+too: the loop here is a plain step loop, and it prints each step's time.
 """
 from __future__ import annotations
 
@@ -40,22 +50,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--plan-json", default=None)
     ap.add_argument("--smoke", action="store_true",
                     help="train the reduced config")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="with --tune: the H100s to tune for")
+    ap.add_argument("--space", default="mist",
+                    help="with --tune: the search space")
     ap.add_argument("--tune", action="store_true",
-                    help="(not ported yet) run the Mist tuner")
+                    help="run the Mist tuner and print the plan (the "
+                         "reference's predicted-vs-lowered memory line "
+                         "waits for lowering/memory.py, ROADMAP.md)")
     ap.add_argument("--memo-dir", default=None,
-                    help="(not ported yet) the tuner's memo store")
+                    help="persistent tuning memo store "
+                         "(core/memo_store.py): warm queries answer in "
+                         "milliseconds")
     ap.add_argument("--calibrate", action="store_true",
                     help="(not ported yet) fit a calibration profile")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    for flag, on in (("--tune", args.tune), ("--memo-dir", args.memo_dir),
-                     ("--calibrate", args.calibrate)):
-        if on:
-            raise SystemExit(f"{flag} is not ported yet: the port has no "
-                             "tuner (ROADMAP.md, queue A)")
+    if args.calibrate:
+        raise SystemExit("--calibrate is not ported yet: calibration is a "
+                         "later slice (ROADMAP.md, queue A)")
 
-    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.core.plan import Plan, single_stage_plan
     from repro_torch.models.zoo import build_model
     from repro_torch.training.data import BatchSpec, SyntheticLM
@@ -63,12 +79,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
+    gbs = args.global_batch or 8
+    if args.tune and not args.plan_json:
+        from repro_torch.core.tuner import tune
+        tcfg = cfg if args.layers is None else \
+            cfg.replace(num_layers=args.layers)
+        rep = tune(tcfg, ShapeConfig("cli", args.seq or 4096, gbs, "train"),
+                   args.devices, space=args.space, memo_dir=args.memo_dir)
+        if rep.plan is None:
+            print("INFEASIBLE for this device count / batch")
+            return 1
+        print(f"# tuned in {rep.tune_seconds:.1f}s over {rep.n_points} "
+              f"configs; predicted step {rep.objective:.3f}s "
+              f"({rep.throughput_samples:.2f} samples/s)"
+              + (" [memo-store hit]" if rep.from_memo else ""))
+        print(rep.plan.to_json())
+        if not args.smoke:
+            return 0
     if args.smoke:
         cfg = cfg.reduced()
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
     seq = args.seq or (128 if args.smoke else 4096)
-    gbs = args.global_batch or 8
     model = build_model(cfg, device)
     if args.plan_json:
         plan = Plan.from_json(pathlib.Path(args.plan_json).read_text())
@@ -82,15 +114,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                              torch.Generator(device).manual_seed(0))
     data = SyntheticLM(BatchSpec(global_batch=gbs, seq_len=seq,
                                  vocab_size=cfg.vocab_size))
-    losses = []
+    losses, step_ms = [], []
     t0 = time.perf_counter()
     for i in range(args.steps):
+        t1 = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in data.batch(i).items()}
         state, metrics = step.fn(state, batch)
         losses.append(float(metrics["loss"]))  # syncs the device
+        step_ms.append((time.perf_counter() - t1) * 1e3)
     dt = time.perf_counter() - t0
     n = len(losses)
+    if n:
+        print("# step ms: " + " ".join(f"{x:.1f}" for x in step_ms))
     print(f"trained {n} steps in {dt:.1f}s ({dt / max(1, n):.2f}s/step) on "
           f"{device}; loss {losses[0]:.3f} -> {losses[-1]:.3f}"
           if n else f"trained 0 steps on {device}")

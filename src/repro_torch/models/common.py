@@ -34,18 +34,19 @@ Axes = Dict[str, Tuple[Optional[str], ...]]
 # ---------------------------------------------------------------------------
 
 
-def resolve_device(device: Union[str, torch.device, None] = None
-                   ) -> torch.device:
+def resolve_device(device: Union[str, torch.device, None] = None, *,
+                   allow_meta: bool = False) -> torch.device:
     """The port's entry points run on ``cuda`` unless the caller asks for
     the CPU.  With no CUDA device and no such request this raises: the port
-    never carries on on the CPU by itself."""
+    never carries on on the CPU by itself.  ``allow_meta`` also accepts the
+    meta device, for shape probes (the tuner's param and cache layouts)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "repro_torch runs on a CUDA device and none is available; "
                 "pass device='cpu' (--device cpu) to run the plain CPU path")
-    elif dev.type != "cpu":
+    elif dev.type != "cpu" and not (allow_meta and dev.type == "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -105,12 +106,14 @@ class ParamBuilder:
         self.params: Params = {}
         self.axes: Axes = {}
 
-    def _normal(self, shape, scale: float, dtype) -> torch.Tensor:
+    def _normal(self, shape, scale: float, dtype, lead: int) -> torch.Tensor:
         out = torch.empty(shape, dtype=dtype, device=self.device)
-        # stacked params are drawn one layer at a time so the f32 draw stays
-        # one layer large at full width
-        rows = out.view(-1, *shape[-2:]) if len(shape) >= 3 \
-            else out.unsqueeze(0)
+        if out.is_meta:          # a shape probe: nothing to draw
+            return out
+        # stacked params (``lead`` leading layer dims) are drawn one layer at
+        # a time, so the f32 draw stays one layer large at full width; the
+        # rest in one draw
+        rows = out.view(-1, *shape[lead:]) if lead else out.unsqueeze(0)
         for r in rows:
             r.copy_(torch.randn(r.shape, generator=self.generator,
                                 dtype=torch.float32, device=self.device)
@@ -131,7 +134,9 @@ class ParamBuilder:
             if scale is None:  # fan-in scaling over the (stacked) shape
                 fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
                 scale = 1.0 / math.sqrt(max(1, fan_in))
-            v = self._normal(tuple(shape), scale, dtype)
+            lead = next((i for i, ax in enumerate(axes)
+                         if not (ax or "").startswith("layers")), len(axes))
+            v = self._normal(tuple(shape), scale, dtype, lead)
         else:
             raise ValueError(init)
         self.params[name] = v

@@ -234,11 +234,20 @@ def cache_write(buf: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
 
 def init_self_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, device="cpu") -> Dict:
-    if cfg.attention_type == "mla" or dtype == torch.int8:
-        raise NotImplementedError("MLA and int8 KV caches are not ported yet")
+    if cfg.attention_type == "mla":
+        raise NotImplementedError("MLA KV caches are not ported yet")
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {
+    out = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": torch.zeros((), dtype=torch.int32, device=device),
     }
+    if dtype == torch.int8:
+        # the reference's quantized layout, with its per-(token, head) f32
+        # scales: the serve tuner prices it (lowering/cache_layout.py); the
+        # int8 decode itself raises until its slice (ROADMAP.md)
+        out["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=device)
+        out["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=device)
+    return out

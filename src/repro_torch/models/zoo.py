@@ -63,9 +63,11 @@ class Model:
 def build_model(arch: Union[str, ArchConfig],
                 device: Union[str, torch.device, None] = None) -> Model:
     """The model for ``arch`` on ``device`` (``cuda`` unless the caller
-    passes ``"cpu"``; raises without a CUDA device)."""
+    passes ``"cpu"``; raises without a CUDA device).  ``"meta"`` gives a
+    model for shape probes: its ``init(None)`` and ``init_caches`` allocate
+    nothing."""
     cfg = get_arch(arch) if isinstance(arch, str) else arch
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     if cfg.family not in _FAMILIES or cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "

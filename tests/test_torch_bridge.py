@@ -78,6 +78,39 @@ def test_port_init_has_reference_names_shapes_and_scales():
             assert abs(tstd / jstd - 1.0) < 0.05, (name, tstd, jstd)
 
 
+@pytest.mark.parametrize("arch", ["granite-3-8b", "zamba2-2.7b"])
+def test_port_init_draws_stacked_params_one_layer_at_a_time(arch,
+                                                            monkeypatch):
+    """One draw per stacked layer (``L`` for the dense stack, groups x
+    per-group for the hybrid's), one for every other normal-init param: at
+    full width a draw per row of the last two dims made granite-3-8b's
+    q/k/v projections 163,840 draws."""
+    from repro_torch.models.zoo import build_model
+    cfg = get_arch(arch).reduced()
+    shapes = []
+    real = torch.randn
+
+    def counting_randn(*shape, **kw):
+        shapes.append(tuple(shape[0]) if len(shape) == 1 else shape)
+        return real(*shape, **kw)
+
+    monkeypatch.setattr(torch, "randn", counting_randn)
+    params, axes = build_model(cfg, "cpu").init(
+        torch.Generator().manual_seed(0), torch.float32)
+    monkeypatch.undo()
+    want = []
+    for name, ax in axes.items():
+        if float(params[name].std()) == 0.0:     # ones / zeros init
+            continue
+        lead = next((i for i, a in enumerate(ax)
+                     if not (a or "").startswith("layers")), len(ax))
+        shape = tuple(params[name].shape)
+        n = int(np.prod(shape[:lead])) if lead else 1
+        want += [shape[lead:]] * n
+    assert sorted(shapes) == sorted(want)
+    assert max(len(s) for s in shapes) <= 3
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_caches_round_trip(dtype):
     jdt, tdt = DTYPES[dtype]

@@ -121,7 +121,7 @@ def test_train_main_needs_cuda_unless_asked_for_cpu(no_cuda, capsys):
     assert "trained 1 steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["--tune", "--continuous"])
+@pytest.mark.parametrize("flag", ["--continuous"])
 def test_unported_serve_modes_exit(flag):
     with pytest.raises(SystemExit, match="not ported"):
         serve.main(["--arch", "granite-3-8b", "--smoke", "--device", "cpu",

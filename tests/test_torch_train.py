@@ -467,13 +467,22 @@ def test_train_step_matches_reference_and_state_round_trips(weights):
 
 def test_tuned_plan_executes_in_the_port_as_in_the_reference(weights):
     """The torch twin of test_system.py::test_tune_then_execute_reduced: the
-    reference tuner's plan for 16 devices crosses as JSON; its knobs
-    (zero, ckpt, oo, ao) run on the reduced config in both packages (bf16,
-    one step), and the losses agree."""
-    from repro.core.tuner import tune
-    rep = tune(jax_get_arch(ARCH), ShapeConfig("t", 4096, 32, "train"), 16,
-               space="mist", stage_counts=(1,), grad_accums=(4,))
+    port's tuner, given the reference's hardware spec, gives the reference
+    tuner's plan for 16 devices byte for byte; its knobs (zero, ckpt, oo,
+    ao) run on the reduced config in both packages (bf16, one step), and
+    the losses agree."""
+    from repro.core.hardware import V5E
+    from repro.core.tuner import tune as jax_tune
+    from repro_torch.configs.base import ShapeConfig as TShapeConfig
+    from repro_torch.core.hardware import HardwareSpec
+    from repro_torch.core.tuner import tune
+    jrep = jax_tune(jax_get_arch(ARCH), ShapeConfig("t", 4096, 32, "train"),
+                    16, space="mist", stage_counts=(1,), grad_accums=(4,))
+    rep = tune(get_arch(ARCH), TShapeConfig("t", 4096, 32, "train"), 16,
+               space="mist", stage_counts=(1,), grad_accums=(4,),
+               hw=HardwareSpec(**dataclasses.asdict(V5E)))
     assert rep.plan is not None
+    assert rep.plan.to_json() == jrep.plan.to_json()
     tuned = rep.plan.stages[0]
     jplan = jax_plan(JCFG.num_layers, dp=1, tp=1, micro_batch=2,
                      grad_accum=2, zero=tuned.zero,
@@ -550,8 +559,7 @@ def test_train_launcher_cuts_depth_and_reads_a_plan(tmp_path, capsys,
     assert "trained 1 steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--tune"], ["--memo-dir", "m"],
-                                  ["--calibrate"]])
+@pytest.mark.parametrize("flag", [["--calibrate"]])
 def test_train_launcher_unported_modes_exit(flag):
     with pytest.raises(SystemExit, match="not ported"):
         train_launch.main(["--arch", "granite-3-8b", "--smoke", "--device",

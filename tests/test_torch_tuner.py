@@ -1,0 +1,469 @@
+"""The port's Mist tuner against the reference's, on the CPU.
+
+Everything here is bitwise or byte for byte: the tuner is float64 host
+code, and the port copies the reference's arithmetic in the same order.
+
+- Symbolic engine: random expression DAGs (a seeded numpy RNG) through
+  both packages' ``compile_tape`` give equal bits; the port's torch tape
+  backend on the CPU gives the numpy tape's bits and refuses tapes with
+  ``pow`` or ``log2``.
+- Shapes: ``arch_stats``, ``param_count`` and the state and cache layouts
+  of granite-3-8b and zamba2-2.7b at full width, from the port's builders
+  on the meta device, equal the reference's (from jax ``eval_shape``),
+  zamba2's ``n_layer = 0`` included.
+- Plans: the eight granite-3-8b golden fixtures (``tests/golden/``, read
+  only) reproduce their fingerprints with a spec of the reference's TPU
+  values; the test_system workload gives the reference's plan JSON at one
+  and two workers and from a warm memo store; the tape backends and the
+  fork pool select the same plans.
+- The H100 spec and the launchers: 8 granite layers fit one card at seq
+  4096 / batch 2 and 40 do not; ``train --tune`` prints the reference's
+  plan for the same hardware; ``serve --tune`` serves with a dp = tp = 1
+  plan; what is not ported raises.
+
+The reference's runs sit in module-scoped fixtures.
+"""
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import ShapeConfig as JShapeConfig
+from repro.configs.base import get_arch as jax_get_arch
+from repro.core import costmodel as JCM
+from repro.core import costmodel_params as JCP
+from repro.core import symbolic as JS
+from repro.core.hardware import V5E
+from repro.core.hardware import HardwareSpec as JHardwareSpec
+from repro.core.tuner import MistTuner as JMistTuner
+from repro.core.tuner import TuneSpec as JTuneSpec
+from repro.core.tuner import tune as jax_tune
+from repro.lowering import cache_layout as JCL
+from repro.lowering import state_layout as JSL
+from repro_torch.configs.base import ShapeConfig, get_arch
+from repro_torch.core import costmodel as TCM
+from repro_torch.core import costmodel_params as TCP
+from repro_torch.core import golden
+from repro_torch.core import symbolic as TS
+from repro_torch.core.hardware import H100, HardwareSpec
+from repro_torch.core.schedule import validate_plan
+from repro_torch.core.tuner import MistTuner, TuneSpec, tune
+from repro_torch.launch import serve as serve_launch
+from repro_torch.launch import train as train_launch
+from repro_torch.lowering import cache_layout as TCL
+from repro_torch.lowering import state_layout as TSL
+
+ARCHS = ("granite-3-8b", "zamba2-2.7b")
+# the reference's hardware, as a port spec: the golden fixtures and the
+# test_system plan were tuned for it
+V5E_VALUES = HardwareSpec(**dataclasses.asdict(V5E))
+# the port's H100, as a reference spec
+H100_AS_REF = JHardwareSpec(**dataclasses.asdict(H100))
+SYSTEM = dict(stage_counts=(1,), grad_accums=(4,))
+
+
+def bitwise_equal(a, b) -> bool:
+    """Same shape and the same float64 bits (NaNs compared as NaN: their
+    payload is the platform's, not the arithmetic's)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return False
+    na, nb = np.isnan(a), np.isnan(b)
+    return bool(np.array_equal(na, nb)) and bool(np.array_equal(
+        a[~na].view(np.int64), b[~nb].view(np.int64)))
+
+
+# -- symbolic engine ----------------------------------------------------------
+
+_BIN = ("add", "sub", "mul", "div", "max", "min", "ge", "le", "gt", "lt",
+        "where")
+_UN = ("ceil", "floor", "abs", "rint", "neg", "sqrt")
+
+
+def _program(seed, n_syms=4, n_ops=60):
+    """A random expression DAG as a list of (op, operand indices), the
+    same for both packages: leaves first (symbols, then constants), each
+    op reading any earlier node."""
+    rng = np.random.default_rng(seed)
+    consts = [float(c) for c in rng.choice(
+        [0.0, 0.5, 1.0, 2.0, 3.0, 0.1, 1e-3, 7.25, 1024.0], 4)]
+    prog = []
+    n = n_syms + len(consts)
+    for _ in range(n_ops):
+        if rng.random() < 0.7:
+            op = str(rng.choice(_BIN))
+            args = tuple(int(i) for i in rng.integers(0, n, 3 if op == "where"
+                                                      else 2))
+        else:       # odd seeds leave sqrt out (see the torch CPU test)
+            op = str(rng.choice(_UN if seed % 2 == 0 else _UN[:-1]))
+            args = (int(rng.integers(0, n)),)
+        prog.append((op, args))
+        n += 1
+    return consts, prog
+
+
+def _build(S, consts, prog, n_syms=4):
+    nodes = [S.Sym(f"x{i}") for i in range(n_syms)]
+    nodes += [S.Const(c) for c in consts]
+    for op, args in prog:
+        a = [nodes[i] for i in args]
+        if op in ("add", "sub", "mul", "div"):
+            e = {"add": a[0] + a[1], "sub": a[0] - a[1], "mul": a[0] * a[1],
+                 "div": a[0] / a[1]}[op]
+        elif op == "max":
+            e = S.smax(a[0], a[1])
+        elif op == "min":
+            e = S.smin(a[0], a[1])
+        elif op in ("ge", "le", "gt", "lt"):
+            e = {"ge": a[0] >= a[1], "le": a[0] <= a[1], "gt": a[0] > a[1],
+                 "lt": a[0] < a[1]}[op]
+        elif op == "where":
+            e = S.where(a[0] > 1.0, a[1], a[2])
+        elif op == "neg":
+            e = -a[0]
+        elif op == "sqrt":
+            e = S.UnOp("sqrt", S.UnOp("abs", a[0]))
+        elif op == "rint":
+            e = S.rint(a[0])
+        else:
+            e = S.UnOp(op, a[0])
+        nodes.append(e)
+    # the last ten nodes, one of them twice (outputs may share a node)
+    outs = {f"o{i}": e for i, e in enumerate(nodes[-10:])}
+    outs["dup"] = nodes[-1]
+    return outs
+
+
+def _env(seed, n_syms=4, rows=257):
+    rng = np.random.default_rng(1000 + seed)
+    env = {}
+    for i in range(n_syms):
+        if i == 0:              # one scalar symbol
+            env["x0"] = float(rng.uniform(-4, 4))
+        else:                   # halves (rint ties), negatives, integers
+            v = rng.uniform(-8, 8, rows)
+            v[::7] = np.round(v[::7] * 2) / 2
+            v[::11] = np.round(v[::11])
+            env[f"x{i}"] = v
+    return env
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_random_tapes_match_the_reference_and_the_torch_backend(seed):
+    consts, prog = _program(seed)
+    env = _env(seed)
+    jt = JS.compile_tape(_build(JS, consts, prog))
+    tt = TS.compile_tape(_build(TS, consts, prog))
+    assert jt.ops == tt.ops and tt.bitexact
+    want = jt.run(env)
+    got = tt.run(env, tt.make_scratch())
+    assert set(want) == set(got)
+    for k in want:
+        assert bitwise_equal(got[k], want[k]), k
+    if "sqrt" in tt.ops:
+        # torch's CPU float64 sqrt is not correctly rounded: refused there
+        with pytest.raises(ValueError, match="sqrt"):
+            tt.lower_torch("cpu")
+        return
+    on_torch = tt.lower_torch("cpu")(env)
+    assert set(on_torch) == set(want)
+    for k in want:
+        assert on_torch[k].dtype == torch.float64
+        assert bitwise_equal(on_torch[k].numpy(), want[k]), k
+
+
+def test_torch_backend_refuses_pow_and_log2():
+    x = TS.Sym("x")
+    for outs in ({"p": x ** TS.Const(0.5)}, {"l": TS.UnOp("log2", x)},
+                 {"ok": x + 1.0, "p": (x * 2.0) ** x}):
+        tape = TS.compile_tape(outs)
+        assert not tape.bitexact
+        with pytest.raises(ValueError, match="not correctly"):
+            tape.lower_torch("cpu")
+    assert TS.compile_tape({"ok": TS.rint(x / 3.0)}).bitexact
+
+
+def _grid(rows, seed=0):
+    """A seeded candidate grid over every stage cost-model symbol."""
+    rng = np.random.default_rng(seed)
+
+    def pick(vals):
+        return np.asarray(rng.choice(vals, rows), np.float64)
+    ratios = (0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+    return {"b": pick((1, 2, 4, 8)), "dp": pick((1, 2, 4, 8)),
+            "tp": pick((1, 2, 4, 8)), "zero": pick((0, 1, 2, 3)),
+            "ckpt": pick(range(9)), "wo": pick(ratios), "go": pick(ratios),
+            "oo": pick(ratios), "ao": pick(ratios), "L": 8.0, "G": 4.0,
+            "inflight": 2.0}
+
+
+def test_stage_tapes_on_the_torch_backend_match_numpy():
+    cfg = get_arch("granite-3-8b").replace(num_layers=8)
+    scm = TCM.StageCostModel(cfg, 4096)
+    e = scm._env(_grid(4099))
+    for tape in (scm.tape_mem, scm.tape_time, scm.tape):
+        assert tape.bitexact
+        want = tape.run(e)
+        got = tape.lower_torch("cpu")(e)
+        for k in want:
+            assert bitwise_equal(got[k].numpy(), want[k]), k
+
+
+@pytest.mark.parametrize("backend", ["torch", "auto"])
+def test_stage_model_backends_agree_and_record_where_they_ran(backend):
+    cfg = get_arch("granite-3-8b").replace(num_layers=8)
+    env = _grid(600, seed=1)
+    base = TCM.StageCostModel(cfg, 4096)
+    scm = TCM.StageCostModel(cfg, 4096, backend=backend, device="cpu")
+    scm.torch_auto_threshold = 512
+    want, got = base.evaluate_memory(env), scm.evaluate_memory(env)
+    assert base.last_backend == "numpy" and scm.last_backend == "torch"
+    for k in want:
+        assert bitwise_equal(got[k], want[k]), k
+    small = {k: (v[:16] if np.ndim(v) else v) for k, v in env.items()}
+    wt, gt = base.evaluate_times(small), scm.evaluate_times(small)
+    assert scm.last_backend == ("torch" if backend == "torch" else "numpy")
+    for k in ("t_stable", "d_delta", "t_step"):
+        assert bitwise_equal(gt[k], wt[k]), k
+
+
+def test_torch_backends_need_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("granite-3-8b").replace(num_layers=2)
+    for backend in ("torch", "auto"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TCM.StageCostModel(cfg, 128, backend=backend)
+        spec = TuneSpec(arch=cfg, seq_len=128, global_batch=2, n_devices=1,
+                        backend=backend)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            MistTuner(spec).tune()
+    with pytest.raises(ValueError, match="backend"):
+        TCM.StageCostModel(cfg, 128, backend="jax")
+
+
+# -- shapes and layouts --------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_arch_stats_and_param_count_match_the_reference(arch):
+    got = TCM.arch_stats(get_arch(arch))
+    want = JCM.arch_stats(jax_get_arch(arch))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for field in dataclasses.fields(want):
+        a, b = getattr(got, field.name), getattr(want, field.name)
+        assert type(a) is type(b) and a == b, field.name
+    if arch == "zamba2-2.7b":
+        # the reference's layer prefixes do not name zamba2's Mamba stack
+        # (mamba/..., groups/...): all of it counts as embedding.  Kept for
+        # parity (ROADMAP.md §C).
+        assert got.n_layer == 0.0 and got.n_embed > 2e9
+    for active in (False, True):
+        assert TCP.param_count(get_arch(arch), active_only=active) == \
+            JCP.param_count(jax_get_arch(arch), active_only=active)
+
+
+def test_meta_probe_allocates_and_draws_nothing():
+    params, axes = TCP.meta_params(get_arch("granite-3-8b"))
+    assert set(params) == set(axes)
+    assert all(p.is_meta for p in params.values())
+    assert sum(p.numel() for p in params.values()) == 8_170_848_256
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_state_layout_matches_the_reference(arch):
+    got = TSL.derive_state_layout(get_arch(arch))
+    want = JSL.derive_state_layout(jax_get_arch(arch))
+    assert (got.arch, got.total_layers, got.num_experts) == \
+        (want.arch, want.total_layers, want.num_experts)
+    assert [dataclasses.astuple(g) for g in got.groups] == \
+        [dataclasses.astuple(g) for g in want.groups]
+    for tp, dp, zero, wo, oo in ((1, 1, 0, 0.0, 0.0), (8, 2, 3, 0.5, 0.875),
+                                 (4, 4, 1, 0.25, 1.0)):
+        kw = dict(tp_size=tp, fsdp_size=dp, zero=zero, wo=wo, oo=oo,
+                  layers=got.total_layers // 2,
+                  total_layers=got.total_layers, has_embed=True,
+                  has_head=False)
+        g = TSL.concrete_state_terms(get_arch(arch), **kw)
+        w = JSL.concrete_state_terms(jax_get_arch(arch), **kw)
+        assert all(bitwise_equal(g[k], w[k]) for k in w)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("batch,max_len,kv", [(4, 1056, "bf16"),
+                                              (9, 512, "int8"),
+                                              (2, 64, "bf16")])
+def test_cache_layout_matches_the_reference(arch, batch, max_len, kv):
+    """Leaves in jax's tree order, probe dims included (zamba2 at batch 9:
+    the group lead dim equals the batch by value, the probe tells them
+    apart)."""
+    got = TCL.derive_cache_layout(get_arch(arch), batch, max_len, kv)
+    want = JCL.derive_cache_layout(jax_get_arch(arch), batch, max_len, kv)
+    assert [dataclasses.astuple(x) for x in got.leaves] == \
+        [dataclasses.astuple(x) for x in want.leaves]
+    for dp, tp in ((1, 1), (2, 4), (3, 8)):
+        assert bitwise_equal(
+            TCL.concrete_cache_bytes(get_arch(arch), batch, max_len, kv,
+                                     dp_size=dp, tp_size=tp),
+            JCL.concrete_cache_bytes(jax_get_arch(arch), batch, max_len, kv,
+                                     dp_size=dp, tp_size=tp))
+
+
+# -- plans ------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("space", golden.GOLDEN_SPACES)
+def test_golden_fixture_reproduced(space):
+    path = golden.golden_path(space, "granite-3-8b")
+    want = json.loads(path.read_text())
+    doc = golden.compute_doc(space, "granite-3-8b", hw=V5E_VALUES)
+    assert golden.diff_docs(want["doc"], doc) == []
+    assert golden.fingerprint(doc) == want["fingerprint"]
+
+
+@pytest.mark.parametrize("route", [dict(workers=2),
+                                   dict(backend="torch", device="cpu"),
+                                   dict(engine="legacy")])
+def test_golden_mist_cell_on_every_route(route):
+    """The fork pool (several stage hypotheses, so shards really fork), the
+    torch tape backend and the legacy engine select the fixture's plan."""
+    spec = dataclasses.replace(golden.golden_spec("mist", "granite-3-8b"),
+                               **route)
+    rep = MistTuner(spec, hw=V5E_VALUES).tune()
+    want = json.loads(golden.golden_path("mist", "granite-3-8b").read_text())
+    assert json.loads(rep.plan.to_json()) == want["doc"]["plan"]
+    assert golden._fmt(rep.objective) == want["doc"]["objective"]
+    if route.get("workers"):
+        assert rep.workers == 2
+
+
+@pytest.fixture(scope="module")
+def reference_system_plan():
+    rep = jax_tune(jax_get_arch("granite-3-8b"),
+                   JShapeConfig("t", 4096, 32, "train"), 16, space="mist",
+                   **SYSTEM)
+    return rep.plan.to_json(), rep.objective
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_system_workload_plan_matches_the_reference(reference_system_plan,
+                                                    workers):
+    rep = tune(get_arch("granite-3-8b"), ShapeConfig("t", 4096, 32, "train"),
+               16, space="mist", hw=V5E_VALUES, workers=workers, **SYSTEM)
+    assert rep.plan.to_json() == reference_system_plan[0]
+    assert rep.objective == reference_system_plan[1]
+    assert validate_plan(rep.plan, get_arch("granite-3-8b"), 16, 32) == []
+
+
+def test_system_workload_from_a_warm_memo_store(reference_system_plan,
+                                                tmp_path):
+    def run():
+        return tune(get_arch("granite-3-8b"),
+                    ShapeConfig("t", 4096, 32, "train"), 16, space="mist",
+                    hw=V5E_VALUES, memo_dir=str(tmp_path), **SYSTEM)
+    cold, warm = run(), run()
+    assert not cold.from_memo and warm.from_memo
+    assert cold.plan.to_json() == warm.plan.to_json() == \
+        reference_system_plan[0]
+    assert any(tmp_path.rglob("*.pkl"))
+    # another hardware spec is another query: never served from the store
+    other = tune(get_arch("granite-3-8b"),
+                 ShapeConfig("t", 4096, 32, "train"), 16, space="mist",
+                 memo_dir=str(tmp_path), **SYSTEM)
+    assert not other.from_memo
+
+
+# -- the H100 spec -----------------------------------------------------------------
+
+
+def test_h100_spec_is_the_data_sheet():
+    assert (H100.peak_flops_bf16, H100.hbm_bw, H100.hbm_bytes) == \
+        (989e12, 3.35e12, 80e9)
+    assert H100.ici_bw_total == 450e9      # NVLink 4: 900 GB/s both ways
+    assert (H100.host_bw, H100.vmem_bytes) == (64e9, 232448.0)
+    assert dataclasses.fields(HardwareSpec) and [
+        f.name for f in dataclasses.fields(HardwareSpec)] == [
+        f.name for f in dataclasses.fields(JHardwareSpec)]
+
+
+@pytest.mark.parametrize("layers,feasible", [(8, True), (40, False)])
+def test_granite_on_one_h100(layers, feasible):
+    """granite-3-8b at seq 4096 and global batch 2 on one card: 8 layers
+    fit, 40 (about 131 GB of weights, gradients and Adam state) do not.
+    The reference's tuner, given the same spec, agrees."""
+    cfg = get_arch("granite-3-8b").replace(num_layers=layers)
+    rep = MistTuner(TuneSpec(arch=cfg, seq_len=4096, global_batch=2,
+                             n_devices=1)).tune()
+    ref = JMistTuner(JTuneSpec(
+        arch=jax_get_arch("granite-3-8b").replace(num_layers=layers),
+        seq_len=4096, global_batch=2, n_devices=1), hw=H100_AS_REF).tune()
+    assert rep.infeasible is (not feasible) and ref.infeasible is rep.infeasible
+    if feasible:
+        assert rep.plan.to_json() == ref.plan.to_json()
+        assert rep.objective == ref.objective
+        st = rep.plan.stages[0]
+        assert (st.dp, st.tp, rep.plan.num_stages) == (1, 1, 1)
+        assert st.micro_batch * rep.plan.grad_accum == 2
+
+
+def test_unported_tuner_options_raise():
+    cfg = get_arch("granite-3-8b").replace(num_layers=2)
+    base = TuneSpec(arch=cfg, seq_len=128, global_batch=2, n_devices=1)
+    for kw in (dict(kernel_tune=True), dict(hosts=("localhost:1",)),
+               dict(profile=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MistTuner(dataclasses.replace(base, **kw))
+
+
+# -- launchers --------------------------------------------------------------------
+
+
+def _json_after(out: str) -> str:
+    return out[out.index("{"):out.rindex("}") + 1]
+
+
+def test_train_launcher_tunes_as_the_reference(capsys):
+    argv = ["--arch", "granite-3-8b", "--tune", "--devices", "16",
+            "--space", "megatron", "--device", "cpu"]
+    assert train_launch.main(argv) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("# tuned in") and "predicted step" in out
+    ref = JMistTuner(JTuneSpec(arch=jax_get_arch("granite-3-8b"),
+                               seq_len=4096, global_batch=8, n_devices=16,
+                               space="megatron"), hw=H100_AS_REF).tune()
+    assert _json_after(out) == ref.plan.to_json()
+
+
+def test_train_launcher_memo_dir_answers_warm(capsys, tmp_path):
+    argv = ["--arch", "granite-3-8b", "--tune", "--layers", "4",
+            "--global-batch", "4", "--space", "zero", "--memo-dir",
+            str(tmp_path), "--device", "cpu"]
+    assert train_launch.main(argv) == 0
+    cold = capsys.readouterr().out
+    assert train_launch.main(argv) == 0
+    warm = capsys.readouterr().out
+    assert "[memo-store hit]" in warm and "[memo-store hit]" not in cold
+    assert _json_after(cold) == _json_after(warm)
+
+
+def test_serve_launcher_tunes_one_device(capsys):
+    argv = ["--arch", "granite-3-8b", "--smoke", "--tune", "--batch", "2",
+            "--prompt-len", "8", "--gen", "3", "--device", "cpu"]
+    assert serve_launch.main(argv) == 0
+    out = capsys.readouterr().out
+    plan = json.loads(_json_after(out))
+    assert [(s["dp"], s["tp"]) for s in plan["stages"]] == [(1, 1)]
+    assert plan["attn_impl"] == "naive" and "flash-attention kernel" in out
+    assert "generated 6 tokens" in out
+
+
+@pytest.mark.parametrize("main,argv", [
+    (train_launch.main, ["--arch", "granite-3-8b", "--smoke", "--device",
+                         "cpu", "--calibrate"]),
+    (serve_launch.main, ["--arch", "granite-3-8b", "--smoke", "--device",
+                         "cpu", "--continuous"])])
+def test_launcher_modes_still_waiting_exit(main, argv):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        main(argv)
