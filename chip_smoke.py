@@ -78,6 +78,18 @@ U. Tune then execute: the tuner's H100 spec beside the card's memory; the
    through the launcher for 3 steps (exact launch counts, a finite loss;
    predicted against measured step time and peak memory); ``serve
    --tune`` for full-width granite (dp = tp = 1, phase 3's launch counts).
+C. Calibration: ``launch.train.main --calibrate`` for granite-3-8b at the
+   training widths (8 layers, seq 4096) measures the two one-card cells
+   with flash attention, ``dp1_z0`` (micro-batch 1, G 2, no recompute)
+   and ``dp1_z2_ckpt`` (recompute on all 8 layers), each for C_WARMUP + C_STEPS
+   steps with exact launch counts per cell (16 / 16 / 34 / 34 and 32 / 16
+   / 66 / 34 a step); no cell may be skipped and the fitted error may not
+   exceed the uncalibrated one.  The written cuda profile must
+   round-trip; the tuner re-tunes granite for one H100 with it, and its
+   plan runs through the launcher for 3 steps (exact counts, a finite
+   loss), its measured step beside ``estimate_plan`` with and without
+   the profile, its predicted memory equal to its lowered report's (and
+   the allocator's peak beside both).
 5. Phases 3 and 4 for full-width zamba2-2.7b (all 54 Mamba2 layers in 9
    groups, one shared attention block, bf16): logits kernels vs plain
    (both held against the plain versions in f32, see ACCURACY_ROOM),
@@ -210,6 +222,10 @@ LAUNCHER_STEPS, LAUNCHER_LOSS_ATOL = 2, 5e-4 + 1e-6
 # plan trains this many steps through the launcher
 TAPE_ROWS = tuple(1 << k for k in range(10, 21, 2))
 TUNED_STEPS = 3
+# phase C: calibration cells of granite-3-8b at the training widths (8
+# layers, seq 4096), each run for C_WARMUP discarded and C_STEPS timed
+# steps (measure_cells' default warm-up)
+C_STEPS, C_WARMUP = 4, 2
 
 
 def log(msg: str) -> None:
@@ -1704,6 +1720,9 @@ def _serve_tuned():
     torch.cuda.empty_cache()
     if rc != 0:
         raise AssertionError(f"serve --tune failed: rc {rc}")
+    if "(bitwise=True)" not in text:
+        raise AssertionError("serve --tune: predicted serve memory != "
+                             "lowered")
     if [(s["dp"], s["tp"]) for s in plan["stages"]] != [(1, 1)]:
         raise AssertionError(f"tuned serve plan is not dp = tp = 1: {plan}")
     want = _granite_launches(get_arch("granite-3-8b"))
@@ -1724,7 +1743,7 @@ def phase_tune_then_execute():
     from repro_torch.core import costmodel as CM
     from repro_torch.core.hardware import H100
     from repro_torch.core.tuner import MistTuner, TuneSpec
-    from repro_torch.lowering import check_plan_mesh
+    from repro_torch.lowering import check_single_device_plan
 
     t_phase = time.perf_counter()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -1779,7 +1798,7 @@ def phase_tune_then_execute():
 
     # execute the tuned knobs with the attention the cost model priced
     plan = rep.plan.replace(attn_impl="pallas", use_pallas=True)
-    check_plan_mesh(plan)
+    check_single_device_plan(plan)
     st = plan.stages[0]
     log(f"# the tuned plan reads attn_impl {rep.plan.attn_impl!r}: the "
         f"tuner switches it only for non-default kernel tiles, while its "
@@ -1816,6 +1835,186 @@ def phase_tune_then_execute():
         predicted_over_measured_step=rep.objective * 1e3 / measured,
         predicted_over_measured_peak=est["mem_peak_max"] / peak,
         losses=[first, last], serve_plan=plan_s)}))
+
+
+# ---------------------------------------------------------------------------
+# phase C: calibration
+# ---------------------------------------------------------------------------
+
+
+def _calibrate_through_launcher(profile_path):
+    """``launch.train.main --calibrate`` for granite-3-8b at the training
+    widths: returns (exit code, printed table, ``run_calibration``'s
+    report, launch counts per cell).  Each cell's counts are set to 0 just
+    before the cell runs and read just after (a spy around
+    ``measure_plan``, which ``measure_cells`` calls once per cell); the
+    report is ``run_calibration``'s return value (a spy around it)."""
+    import contextlib
+    import io
+
+    from repro_torch.calibration import driver as DRV
+    from repro_torch.calibration import measure as MEAS
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--arch", "granite-3-8b", "--calibrate", "--layers",
+            str(T_LAYERS), "--seq", str(T_SEQ), "--steps", str(C_STEPS),
+            "--calibration-out", str(profile_path)]
+    cell_counts, reports = {}, []
+    real_measure, real_run = MEAS.measure_plan, DRV.run_calibration
+
+    def measure_spy(cfg, shape, plan, **kw):
+        _reset_counts()
+        try:
+            return real_measure(cfg, shape, plan, **kw)
+        finally:
+            sync()
+            cell_counts[shape.name] = _read_counts()
+
+    def run_spy(**kw):
+        reports.append(real_run(**kw))
+        return reports[-1]
+
+    MEAS.measure_plan, DRV.run_calibration = measure_spy, run_spy
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = launch_train.main(argv)
+    finally:
+        MEAS.measure_plan, DRV.run_calibration = real_measure, real_run
+    text = out.getvalue().strip()
+    log(f"# python -m repro_torch.launch.train {' '.join(argv)}:\n{text}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if len(reports) != 1:
+        raise AssertionError("the launcher did not run run_calibration "
+                             "once")
+    return rc, text, reports[0], cell_counts
+
+
+def phase_calibrate():
+    """The reference's calibration loop on the card: measure granite's
+    cells through ``train --calibrate``, fit a cuda profile, re-tune with
+    it and run the tuned plan; the plan's predicted memory against its
+    lowering and the allocator."""
+    import dataclasses
+
+    from repro_torch.calibration.profile import CalibrationProfile
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core import costmodel as CM
+    from repro_torch.core.tuner import MistTuner, TuneSpec
+    from repro_torch.lowering import memory_consistency
+
+    t_phase = time.perf_counter()
+    secs = {}
+    profile_path = ROOT / "build" / "calibration" / "phase_c_cuda.json"
+    if profile_path.exists():
+        profile_path.unlink()
+    t0 = time.perf_counter()
+    rc, text, report, cell_counts = _calibrate_through_launcher(profile_path)
+    secs["calibrate"] = time.perf_counter() - t0
+    if rc != 0 or report.get("error"):
+        raise AssertionError(f"train --calibrate failed: rc {rc}, "
+                             f"{report.get('error')}")
+    if report["skipped_cells"]:
+        raise AssertionError(f"calibration cells skipped: "
+                             f"{report['skipped_cells']}")
+    labels = [c["label"] for c in report["measured_cells"]]
+    if labels != ["granite-3-8b/dp1_z0", "granite-3-8b/dp1_z2_ckpt"]:
+        raise AssertionError(f"calibration cells {labels}")
+    runs = C_WARMUP + C_STEPS
+    cells = []
+    for doc, row in zip(report["measured_cells"], report["cells"]):
+        plan = doc["plan"]
+        st = plan["stages"][0]
+        if plan["attn_impl"] != "pallas" or st["layers"] != T_LAYERS:
+            raise AssertionError(f"{doc['label']}: plan {plan}")
+        want = _train_launches(T_LAYERS, min(st["ckpt_layers"], T_LAYERS),
+                               plan["grad_accum"])
+        got = cell_counts[doc["label"].split("/")[1]]
+        if got != {k: runs * n for k, n in want.items()}:
+            raise AssertionError(f"{doc['label']}: launch counts {got} != "
+                                 f"{runs} x {want}")
+        mem = doc["memory"]
+        cells.append(dict(
+            label=doc["label"], launches_per_step=want,
+            measured_step_ms=doc["t_measured"] * 1e3,
+            step_ms_all=[t * 1e3 for t in doc["step_seconds"]],
+            predicted_uncalibrated_ms=row["t_pred_uncalibrated"] * 1e3,
+            predicted_fitted_ms=row["t_pred_fitted"] * 1e3,
+            err_uncalibrated=row["err_uncalibrated"],
+            err_fitted=row["err_fitted"],
+            modeled_peak_bytes=mem["modeled_peak_bytes"],
+            allocator_peak_bytes=mem["allocator_peak_bytes"],
+            allocator_over_modeled=(mem["allocator_peak_bytes"]
+                                    / mem["modeled_peak_bytes"])))
+    if not report["mean_err_fitted"] <= report["mean_err_uncalibrated"]:
+        raise AssertionError("the fitted profile predicts worse than the "
+                             "uncalibrated model")
+
+    # the written profile: a cuda profile that round-trips
+    prof = CalibrationProfile.load(profile_path)
+    if prof.platform != "cuda" or prof.to_doc() != report["profile"] or \
+            CalibrationProfile.from_json(prof.to_json()) != prof:
+        raise AssertionError(f"the written profile does not round-trip: "
+                             f"{prof.to_doc()} vs {report['profile']}")
+
+    # re-tune with the profile and run the tuned plan (as phase U)
+    cfg = get_arch("granite-3-8b").replace(num_layers=T_LAYERS)
+    gbs = T_MICRO * T_ACCUM
+    shape = ShapeConfig("t", T_SEQ, gbs, "train")
+    spec = TuneSpec(arch=cfg, seq_len=T_SEQ, global_batch=gbs, n_devices=1,
+                    space="mist", profile=prof)
+    t0 = time.perf_counter()
+    rep = MistTuner(spec).tune()
+    uncal = MistTuner(dataclasses.replace(spec, profile=None)).tune()
+    secs["tune_with_and_without"] = time.perf_counter() - t0
+    if rep.plan is None:
+        raise AssertionError("no feasible plan with the fitted profile")
+    plan = rep.plan.replace(attn_impl="pallas", use_pallas=True)
+    st = plan.stages[0]
+    if st.micro_batch * plan.grad_accum != gbs:
+        raise AssertionError("the tuned plan's global batch differs")
+    want = _train_launches(T_LAYERS, min(st.ckpt_layers, T_LAYERS),
+                           plan.grad_accum)
+    torch.cuda.reset_peak_memory_stats()
+    counts, first, last, step_ms = _launcher_run(plan, TUNED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if counts != {k: TUNED_STEPS * n for k, n in want.items()}:
+        raise AssertionError(f"calibrated plan launch counts {counts} != "
+                             f"{TUNED_STEPS} x {want}")
+    if not (math.isfinite(first) and math.isfinite(last)):
+        raise AssertionError(f"calibrated plan loss not finite: {first}, "
+                             f"{last}")
+    measured = statistics.median(step_ms[1:])
+    t_cal = CM.estimate_plan(cfg, shape, rep.plan, profile=prof)["t_step"]
+    t_uncal = CM.estimate_plan(cfg, shape, rep.plan)["t_step"]
+    mc = memory_consistency(cfg, shape, rep.plan)
+    if mc["predicted_bytes"] != mc["lowered_bytes"]:
+        raise AssertionError(f"predicted memory {mc['predicted_bytes']} != "
+                             f"lowered {mc['lowered_bytes']}")
+    log(f"# memory of the calibrated plan: predicted "
+        f"{mc['predicted_bytes'] / 2**30:.2f} GiB, lowered "
+        f"{mc['lowered_bytes'] / 2**30:.2f} GiB (bitwise equal), allocator "
+        f"peak {peak / 2**30:.2f} GiB")
+    secs["phase"] = time.perf_counter() - t_phase
+    log(json.dumps({"calibration": dict(
+        model="granite-3-8b", layers=T_LAYERS, seq=T_SEQ, smi=smi_line(),
+        seconds=secs, cells=cells, scales=report["scales"],
+        interference_refit=report["interference_refit"],
+        interference_samples=report["interference_samples"],
+        mean_err_uncalibrated=report["mean_err_uncalibrated"],
+        mean_err_fitted=report["mean_err_fitted"],
+        skipped_cells=report["skipped_cells"], profile=report["profile"],
+        tuned_plan=json.loads(rep.plan.to_json()),
+        uncalibrated_tuned_plan=json.loads(uncal.plan.to_json()),
+        launches=counts, measured_step_ms=measured,
+        measured_step_ms_all=step_ms,
+        predicted_calibrated_s=t_cal, predicted_uncalibrated_s=t_uncal,
+        calibrated_over_measured=t_cal * 1e3 / measured,
+        uncalibrated_over_measured=t_uncal * 1e3 / measured,
+        predicted_peak_bytes=mc["predicted_bytes"],
+        lowered_peak_bytes=mc["lowered_bytes"],
+        max_memory_allocated=peak, losses=[first, last])}))
 
 
 def _time_serve(arch, model, params, prompts, plan, peak):
@@ -1991,6 +2190,12 @@ def main() -> int:
 
     # tune then execute (the tuner for one H100, its plan on the card)
     phase_tune_then_execute()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # calibrate on the card, re-tune with the profile, execute
+    phase_calibrate()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

@@ -56,8 +56,9 @@ from repro_torch.lowering.state_layout import symbolic_state_terms
 @dataclass(frozen=True)
 class CostParams:
     # The reference's constants, unchanged: they were set for (and partly
-    # calibrated on) a TPU, and are not calibrated for Hopper yet
-    # (ROADMAP.md).  The golden fixtures pin plans made with them.
+    # calibrated on) a TPU.  A calibration profile fitted on the card
+    # (repro_torch.calibration) layers its values over them; the golden
+    # fixtures pin plans made with these.
     mxu_eff_peak: float = 0.75       # best-case MXU efficiency of big matmuls
     mxu_eff_floor: float = 0.08
     mxu_sat_tokens: float = 1024.0   # tokens/device at which eff saturates
@@ -252,9 +253,19 @@ class StageCostModel:
                  has_embed: bool = True, has_head: bool = True,
                  interference: Optional[InterferenceModel] = None,
                  sequence_parallel: bool = True,
-                 backend: str = "numpy", device: Optional[str] = None):
+                 backend: str = "numpy", device: Optional[str] = None,
+                 profile=None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
+        # ``profile`` is a calibration.CalibrationProfile: fitted per-platform
+        # constants layered over the caller's cp/interference (an explicit
+        # ``interference=`` argument wins over the profile's).  The default
+        # profile carries no overrides, so passing it changes nothing — the
+        # frozen-default guarantee the golden fixtures rely on.
+        if profile is not None:
+            cp = profile.cost_params(cp)
+            if interference is None:
+                interference = profile.interference_model()
         self.device = None
         if backend != "numpy":
             from repro_torch.models.common import resolve_device
@@ -266,6 +277,8 @@ class StageCostModel:
         self.sp = sequence_parallel
         self.backend = backend
         self.torch_auto_threshold = TORCH_AUTO_THRESHOLD
+        if profile is not None and profile.torch_auto_threshold is not None:
+            self.torch_auto_threshold = int(profile.torch_auto_threshold)
         self.last_backend = "numpy"     # backend of the most recent tape run
         self._build()
 
@@ -822,16 +835,18 @@ class StageCostModel:
 
 def estimate_plan(cfg: ArchConfig, shape: ShapeConfig, plan, *,
                   hw: HardwareSpec = H100, cp: CostParams = CostParams(),
-                  interference: Optional[InterferenceModel] = None
-                  ) -> Dict[str, float]:
+                  interference: Optional[InterferenceModel] = None,
+                  profile=None) -> Dict[str, float]:
     """Step-time / memory estimate of a concrete Plan (any S) using the same
-    stage model + paper Eq. 1 for the pipeline objective."""
+    stage model + paper Eq. 1 for the pipeline objective.  ``profile`` layers
+    fitted calibration constants over ``cp``/``interference`` (see
+    ``StageCostModel``)."""
     n_st = len(plan.stages)
     ts, ds, mems, terms = [], [], [], []
     for i, stg in enumerate(plan.stages):
         scm = StageCostModel(cfg, shape.seq_len, hw=hw, cp=cp,
                              has_embed=(i == 0), has_head=(i == n_st - 1),
-                             interference=interference,
+                             interference=interference, profile=profile,
                              sequence_parallel=plan.sequence_parallel)
         kc = plan.kernel
         cand = Candidate(b=stg.micro_batch, dp=stg.dp, tp=stg.tp,

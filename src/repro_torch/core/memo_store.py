@@ -16,11 +16,12 @@ structural — no pickle-bytes fragility — and any semantic input change
 moves the address:
 
 * ``unit_key`` covers the tuner fingerprint (arch config, workload
-  shape, hardware spec, CostParams **including kernel coeffs**,
-  max_tp/max_front) plus the tuner's ``_memo_key`` (layers, n_dev, G,
-  role, inflight, knob grids, kernel grid).  Changing the hardware, the
-  knob grid, or the kernel grid therefore *invalidates* — old entries
-  are simply never addressed again.
+  shape, hardware spec, post-profile CostParams **including kernel
+  coeffs**, the calibration profile document itself, max_tp/max_front)
+  plus the tuner's ``_memo_key`` (layers, n_dev, G, role, inflight, knob
+  grids, kernel grid).  Changing the hardware, a calibration profile,
+  the knob grid, or the kernel grid therefore *invalidates* — old
+  entries are simply never addressed again.
 * ``report_key`` covers the whole TuneSpec **minus** the
   execution-routing fields (engine, backend, device, workers, hosts,
   memo_dir): those do not change the selected plan (every engine,
@@ -90,8 +91,9 @@ def _scipy_version() -> Optional[str]:
 
 def tuner_fingerprint(tuner) -> Dict:
     """Everything besides the memo key that determines a unit's frontier.
-    (The reference also folds in its calibration profile, which the port
-    does not have yet: ``TuneSpec.profile`` must be None.)"""
+    ``tuner.cp`` is post-profile (MistTuner applies overrides in
+    __init__), and the profile document is folded in anyway so
+    interference/torch_auto_threshold overrides also move the address."""
     spec = tuner.spec
     return {
         "schema": MEMO_SCHEMA_VERSION,
@@ -103,6 +105,7 @@ def tuner_fingerprint(tuner) -> Dict:
         "imbalance_aware": spec.imbalance_aware,
         "hw": tuner.hw,
         "cp": tuner.cp,
+        "profile": spec.profile.to_doc() if spec.profile is not None else None,
     }
 
 
@@ -121,6 +124,8 @@ def report_key(tuner) -> str:
     spec = tuner.spec
     doc = {f.name: getattr(spec, f.name)
            for f in dataclasses.fields(spec) if f.name not in _EXEC_FIELDS}
+    doc["profile"] = (spec.profile.to_doc()
+                      if spec.profile is not None else None)
     return digest({"schema": MEMO_SCHEMA_VERSION, "spec": doc,
                    "hw": tuner.hw, "cp": tuner.cp,
                    "scipy": _scipy_version()})

@@ -26,17 +26,18 @@ plans (``tests/test_torch_tuner.py`` holds the golden fixtures and the
 test_system workload byte for byte), with the H100 as the default
 hardware and a torch tape backend in place of jax.  The stage model's
 Eq. 4 feasibility evaluates the reference's state-layout derivation
-(``repro_torch.lowering.state_layout``); the lowering's
-``memory_consistency`` check waits for its port (ROADMAP.md).  What waits
-raises with a pointer to ROADMAP.md: ``kernel_tune`` (the Hopper tile
-menu), ``hosts`` (the remote sweep) and ``profile`` (calibration).
+(``repro_torch.lowering.state_layout``), the derivation the lowering's
+``memory_consistency`` evaluates concretely.  ``profile`` takes a
+calibration profile (``repro_torch.calibration``).  What waits raises
+with a pointer to ROADMAP.md: ``kernel_tune`` (the Hopper tile menu) and
+``hosts`` (the remote sweep).
 """
 from __future__ import annotations
 
 import functools
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -49,6 +50,9 @@ from repro_torch.core.intra_stage import IntraStageResult, ParetoPoint, tune_sta
 from repro_torch.core.plan import DEFAULT_KERNEL_CONFIG, Plan, StageConfig
 from repro_torch.core.schedule import (DEFAULT_KERNEL_GRID, RATIO_GRID,
                                  grad_accum_choices)
+
+if TYPE_CHECKING:                                    # pragma: no cover
+    from repro_torch.calibration.profile import CalibrationProfile
 
 SPACES = ("none", "megatron", "ckpt", "zero", "offload", "mist", "uniform",
           "serve")
@@ -120,9 +124,11 @@ class TuneSpec:
     # fixtures stay stable.  Entries must divide seq_len; 0 may be
     # included to let the contiguous layout compete.
     page_grid: Optional[Tuple[int, ...]] = None
-    # Measured calibration profile (the reference's calibration/): not
-    # ported yet, so anything but None raises.
-    profile: Optional[Any] = None
+    # Measured calibration profile (repro_torch.calibration): fitted
+    # constants layered over the default cost model.  Hashable and
+    # picklable, so sweep workers rebuild MistTuner from the pickled spec
+    # — a profile travels with it and every worker prices identically.
+    profile: Optional["CalibrationProfile"] = None
 
 
 @dataclass
@@ -184,8 +190,9 @@ class MistTuner:
             raise ValueError(f"unknown backend {spec.backend!r}; "
                              f"have {BACKENDS}")
         if spec.profile is not None:
-            raise _not_ported("a calibration profile",
-                              "queue A: the calibration tooling")
+            # fitted constants layered over cp; workers rebuilding from the
+            # pickled spec apply the identical overrides (determinism)
+            cp = spec.profile.cost_params(cp)
         if spec.hosts:
             raise _not_ported("the multi-host sweep (hosts)",
                               "queue A: core/remote.py and service/")
@@ -219,10 +226,16 @@ class MistTuner:
     def scm(self, has_embed: bool, has_head: bool) -> StageCostModel:
         key = (has_embed, has_head)
         if key not in self._scm_cache:
+            # self.cp already carries the profile's CostParams overrides
+            # (applied in __init__, so sweep workers see them too); passing
+            # the profile again is idempotent — the overrides are absolute
+            # values — and also applies its interference table and
+            # torch_auto_threshold pin
             self._scm_cache[key] = StageCostModel(
                 self.spec.arch, self.spec.seq_len, hw=self.hw, cp=self.cp,
                 has_embed=has_embed, has_head=has_head,
-                backend=self.spec.backend, device=self.spec.device)
+                backend=self.spec.backend, device=self.spec.device,
+                profile=self.spec.profile)
         return self._scm_cache[key]
 
     def stage_counts(self) -> List[int]:

@@ -6,18 +6,18 @@
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--tune`` takes the
 plan from the ``serve`` search space for one H100 (``tuned_serve_plan``),
-as the reference does for its devices; the tuned plan's attention reads
-``naive``, and the launcher runs it with the flash-attention kernel, the
-attention the cost model prices (ROADMAP.md §C).  The reference's check
-that the predicted serve memory equals the lowered plan's report waits
-for ``lowering/memory.py`` (ROADMAP.md); ``--continuous`` waits for its
-slice.
+as the reference does for its devices, and prints the plan's predicted
+serve memory beside its lowered report at the decode shape, and raises
+unless they agree bitwise, as the reference asserts; the tuned plan's
+attention reads ``naive``, and the
+launcher runs it with the flash-attention kernel, the attention the cost
+model prices (ROADMAP.md §C).  ``--continuous`` waits for its slice.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -66,6 +66,22 @@ def tuned_serve_plan(cfg, *, batch: int, max_len: int):
     return report.plan, report
 
 
+def serve_memory(cfg, shape, plan) -> Tuple[float, float]:
+    """The serve plan's predicted memory (``estimate_serve_plan``) and its
+    lowered report at ``shape`` (decode), on the port's H100: two
+    evaluations of one layout derivation, so they must agree bitwise."""
+    from repro_torch.core.costmodel import estimate_serve_plan
+    from repro_torch.lowering import lower_plan, plan_mesh
+    rep = lower_plan(cfg, shape, plan, plan_mesh(plan)).memory_report()
+    return estimate_serve_plan(cfg, shape, plan)["mem_decode"], rep.peak_bytes
+
+
+def serve_memory_line(predicted: float, lowered: float) -> str:
+    return (f"# serve memory: predicted {predicted / 2**30:.2f} GiB "
+            f"lowered {lowered / 2**30:.2f} GiB "
+            f"(bitwise={predicted == lowered})")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -75,9 +91,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--tune", action="store_true",
                     help="pick the plan via the 'serve' search space "
-                         "(one H100; the reference's predicted-vs-lowered "
-                         "memory check waits for lowering/memory.py, "
-                         "ROADMAP.md)")
+                         "(one H100) and print its predicted vs lowered "
+                         "memory")
     ap.add_argument("--continuous", action="store_true",
                     help="(not ported yet) serve through the continuous-"
                          "batching engine")
@@ -101,14 +116,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cfg = cfg.reduced()
     model = build_model(cfg, device)
     if args.tune:
-        plan, report = tuned_serve_plan(
-            cfg, batch=args.batch, max_len=args.prompt_len + args.gen)
+        from repro_torch.configs.base import ShapeConfig
+        max_len = args.prompt_len + args.gen
+        plan, report = tuned_serve_plan(cfg, batch=args.batch,
+                                        max_len=max_len)
         st = plan.stages[0]
         print(f"# tuned serve plan: dp={st.dp} tp={st.tp} zero={st.zero} "
               f"kv={plan.kv_cache_dtype} page_size={plan.page_size} "
               f"(objective {report.objective:.4f}s, "
               f"{report.throughput_tokens:.1f} tok/s predicted)")
         print(plan.to_json())
+        predicted, lowered = serve_memory(
+            cfg, ShapeConfig("cli", max_len, args.batch, "decode"), plan)
+        print(serve_memory_line(predicted, lowered))
+        if predicted != lowered:
+            raise RuntimeError(
+                f"predicted serve memory {predicted} != lowered {lowered}: "
+                "the tuner's memory model and the lowering disagree")
         print(f"# the tuned plan reads attn_impl {plan.attn_impl!r}; the "
               "cost model prices flash attention, so serving runs the "
               "flash-attention kernel")

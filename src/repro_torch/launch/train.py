@@ -5,6 +5,9 @@
         [--layers L] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
         --tune --devices 16 [--space mist] [--memo-dir D] --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
+        --calibrate [--smoke | --layers L --seq S] [--steps N] \
+        [--calibration-out PATH|auto] [--device cpu]
 
 Runs ``build_model`` -> ``init_train_state`` -> ``make_train_step`` and
 takes ``--steps`` steps over ``SyntheticLM`` batches, on ``cuda`` unless
@@ -20,10 +23,21 @@ port's flash-attention kernel.
 ``--layers`` if given, at ``--seq`` and ``--global-batch``, prints the plan
 JSON and the predicted step time, and returns, as the reference does; with
 ``--smoke`` it then trains the reduced config's own smoke plan, as the
-reference does.  The reference also prints the tuned plan's predicted
-against its lowered memory (``lowering/memory.py``), whose port waits
-(ROADMAP.md); ``--calibrate`` and ``TrainLoop`` with its checkpoints wait
-too: the loop here is a plain step loop, and it prints each step's time.
+reference does.  After ``--tune`` and with ``--plan-json`` it prints the
+plan's predicted against its lowered per-device memory
+(``memory_consistency``; for ``--space serve`` the serve report, which
+must agree bitwise).
+
+``--calibrate`` measures the calibration cells (``calibration/measure.py``)
+on the device, fits a ``CalibrationProfile`` and prints the
+uncalibrated-vs-fitted error table: the reduced config at seq 128 with
+``--smoke``, as the reference does, else the config cut by ``--layers``
+at ``--seq``.  ``--calibration-out`` writes the profile (``auto``: the
+platform's default path).  It exits 0 iff every cell ran and the
+fitted error is no worse than the uncalibrated one; a failed cell (an
+OOM, a kernel build or launch error) fails the run and writes no
+profile.  ``TrainLoop`` with its checkpoints waits: the
+loop here is a plain step loop, and it prints each step's time.
 """
 from __future__ import annotations
 
@@ -35,6 +49,24 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.models.common import resolve_device
+
+
+def memory_line(cfg, shape, plan, serve: bool = False) -> str:
+    """The tuner -> runtime consistency line: what the cost model predicts
+    per device against what the lowered plan holds, on the port's H100.
+    Serving plans are priced by the serve cost model and must agree
+    bitwise at the decode shape."""
+    if serve:
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch.serve import serve_memory, serve_memory_line
+        return serve_memory_line(*serve_memory(cfg, ShapeConfig(
+            shape.name, shape.seq_len, shape.global_batch, "decode"), plan))
+    from repro_torch.lowering import memory_consistency
+    mc = memory_consistency(cfg, shape, plan)
+    return (f"# memory: predicted {mc['predicted_bytes'] / 2**30:.2f} GiB "
+            f"lowered {mc['lowered_bytes'] / 2**30:.2f} GiB "
+            f"(rel err {mc['rel_error']:.3f}, "
+            f"within_tol={mc['within_tol']})")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -55,21 +87,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--space", default="mist",
                     help="with --tune: the search space")
     ap.add_argument("--tune", action="store_true",
-                    help="run the Mist tuner and print the plan (the "
-                         "reference's predicted-vs-lowered memory line "
-                         "waits for lowering/memory.py, ROADMAP.md)")
+                    help="run the Mist tuner and print the plan")
     ap.add_argument("--memo-dir", default=None,
                     help="persistent tuning memo store "
                          "(core/memo_store.py): warm queries answer in "
                          "milliseconds")
     ap.add_argument("--calibrate", action="store_true",
-                    help="(not ported yet) fit a calibration profile")
+                    help="measure this arch's calibration cells on the "
+                         "device and fit a CalibrationProfile (the reduced "
+                         "config at seq 128 with --smoke)")
+    ap.add_argument("--calibration-out", default=None, metavar="PATH|auto",
+                    help="with --calibrate: write the fitted profile (auto "
+                         "= the platform's default path)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-
-    if args.calibrate:
-        raise SystemExit("--calibrate is not ported yet: calibration is a "
-                         "later slice (ROADMAP.md, queue A)")
 
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.core.plan import Plan, single_stage_plan
@@ -80,12 +111,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     gbs = args.global_batch or 8
+    if args.calibrate:
+        from repro_torch.calibration.driver import (format_table,
+                                                    run_calibration)
+        report = run_calibration(
+            archs=(args.arch,), steps=min(args.steps, 6),
+            seq_len=128 if args.smoke else (args.seq or 4096),
+            reduced=args.smoke, layers=args.layers, device=device,
+            write_profile=args.calibration_out)
+        print(format_table(report))
+        if report.get("error"):
+            return 1
+        return 0 if (report["mean_err_fitted"]
+                     <= report["mean_err_uncalibrated"] + 1e-12) else 1
     if args.tune and not args.plan_json:
         from repro_torch.core.tuner import tune
         tcfg = cfg if args.layers is None else \
             cfg.replace(num_layers=args.layers)
-        rep = tune(tcfg, ShapeConfig("cli", args.seq or 4096, gbs, "train"),
-                   args.devices, space=args.space, memo_dir=args.memo_dir)
+        shape = ShapeConfig("cli", args.seq or 4096, gbs, "train")
+        rep = tune(tcfg, shape, args.devices, space=args.space,
+                   memo_dir=args.memo_dir)
         if rep.plan is None:
             print("INFEASIBLE for this device count / batch")
             return 1
@@ -94,6 +139,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"({rep.throughput_samples:.2f} samples/s)"
               + (" [memo-store hit]" if rep.from_memo else ""))
         print(rep.plan.to_json())
+        print(memory_line(tcfg, shape, rep.plan,
+                          serve=args.space == "serve"))
         if not args.smoke:
             return 0
     if args.smoke:
@@ -104,6 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     model = build_model(cfg, device)
     if args.plan_json:
         plan = Plan.from_json(pathlib.Path(args.plan_json).read_text())
+        print(memory_line(cfg, ShapeConfig("cli", seq, gbs, "train"), plan))
     else:
         plan = single_stage_plan(cfg.num_layers, dp=1, tp=1,
                                  micro_batch=gbs // 2 or 1, grad_accum=2,

@@ -1,5 +1,13 @@
-from repro_torch.lowering.lower import (check_plan_mesh, serve_exec_cfg,
-                                       stage_exec_config, train_exec_cfg)
+from repro_torch.lowering.lower import (LoweredPlan, LoweredStage,
+                                       check_plan_mesh,
+                                       check_single_device_plan, lower_plan,
+                                       plan_mesh, plan_mesh_axes,
+                                       serve_exec_cfg, stage_exec_config,
+                                       train_exec_cfg)
+from repro_torch.lowering.memory import (MEMORY_REL_TOL, MemoryReport,
+                                        StageMemory, memory_consistency)
 
-__all__ = ["check_plan_mesh", "serve_exec_cfg", "stage_exec_config",
-           "train_exec_cfg"]
+__all__ = ["LoweredPlan", "LoweredStage", "MEMORY_REL_TOL", "MemoryReport",
+           "StageMemory", "check_plan_mesh", "check_single_device_plan",
+           "lower_plan", "memory_consistency", "plan_mesh", "plan_mesh_axes",
+           "serve_exec_cfg", "stage_exec_config", "train_exec_cfg"]

@@ -16,7 +16,7 @@ from repro_torch.configs.base import get_arch
 from repro_torch.core.plan import single_stage_plan
 from repro_torch.kernels import _build
 from repro_torch.launch import serve, train
-from repro_torch.lowering import check_plan_mesh
+from repro_torch.lowering import check_single_device_plan
 from repro_torch.models.zoo import Model, build_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -136,10 +136,10 @@ def test_only_dense_single_device_plans(no_cuda):
         build_model(cfg.replace(family="audio"), "cpu")
     for dp, tp in ((2, 1), (1, 2)):
         with pytest.raises(ValueError, match="dp = tp = 1"):
-            check_plan_mesh(single_stage_plan(4, dp=dp, tp=tp, micro_batch=1,
-                                              grad_accum=1))
-    check_plan_mesh(single_stage_plan(4, dp=1, tp=1, micro_batch=1,
-                                      grad_accum=1))
+            check_single_device_plan(single_stage_plan(
+                4, dp=dp, tp=tp, micro_batch=1, grad_accum=1))
+    check_single_device_plan(single_stage_plan(4, dp=1, tp=1, micro_batch=1,
+                                               grad_accum=1))
     assert isinstance(build_model(cfg, "cpu"), Model)
 
 

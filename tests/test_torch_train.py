@@ -557,10 +557,3 @@ def test_train_launcher_cuts_depth_and_reads_a_plan(tmp_path, capsys,
                               "--device", "cpu"]) == 0
     assert seen["layers"] == 2 and seen["plan"] == plan
     assert "trained 1 steps" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("flag", [["--calibrate"]])
-def test_train_launcher_unported_modes_exit(flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        train_launch.main(["--arch", "granite-3-8b", "--smoke", "--device",
-                           "cpu", *flag])

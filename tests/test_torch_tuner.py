@@ -411,8 +411,7 @@ def test_granite_on_one_h100(layers, feasible):
 def test_unported_tuner_options_raise():
     cfg = get_arch("granite-3-8b").replace(num_layers=2)
     base = TuneSpec(arch=cfg, seq_len=128, global_batch=2, n_devices=1)
-    for kw in (dict(kernel_tune=True), dict(hosts=("localhost:1",)),
-               dict(profile=object())):
+    for kw in (dict(kernel_tune=True), dict(hosts=("localhost:1",))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MistTuner(dataclasses.replace(base, **kw))
 
@@ -460,8 +459,6 @@ def test_serve_launcher_tunes_one_device(capsys):
 
 
 @pytest.mark.parametrize("main,argv", [
-    (train_launch.main, ["--arch", "granite-3-8b", "--smoke", "--device",
-                         "cpu", "--calibrate"]),
     (serve_launch.main, ["--arch", "granite-3-8b", "--smoke", "--device",
                          "cpu", "--continuous"])])
 def test_launcher_modes_still_waiting_exit(main, argv):
