@@ -90,6 +90,24 @@ C. Calibration: ``launch.train.main --calibrate`` for granite-3-8b at the
    loss), its measured step beside ``estimate_plan`` with and without
    the profile, its predicted memory equal to its lowered report's (and
    the allocator's peak beside both).
+D. Multi-device plans.  D1: phase U's tuned plan through the launcher on
+   one device and with ``--nproc 1`` (a spawned rank of a world of one,
+   NCCL, every collective running on groups of one): the three losses and
+   every param after three steps bit for bit, exact launch counts per
+   step.  D2: granite-3-8b at full depth and width tuned by the launcher
+   for four H100s (``--tune --devices 4``, seq 4096, global batch 8) and
+   trained as rank 0 of 4 in a child process under torch's ``fake``
+   process group (its collectives move nothing, so the loss is not
+   checked): exact launch counts per step, this rank's allocator peak
+   beside the plan's predicted bytes per device, and the step time of one
+   rank's compute without communication.  With two or more cards visible,
+   the reduced config at dp 2 ZeRO 3 and at tp 2 with sequence
+   parallelism through NCCL, its losses within 1e-2 of one card's, and
+   with four or more D2's plan on four cards through NCCL (launch counts,
+   finite losses, the step time with communication); with one, it prints
+   ``multi_card: not run (1 visible)``.  Phase 2 holds the
+   flash kernels at the tp-4 rank's shape (B 4, S 4096, H 8, KV 2, hd 128)
+   against their plain versions, and phase 4's timings add that shape.
 5. Phases 3 and 4 for full-width zamba2-2.7b (all 54 Mamba2 layers in 9
    groups, one shared attention block, bf16): logits kernels vs plain
    (both held against the plain versions in f32, see ACCURACY_ROOM),
@@ -110,6 +128,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -205,10 +224,8 @@ T_LR = 1e-6
 # kernels vs plain versions from the same state and batch, one step: bf16
 # runs that round differently inside attention and the norms.  Readings
 # (this script, H100 80GB HBM3, 700 W): the step's loss 1.3e-5 and grad norm
-# 1.2e-4 relative, micro-batch 0's loss 2.5e-5; the loss is deterministic
-# and the grad norm differs run to run only by the embedding gather's
-# atomics.  Allowed: 4-8x the readings.  Every gradient is also held leaf
-# by leaf (_grads_close).
+# 1.2e-4 relative, micro-batch 0's loss 2.5e-5.  Allowed: 4-8x the
+# readings.  Every gradient is also held leaf by leaf (_grads_close).
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-4, 1e-3
 # the reduced config, card kernels vs CPU plain: the CPU parity tests' bf16
 # loss tolerance (tests/test_torch_train.py)
@@ -226,6 +243,13 @@ TUNED_STEPS = 3
 # layers, seq 4096), each run for C_WARMUP discarded and C_STEPS timed
 # steps (measure_cells' default warm-up)
 C_STEPS, C_WARMUP = 4, 2
+# phase D: multi-device plans.  Steps per launcher run; the tp-4 plan's
+# rank (granite-3-8b at full depth tuned for four H100s, seq 4096, global
+# batch 8): its flash attention sees micro-batch 4, 32 / 4 query heads and
+# 8 / 4 kv heads
+D_STEPS = 3
+D2_DEVICES, D2_GBS = 4, 8
+R_BATCH, R_HEADS, R_KV = 4, N_HEADS // D2_DEVICES, N_KV // D2_DEVICES
 
 
 def log(msg: str) -> None:
@@ -439,6 +463,8 @@ def phase_kernels_vs_plain():
         # non-causal with Sk not a multiple of the K/V tile
         (2, 256, 333, Z_HEADS, Z_HEADS, Z_HEAD_DIM, False),
         (2, 129, 200, 8, 2, 32, False),
+        # a rank of the tp-4 plan (phase D)
+        (R_BATCH, T_SEQ, T_SEQ, R_HEADS, R_KV, HEAD_DIM, True),
     ]
     for i, (b, sq, sk, h, kv, hd, causal) in enumerate(cases):
         q, k, v = _qkv(b, sq, sk, h, kv, hd, seed=10 + i)
@@ -456,6 +482,8 @@ def phase_kernels_vs_plain():
                                  f"plain version (case {i})")
         if i < 2:
             errs[f"flash_attention_fwd@hd{hd}"] = err_o
+        if i == len(cases) - 1:
+            errs["flash_attention_fwd@tp4"] = err_o
 
     rn_cases = [  # (rows, d, x dtype, scale dtype, aligned)
         (BATCH * PROMPT_LEN, D_MODEL, None, None, True),
@@ -595,6 +623,7 @@ def _backward_kernels_vs_plain():
         # non-causal with a ragged last key tile
         (2, 129, 200, 8, 2, 32, False),
         (2, 256, 333, 8, 8, 80, False),
+        (R_BATCH, T_SEQ, T_SEQ, R_HEADS, R_KV, HEAD_DIM, True),  # tp-4 rank
     ]
     def check(what, got, want):
         res = [flash_bwd_close(g, w) for g, w in zip(got, want)]
@@ -629,6 +658,8 @@ def _backward_kernels_vs_plain():
         want = plain(q, k, v, o, lse, dout, causal)
         res = check(f"B{b} Sq{sq} Sk{sk} H{h} KV{kv} hd{hd} causal={causal}",
                     got, want)
+        if i == len(cases) - 1:
+            errs["flash_attention_bwd@tp4"] = max(r[1] for r in res)
         if i == 0:
             train = (q, k, v, o, lse, dout), want
             errs["flash_attention_bwd"] = max(r[1] for r in res)
@@ -1173,13 +1204,16 @@ def rmsnorm_bwd_bound(rows, d, esize):
         "operations" if t_ops > t_bytes else "bytes", how
 
 
-def _time_flash_bwd(launches, err):
-    """The flash backward entry at granite's training shape, with the
-    backward of ``scaled_dot_product_attention`` (causal, GQA) through
+def _time_flash_bwd(launches, err, shape=(T_MICRO, T_SEQ, N_HEADS, N_KV,
+                                          HEAD_DIM),
+                    model="granite-3-8b (training)"):
+    """The flash backward entry at one training shape (granite's one-card
+    shape by default), with the backward of
+    ``scaled_dot_product_attention`` (causal, GQA) through
     ``torch.autograd.grad`` as the library yardstick."""
     from repro_torch.kernels import flash_attention as FA
 
-    b, s, h, kv, hd = T_MICRO, T_SEQ, N_HEADS, N_KV, HEAD_DIM
+    b, s, h, kv, hd = shape
     q, k, v = _qkv(b, s, s, h, kv, hd, seed=97)
     dout = _qkv(b, s, 1, h, 1, hd, seed=96)[0]
     o, lse = FA.flash_attention(q, k, v, causal=True)
@@ -1203,7 +1237,8 @@ def _time_flash_bwd(launches, err):
     log("# flash bwd, device us per call by kernel (torch.profiler): "
         + ", ".join(f"{name} {us:.1f}" for name, us in parts.items()))
     bound, by, how = flash_bwd_bound(b, s, s, h, kv, hd, True)
-    log(f"# flash bwd: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 "
+    log(f"# flash bwd B{b} H{h} KV{kv}: kernel {ms:.4f} ms (device "
+        f"{dev:.4f}, cold L2 "
         f"{cold:.4f}), plain {plain:.4f} ms, SDPA backward {lib_ms:.4f} ms "
         f"(device {lib_dev:.4f}, cold {lib_cold:.4f}); kernel / SDPA "
         f"{ms / lib_ms:.3f} (device {dev / lib_dev:.3f}, cold "
@@ -1216,7 +1251,7 @@ def _time_flash_bwd(launches, err):
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=lib_ms, device_ms=dev,
         library_device_ms=lib_dev, cold_ms=cold, library_cold_ms=lib_cold,
-        parts_us=parts, model="granite-3-8b (training)",
+        parts_us=parts, model=model,
         shape=f"B{b} S{s} H{h} KV{kv} hd{hd} causal bf16")
 
 
@@ -1743,7 +1778,7 @@ def phase_tune_then_execute():
     from repro_torch.core import costmodel as CM
     from repro_torch.core.hardware import H100
     from repro_torch.core.tuner import MistTuner, TuneSpec
-    from repro_torch.lowering import check_single_device_plan
+    from repro_torch.lowering import check_train_plan
 
     t_phase = time.perf_counter()
     total = torch.cuda.get_device_properties(0).total_memory
@@ -1798,7 +1833,7 @@ def phase_tune_then_execute():
 
     # execute the tuned knobs with the attention the cost model priced
     plan = rep.plan.replace(attn_impl="pallas", use_pallas=True)
-    check_single_device_plan(plan)
+    check_train_plan(plan)
     st = plan.stages[0]
     log(f"# the tuned plan reads attn_impl {rep.plan.attn_impl!r}: the "
         f"tuner switches it only for non-default kernel tiles, while its "
@@ -1835,6 +1870,7 @@ def phase_tune_then_execute():
         predicted_over_measured_step=rep.objective * 1e3 / measured,
         predicted_over_measured_peak=est["mem_peak_max"] / peak,
         losses=[first, last], serve_plan=plan_s)}))
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -2017,6 +2053,251 @@ def phase_calibrate():
         max_memory_allocated=peak, losses=[first, last])}))
 
 
+# ---------------------------------------------------------------------------
+# phase D: multi-device plans
+# ---------------------------------------------------------------------------
+
+
+def _launcher_lines(text):
+    """The launcher's step times, losses (in full), launch counts and the
+    peak-memory line's two numbers (allocator, predicted)."""
+    ms = re.search(r"# step ms: (.*)", text)
+    losses = re.search(r"# losses: (.*)", text)
+    counts = re.search(r"# launches: (.*)", text)
+    peak = re.search(r"max_memory_allocated (\d+) B .*predicted (\d+) B",
+                     text)
+    if not (ms and losses and counts and peak):
+        raise AssertionError("the launcher's output lacks its lines")
+    return ([float(x) for x in ms.group(1).split()],
+            [float(x) for x in losses.group(1).split()],
+            json.loads(counts.group(1)), int(peak.group(1)),
+            int(peak.group(2)))
+
+
+def _launcher_process(args, timeout=600, code=None):
+    """The launcher in a process of its own: ``python -m
+    repro_torch.launch.train args`` (or ``python -c code src args``).
+    Returns its output; it must exit 0."""
+    cmd = [sys.executable] + (["-c", code, str(ROOT / "src")] if code
+                              else ["-m", "repro_torch.launch.train"])
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run(cmd + list(args), capture_output=True, text=True,
+                       timeout=timeout, env=env, cwd=ROOT)
+    log(f"# launcher process {' '.join(args)}: exit {r.returncode}\n"
+        + r.stdout.strip())
+    if r.returncode != 0:
+        raise AssertionError(f"the launcher process failed:\n"
+                             f"{r.stderr[-3000:]}")
+    return r.stdout
+
+
+def _per_step(counts, want_one_step, steps, what):
+    want = {k: steps * want_one_step[k] for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts} != {want}")
+    return {k: v // steps for k, v in counts.items()}
+
+
+def _d1_world_size_one(plan):
+    """The tuned one-card plan through the launcher twice: on one device,
+    and with ``--nproc 1`` (a spawned rank of a world of one, NCCL, every
+    collective on groups of one).  Losses and every param after D_STEPS
+    steps bit for bit; exact launch counts per step."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.launch import train as launch_train
+
+    t0 = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    plan_json = build / "d1_plan.json"
+    plan_json.write_text(plan.to_json())
+    argv = ["--arch", "granite-3-8b", "--layers", str(T_LAYERS),
+            "--plan-json", str(plan_json), "--steps", str(D_STEPS),
+            "--seq", str(T_SEQ), "--global-batch",
+            str(plan.global_batch())]
+    one, ws1 = build / "d1_one.npz", build / "d1_nproc1.npz"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(argv + ["--save-params", str(one)])
+    log(f"# train {' '.join(argv)} (one device): exit {rc}\n"
+        + out.getvalue().strip())
+    if rc:
+        raise AssertionError("the one-device launcher failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = {"one_device": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    text = _launcher_process(argv + ["--nproc", "1", "--save-params",
+                                     str(ws1)])
+    secs["nproc_1_process"] = time.perf_counter() - t0
+    st = plan.stages[0]
+    rule = _train_launches(T_LAYERS, min(st.ckpt_layers, T_LAYERS),
+                           plan.grad_accum)
+    res = {}
+    for name, t in (("one_device", out.getvalue()), ("nproc_1", text)):
+        ms, losses, counts, peak, pred = _launcher_lines(t)
+        res[name] = dict(step_ms=ms, losses=losses, max_memory_allocated=peak,
+                         predicted_peak_bytes=pred,
+                         launches_per_step=_per_step(counts, rule, D_STEPS,
+                                                     name))
+    with np.load(one) as a, np.load(ws1) as b:
+        names = sorted(a.files)
+        if sorted(b.files) != names:
+            raise AssertionError("the two runs saved other params")
+        differ = [n for n in names if not np.array_equal(a[n], b[n])]
+    log(json.dumps({"d1_world_size_one": dict(
+        plan=json.loads(plan.to_json()), steps=D_STEPS, seconds=secs,
+        leaves_compared=len(names), differ=differ, **res)}))
+    if differ:
+        raise AssertionError(f"world size 1 through NCCL differs from one "
+                             f"device in {differ}")
+
+
+# rank 0 of a multi-device plan on this one card: the process joins a
+# "fake" process group of the plan's world size, whose collectives return
+# at once and move nothing
+_FAKE_RANK0 = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+torch.cuda.set_device(0)
+dist.init_process_group("fake", store=FakeStore(), rank=0,
+                        world_size=int(sys.argv[2]))
+from repro_torch.launch import train
+rc = train.main(sys.argv[3:])
+dist.destroy_process_group()
+raise SystemExit(rc)
+"""
+
+
+def _d2_rank0_of_four():
+    """granite-3-8b at full depth and width, tuned for four H100s by the
+    launcher (``--tune --devices 4``), run as rank 0 of 4 under the fake
+    backend: exact launch counts per step, this rank's allocator peak
+    beside the plan's predicted bytes per device, and the step time of one
+    rank's compute with no communication.  The collectives move nothing,
+    so the loss is not checked."""
+    args = [str(D2_DEVICES), "--arch", "granite-3-8b", "--tune",
+            "--devices", str(D2_DEVICES), "--steps", str(D_STEPS), "--seq",
+            str(T_SEQ), "--global-batch", str(D2_GBS)]
+    t0 = time.perf_counter()
+    text = _launcher_process(args, code=_FAKE_RANK0, timeout=900)
+    secs = time.perf_counter() - t0
+    plan = _tuned_plan(text)
+    st = plan.stages[0]
+    if st.dp * st.tp != D2_DEVICES:
+        raise AssertionError(f"the tuned plan is not for {D2_DEVICES} ranks")
+    ms, _, counts, peak, pred = _launcher_lines(text)
+    rule = _train_launches(N_LAYERS, min(st.ckpt_layers, N_LAYERS),
+                           plan.grad_accum)
+    per_step = _per_step(counts, rule, D_STEPS, "rank 0 of the tp plan")
+    rank_shape = (st.micro_batch, T_SEQ, N_HEADS // st.tp,
+                  N_KV // st.tp if N_KV % st.tp == 0 else None)
+    log(json.dumps({"d2_rank0_of_4": dict(
+        model="granite-3-8b", layers=N_LAYERS, seq=T_SEQ,
+        global_batch=D2_GBS, plan=json.loads(plan.to_json()),
+        rank_flash_shape_B_S_H_KV=rank_shape,
+        launches_per_step=per_step, max_memory_allocated=peak,
+        predicted_peak_bytes_per_device=pred,
+        allocator_over_predicted=peak / pred,
+        step_ms_compute_of_one_rank_no_communication=ms,
+        median_step_ms_after_first=statistics.median(ms[1:]),
+        process_seconds=secs, smi=smi_line())}))
+    # the kernel rows of phases 2 and 4 pair these counts with this shape
+    if rank_shape != (R_BATCH, T_SEQ, R_HEADS, R_KV):
+        raise AssertionError(f"the tuned plan's rank runs flash attention at "
+                             f"B, S, H, KV = {rank_shape}; phases 2 and 4 "
+                             f"time {(R_BATCH, T_SEQ, R_HEADS, R_KV)}")
+    return per_step
+
+
+def _multi_card():
+    """With two or more cards visible: the reduced config at dp 2 ZeRO 3
+    and at tp 2 with sequence parallelism through NCCL (``--nproc 2``),
+    its losses held to the same plan at dp = tp = 1 on one card.  With
+    four or more, also D2's tuned plan on four cards (``--tune --devices 4
+    --nproc 4``): exact launch counts, finite losses, and the step time
+    with its communication beside the tuner's prediction."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"multi_card: not run ({n} visible)")
+        return
+    from repro_torch.core.plan import single_stage_plan
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    base = ["--arch", "granite-3-8b", "--smoke", "--steps", str(D_STEPS)]
+    for name, dp, tp, zero in (("dp2_z3", 2, 1, 3), ("tp2_sp", 1, 2, 1)):
+        runs = {}
+        for world in (2, 1):
+            plan = single_stage_plan(
+                4, dp=dp if world == 2 else 1, tp=tp if world == 2 else 1,
+                micro_batch=8 // (2 * (dp if world == 2 else 1)),
+                grad_accum=2, zero=zero, ckpt_layers=2, attn_impl="pallas",
+                use_pallas=True, sequence_parallel=True)
+            path = build / f"multi_{name}_{world}.json"
+            path.write_text(plan.to_json())
+            args = base + ["--plan-json", str(path)]
+            if world == 2:
+                args += ["--nproc", "2"]
+            runs[world] = _launcher_lines(_launcher_process(args))[1]
+        ok = all(abs(a - b) <= REDUCED_LOSS_RTOL * abs(b)
+                 for a, b in zip(runs[2], runs[1]))
+        log(json.dumps({"multi_card": dict(case=name, losses_2_cards=runs[2],
+                                           losses_1_card=runs[1], ok=ok)}))
+        if not ok:
+            raise AssertionError(f"multi_card {name}: losses off one card's")
+    if n < D2_DEVICES:
+        log(f"multi_card: D2 on {D2_DEVICES} cards not run ({n} visible)")
+        return
+    t0 = time.perf_counter()
+    text = _launcher_process(
+        ["--arch", "granite-3-8b", "--tune", "--devices", str(D2_DEVICES),
+         "--nproc", str(D2_DEVICES), "--steps", str(D_STEPS + 2), "--seq",
+         str(T_SEQ), "--global-batch", str(D2_GBS)], timeout=900)
+    plan = _tuned_plan(text)
+    st = plan.stages[0]
+    ms, losses, counts, peak, pred = _launcher_lines(text)
+    rule = _train_launches(N_LAYERS, min(st.ckpt_layers, N_LAYERS),
+                           plan.grad_accum)
+    per_step = _per_step(counts, rule, D_STEPS + 2, "D2 on four cards")
+    predicted = float(re.search(r"predicted step (\S+)s", text).group(1))
+    log(json.dumps({"d2_on_4_cards": dict(
+        model="granite-3-8b", layers=N_LAYERS, seq=T_SEQ,
+        global_batch=D2_GBS, plan=json.loads(plan.to_json()),
+        launches_per_step_rank_0=per_step, step_ms=ms,
+        median_step_ms_after_first=statistics.median(ms[1:]),
+        predicted_step_s=predicted, losses=losses,
+        max_memory_allocated_rank_0=peak,
+        predicted_peak_bytes_per_device=pred,
+        process_seconds=time.perf_counter() - t0, smi=smi_line())}))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"D2 on four cards: losses {losses}")
+
+
+def _tuned_plan(text):
+    """The plan the launcher printed after ``--tune``."""
+    from repro_torch.core.plan import Plan
+    return Plan.from_json(text[text.index("{"):text.index("# memory")])
+
+
+def phase_multi_device(plan):
+    """D1, D2 and the multi-card cases; returns D2's launches per step."""
+    t0 = time.perf_counter()
+    _d1_world_size_one(plan)
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_step = _d2_rank0_of_four()
+    _multi_card()
+    log(f"# phase D: {time.perf_counter() - t0:.1f} s")
+    return per_step
+
+
 def _time_serve(arch, model, params, prompts, plan, peak):
     """The serve loop: prefill, decode per step, whole generate()."""
     from repro_torch.launch.serve import generate
@@ -2189,13 +2470,29 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
 
     # tune then execute (the tuner for one H100, its plan on the card)
-    phase_tune_then_execute()
+    tuned = phase_tune_then_execute()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     # calibrate on the card, re-tune with the profile, execute
     phase_calibrate()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # multi-device plans: world size 1 through NCCL, rank 0 of the tuned
+    # tp-4 plan, and more than one card where there is
+    rank_launches = phase_multi_device(tuned)
+    kernels += [
+        _time_flash("granite-3-8b (tp-4 rank, training)", R_BATCH, T_SEQ,
+                    R_HEADS, R_KV, HEAD_DIM,
+                    rank_launches["flash_attention_fwd"],
+                    errs["flash_attention_fwd@tp4"]),
+        _time_flash_bwd(rank_launches["flash_attention_bwd"],
+                        errs["flash_attention_bwd@tp4"],
+                        (R_BATCH, T_SEQ, R_HEADS, R_KV, HEAD_DIM),
+                        "granite-3-8b (tp-4 rank, training)")]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

@@ -7,7 +7,10 @@ the hybrid's ``(groups, per, ...)``) and its cache trees (the dense
 name with identical shapes.  numpy has no bf16, so bf16 crosses as
 f32 (exact) and is rounded back here (exact again).  A train state
 ``{"step", "params", "master", "mu", "nu"}`` crosses leaf by leaf, split
-leaves ``{"host", "dev"}`` included.
+leaves ``{"host", "dev"}`` included.  A rank's shards of a multi-device
+train state cross whole: ``gather_train_state`` assembles the full state
+on rank 0, ``shard_train_state`` cuts a rank's part of a full one (both by
+``LoweredPlan.state_specs``).
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 Device = Union[str, torch.device]
 
@@ -117,3 +121,62 @@ def train_state_to_numpy(state: Mapping) -> Dict:
         **{e: {n: leaf(v) for n, v in state[e].items()}
            for e in ("master", "mu", "nu")},
     }
+
+
+def _state_specs(cfg, plan, mesh):
+    from repro_torch.lowering import lower_plan
+    return lower_plan(cfg, None, plan, mesh).state_specs()
+
+
+def gather_train_state(state: Mapping, cfg, plan, mesh) -> Optional[Dict]:
+    """One rank's shards of a train state (``training.step.
+    init_sharded_state``) -> the full state as numpy on rank 0 (None on the
+    other ranks), in ``train_state_to_numpy``'s form.  Every rank must
+    call it: each shard is all-gathered over the mesh axes its spec
+    names."""
+    from repro_torch.models.common import all_gather_dim
+    dev = state["step"].device
+    if dev.type == "cuda":
+        # adam_update writes the host parts back with non-blocking copies
+        torch.cuda.synchronize(dev)
+    specs = _state_specs(cfg, plan, mesh)
+    rank0 = dist.get_rank() == 0
+
+    def whole(t, spec):
+        t = t.to(dev)
+        for d, ax in enumerate(spec):
+            if ax is not None:
+                t = all_gather_dim(t, d, mesh.get_group(ax))
+        return _to_numpy(t) if rank0 else None
+
+    def leaf(v, spec):
+        if isinstance(v, Mapping):
+            return {k: whole(x, spec[k]) for k, x in v.items()}
+        return whole(v, spec)
+
+    out = {"step": np.asarray(_to_numpy(state["step"]), np.int32)}
+    for e in ("params", "master", "mu", "nu"):
+        out[e] = {n: leaf(v, specs[e][n]) for n, v in state[e].items()}
+    return out if rank0 else None
+
+
+def shard_train_state(full: Mapping, cfg, plan, mesh, *,
+                      param_dtype: torch.dtype = torch.bfloat16,
+                      device: Device = "cpu") -> Dict:
+    """A full train state as numpy (``train_state_to_numpy``'s form) ->
+    this rank's part of it, on ``device``."""
+    from repro_torch.launch.mesh import mesh_coords
+    from repro_torch.lowering import shard_tensor
+    from repro_torch.parallel.sharding import mesh_shape
+    specs = _state_specs(cfg, plan, mesh)
+    sizes, coords = mesh_shape(mesh), mesh_coords(mesh)
+
+    def cut(v, spec):
+        if isinstance(v, Mapping):
+            return {k: cut(x, spec[k]) for k, x in v.items()}
+        return shard_tensor(np.asarray(v), spec, sizes, coords)
+
+    part = {e: {n: cut(v, specs[e][n]) for n, v in full[e].items()}
+            for e in ("params", "master", "mu", "nu")}
+    return train_state_from_numpy({"step": full["step"], **part},
+                                  param_dtype=param_dtype, device=device)

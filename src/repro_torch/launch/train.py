@@ -8,6 +8,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
         --calibrate [--smoke | --layers L --seq S] [--steps N] \
         [--calibration-out PATH|auto] [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
+        --nproc N (--plan-json P | --tune --devices N) [...] [--device cpu]
+    PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train \
+        --arch granite-3-8b (--plan-json P | --tune --devices N) [...]
 
 Runs ``build_model`` -> ``init_train_state`` -> ``make_train_step`` and
 takes ``--steps`` steps over ``SyntheticLM`` batches, on ``cuda`` unless
@@ -37,16 +41,38 @@ platform's default path).  It exits 0 iff every cell ran and the
 fitted error is no worse than the uncalibrated one; a failed cell (an
 OOM, a kernel build or launch error) fails the run and writes no
 profile.  ``TrainLoop`` with its checkpoints waits: the
-loop here is a plain step loop, and it prints each step's time.
+loop here is a plain step loop, and it prints each step's time, the
+losses in full, the kernels' launch counts and, on a card, the
+allocator's peak beside the plan's predicted bytes per device
+(``--save-params`` writes the losses and the final params, whole, to an
+``.npz``).
+
+Multi-device plans (a single stage with dp · tp > 1) run one process per
+device: ``--nproc N`` spawns N ranks, or ``torchrun`` starts them; either
+way each rank joins the process group from ``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK`` (``launch/mesh.py``: NCCL on cards, gloo with ``--device
+cpu``), and a process that has already joined one keeps it.  Each rank
+builds its part of the state (``init_sharded_state``) and takes its rows
+of the same global batch; rank 0 prints.  The world size must equal the
+plan's dp · tp.  ``--tune`` then tunes on rank 0, which sends the plan
+to every rank, and trains it with the flash-attention kernel the cost
+model priced in place of the ``naive`` attention tuned plans name
+(ROADMAP.md, section C).
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import pathlib
+import socket
+import sys
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.common import resolve_device
 
@@ -67,6 +93,44 @@ def memory_line(cfg, shape, plan, serve: bool = False) -> str:
             f"lowered {mc['lowered_bytes'] / 2**30:.2f} GiB "
             f"(rel err {mc['rel_error']:.3f}, "
             f"within_tol={mc['within_tol']})")
+
+
+def _free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _rank_main(rank: int, nproc: int, port: int, argv: Sequence[str]):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(nproc),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, torch.get_num_threads() // nproc))
+    rc = main(argv)
+    if rc:
+        raise SystemExit(rc)
+
+
+def spawn(nproc: int, argv: Sequence[str]) -> int:
+    """Run ``main(argv)`` on ``nproc`` spawned ranks of one host."""
+    from torch.multiprocessing.spawn import (ProcessException,
+                                            start_processes)
+    try:
+        start_processes(_rank_main, args=(nproc, _free_port(), list(argv)),
+                        nprocs=nproc, start_method="spawn")
+    except ProcessException as e:
+        print(f"error: rank {e.error_index} failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _launch_counts():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    return {"flash_attention_fwd": FA.LAUNCHES,
+            "flash_attention_bwd": FA.BWD_LAUNCHES,
+            "rmsnorm": RN.LAUNCHES, "rmsnorm_bwd": RN.BWD_LAUNCHES}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -99,16 +163,50 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--calibration-out", default=None, metavar="PATH|auto",
                     help="with --calibrate: write the fitted profile (auto "
                          "= the platform's default path)")
+    ap.add_argument("--nproc", type=int, default=None,
+                    help="spawn this many ranks, one per device, and train "
+                         "the plan over them")
+    ap.add_argument("--save-params", default=None, metavar="PATH",
+                    help="write the losses and the final params, whole, to "
+                         "this .npz (rank 0)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    device = resolve_device(args.device)
+    if args.nproc is not None:
+        if device.type == "cuda" and args.nproc > torch.cuda.device_count():
+            print(f"error: --nproc {args.nproc} needs {args.nproc} cards; "
+                  f"{torch.cuda.device_count()} visible", file=sys.stderr)
+            return 1
+        rest = list(argv if argv is not None else sys.argv[1:])
+        k = next(i for i, a in enumerate(rest) if a.startswith("--nproc"))
+        return spawn(args.nproc,
+                     rest[:k] + rest[k + (1 if "=" in rest[k] else 2):])
+    distributed = dist.is_initialized() or "WORLD_SIZE" in os.environ
+    owned = distributed and not dist.is_initialized()
+    try:
+        return _run(args, device, distributed)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device: torch.device, distributed: bool) -> int:
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.core.plan import Plan, single_stage_plan
     from repro_torch.models.zoo import build_model
     from repro_torch.training.data import BatchSpec, SyntheticLM
     from repro_torch.training.step import init_train_state, make_train_step
 
-    device = resolve_device(args.device)
+    rank, world = 0, 1
+    if distributed:
+        from repro_torch.launch.mesh import init_distributed
+        rank, world, device = init_distributed(device)
+
+    def say(*a):
+        if rank == 0:
+            print(*a, flush=True)
+
     cfg = get_arch(args.arch)
     gbs = args.global_batch or 8
     if args.calibrate:
@@ -124,44 +222,77 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             return 1
         return 0 if (report["mean_err_fitted"]
                      <= report["mean_err_uncalibrated"] + 1e-12) else 1
+    plan = None
     if args.tune and not args.plan_json:
         from repro_torch.core.tuner import tune
         tcfg = cfg if args.layers is None else \
             cfg.replace(num_layers=args.layers)
         shape = ShapeConfig("cli", args.seq or 4096, gbs, "train")
-        rep = tune(tcfg, shape, args.devices, space=args.space,
-                   memo_dir=args.memo_dir)
-        if rep.plan is None:
-            print("INFEASIBLE for this device count / batch")
+        # rank 0 tunes and every rank trains the plan it found
+        tuned = [None]
+        if rank == 0:
+            rep = tune(tcfg, shape, args.devices, space=args.space,
+                       memo_dir=args.memo_dir)
+            if rep.plan is None:
+                say("INFEASIBLE for this device count / batch")
+            else:
+                say(f"# tuned in {rep.tune_seconds:.1f}s over "
+                    f"{rep.n_points} configs; predicted step "
+                    f"{rep.objective:.3f}s "
+                    f"({rep.throughput_samples:.2f} samples/s)"
+                    + (" [memo-store hit]" if rep.from_memo else ""))
+                say(rep.plan.to_json())
+                say(memory_line(tcfg, shape, rep.plan,
+                                serve=args.space == "serve"))
+                tuned = [rep.plan.to_json()]
+        if distributed:
+            dist.broadcast_object_list(tuned, src=0)
+        if tuned[0] is None:
             return 1
-        print(f"# tuned in {rep.tune_seconds:.1f}s over {rep.n_points} "
-              f"configs; predicted step {rep.objective:.3f}s "
-              f"({rep.throughput_samples:.2f} samples/s)"
-              + (" [memo-store hit]" if rep.from_memo else ""))
-        print(rep.plan.to_json())
-        print(memory_line(tcfg, shape, rep.plan,
-                          serve=args.space == "serve"))
-        if not args.smoke:
+        if distributed:
+            # the attention the cost model priced (ROADMAP.md, section C)
+            plan = Plan.from_json(tuned[0]).replace(attn_impl="pallas",
+                                                    use_pallas=True)
+        elif not args.smoke:
             return 0
     if args.smoke:
         cfg = cfg.reduced()
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
     seq = args.seq or (128 if args.smoke else 4096)
+    shape = ShapeConfig("cli", seq, gbs, "train")
     model = build_model(cfg, device)
     if args.plan_json:
         plan = Plan.from_json(pathlib.Path(args.plan_json).read_text())
-        print(memory_line(cfg, ShapeConfig("cli", seq, gbs, "train"), plan))
-    else:
+        say(memory_line(cfg, shape, plan))
+    elif plan is None:
         plan = single_stage_plan(cfg.num_layers, dp=1, tp=1,
                                  micro_batch=gbs // 2 or 1, grad_accum=2,
                                  zero=1, ckpt_layers=cfg.num_layers // 2,
                                  attn_impl="pallas", use_pallas=True)
-    step = make_train_step(model, plan)
-    state = init_train_state(model, plan,
-                             torch.Generator(device).manual_seed(0))
+    gen = torch.Generator(device).manual_seed(0)
+    mesh = None
+    if distributed:
+        from repro_torch.launch.mesh import make_plan_mesh
+        from repro_torch.lowering import check_train_plan
+        from repro_torch.training.step import init_sharded_state
+        try:
+            check_train_plan(plan, world)
+        except ValueError as e:
+            say(f"error: {e}")
+            return 1
+        st = plan.stages[0]
+        mesh = make_plan_mesh(st.dp, st.tp, device)
+        step = make_train_step(model, plan, mesh=mesh)
+        state = init_sharded_state(model, plan, mesh, gen)
+    else:
+        step = make_train_step(model, plan)
+        state = init_train_state(model, plan, gen)
     data = SyntheticLM(BatchSpec(global_batch=gbs, seq_len=seq,
                                  vocab_size=cfg.vocab_size))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    counts0 = _launch_counts()
     losses, step_ms = [], []
     t0 = time.perf_counter()
     for i in range(args.steps):
@@ -173,11 +304,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         step_ms.append((time.perf_counter() - t1) * 1e3)
     dt = time.perf_counter() - t0
     n = len(losses)
+    counts = {k: v - counts0[k] for k, v in _launch_counts().items()}
+    where = f"{device}" + (f", rank 0 of {world}" if distributed else "")
     if n:
-        print("# step ms: " + " ".join(f"{x:.1f}" for x in step_ms))
-    print(f"trained {n} steps in {dt:.1f}s ({dt / max(1, n):.2f}s/step) on "
-          f"{device}; loss {losses[0]:.3f} -> {losses[-1]:.3f}"
-          if n else f"trained 0 steps on {device}")
+        say("# step ms: " + " ".join(f"{x:.1f}" for x in step_ms))
+        say("# losses: " + " ".join(repr(x) for x in losses))
+    say(f"# launches: {json.dumps(counts)}")
+    if device.type == "cuda":
+        from repro_torch.core.costmodel import estimate_plan
+        est = estimate_plan(cfg, shape, plan)["mem_peak_max"]
+        say(f"# peak memory: max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated(device)} B ({where}); "
+            f"predicted {est:.0f} B per device")
+    if args.save_params:
+        from repro_torch import bridge
+        full = bridge.gather_train_state(state, cfg, plan, mesh) \
+            if distributed else bridge.train_state_to_numpy(state)
+        if rank == 0:
+            np.savez(args.save_params, losses=np.asarray(losses),
+                     **full["params"])
+    say(f"trained {n} steps in {dt:.1f}s ({dt / max(1, n):.2f}s/step) on "
+        f"{where}; loss {losses[0]:.3f} -> {losses[-1]:.3f}"
+        if n else f"trained 0 steps on {where}")
     return 0
 
 

@@ -3,27 +3,29 @@
 Two halves, as in the reference, of which the port has the first and
 guards the second:
 
-* ``lower_plan(cfg, shape, plan, mesh)`` computes pure metadata over an
-  ``AbstractMesh`` (``repro_torch.parallel.sharding``): per-stage mesh-axis
-  roles (with the tp = 1 fold), the ExecConfigs and the pipeline roles.  It touches no device, so it lowers
-  multi-device and pipelined plans for the memory report
-  (``lowering/memory.py``) without running them.  ``check_plan_mesh``
-  rejects a mesh whose axis sizes disagree with the plan.  The
-  reference's PartitionSpec tables (``param_specs``, ``grad_specs``,
-  ``opt_specs``, the pipeline specs), the parameter shapes they read and
-  the integer WO/OO host splits wait for the multi-device slice
-  (ROADMAP.md, queue A item 6); the memory report prices WO/OO through
-  the state layout.
+* ``lower_plan(cfg, shape, plan, mesh)`` computes pure metadata over a
+  mesh: per-stage mesh-axis roles (with the tp = 1 fold), the ExecConfigs
+  and the pipeline roles.  The mesh may be an ``AbstractMesh``
+  (``repro_torch.parallel.sharding``), so it lowers multi-device and
+  pipelined plans for the memory report (``lowering/memory.py``) without
+  running them, or a live ``DeviceMesh``.  ``check_plan_mesh`` rejects a
+  mesh whose axis sizes disagree with the plan.  ``LoweredPlan``'s spec
+  tables (``param_specs``, ``grad_specs``, ``opt_specs``, ``state_specs``)
+  map every param of the config to the mesh axes its dims are split over,
+  the counterparts of the reference's ``param_shardings`` /
+  ``grad_shardings`` / ``state_shardings``; ``shard_tensor`` cuts one
+  rank's part of a full tensor by a spec.  The pipeline specs wait for
+  pipelines (ROADMAP.md, queue A: pipeline).
 
-* Execution: the port runs one pipeline stage with dp = tp = 1 on one
-  device.  ``check_single_device_plan`` rejects anything else;
-  ``train_exec_cfg`` and ``serve_exec_cfg`` apply it before they hand the
-  step builders their ExecConfig.
+* Execution: training runs one pipeline stage on exactly dp · tp ranks
+  (``check_train_plan``), serving one stage on one device
+  (``check_serve_plan``); ``train_exec_cfg`` and ``serve_exec_cfg`` apply
+  them before they hand the step builders their ExecConfig.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.plan import Plan, StageConfig
@@ -103,6 +105,57 @@ class LoweredPlan:
         return self.stages[0].exec_cfg.replace(
             remat_policy="none", ckpt_layers=0, offload_layers=0)
 
+    # -- spec tables (execution) ---------------------------------------------
+
+    def shard_rules(self, i: int = 0) -> Dict[str, Optional[str]]:
+        return SH.make_shard_rules(self.mesh, self.stages[i].mesh_axes,
+                                   self.plan.sequence_parallel)
+
+    def _spec_table(self, i: int, spec_fn, zero_kw: str) -> Dict[str, Any]:
+        from repro_torch.core.costmodel_params import meta_params
+        params, axes = meta_params(self.cfg)
+        st = self.stages[i]
+        tp_size = SH.axis_size(self.mesh, st.mesh_axes.tp)
+        ep_ok = self.cfg.num_experts > 0 and \
+            self.cfg.num_experts % max(1, tp_size) == 0
+        zero = st.stage.zero
+        kw = {"zero3": zero >= 3} if zero_kw == "zero3" else {"zero": zero}
+        return {n: spec_fn(n, tuple(p.shape), axes[n], self.mesh,
+                           st.mesh_axes, ep_ok=ep_ok, **kw)
+                for n, p in params.items()}
+
+    def param_specs(self, i: int = 0) -> Dict[str, SH.Spec]:
+        """bf16 weights: tp, and fsdp at ZeRO 3."""
+        return self._spec_table(i, SH.param_spec, "zero3")
+
+    def grad_specs(self, i: int = 0) -> Dict[str, SH.Spec]:
+        """The f32 gradient accumulator: tp, and fsdp at ZeRO >= 2."""
+        return self._spec_table(i, SH.grad_spec, "zero")
+
+    def opt_specs(self, i: int = 0) -> Dict[str, SH.Spec]:
+        """f32 master / mu / nu: tp, and fsdp at ZeRO >= 1."""
+        return self._spec_table(i, SH.opt_spec, "zero")
+
+    def state_specs(self, i: int = 0) -> Dict[str, Any]:
+        """Specs mirroring the train-state tree: params by
+        ``param_specs``, master/mu/nu by ``opt_specs``, a WO/OO-split leaf
+        as ``{"host", "dev"}`` with the same spec (the split cuts the
+        leading layer dim, which is never sharded)."""
+        from repro_torch.core.costmodel_params import meta_params
+        from repro_torch.training.optimizer import split_k
+        params, axes = meta_params(self.cfg)
+        st = self.stages[i].stage
+        ospecs = self.opt_specs(i)
+
+        def entry(ratio):
+            return {n: ({"host": sp, "dev": sp}
+                        if split_k(n, params[n].shape, axes, ratio) else sp)
+                    for n, sp in ospecs.items()}
+
+        return {"step": (), "params": self.param_specs(i),
+                "master": entry(st.wo), "mu": entry(st.oo),
+                "nu": entry(st.oo)}
+
     # -- memory ---------------------------------------------------------------
 
     def memory_report(self, **kw):
@@ -124,20 +177,21 @@ def check_plan_mesh(plan: Plan, mesh) -> None:
     (``plan_mesh_axes`` folds 'model' into DP) stays legal: the folded dp
     is compared."""
     S = plan.num_stages
-    has_stage = "stage" in mesh.shape
+    shape = SH.mesh_shape(mesh)
+    has_stage = "stage" in shape
     if S > 1:
         if not has_stage:
             raise ValueError(
                 f"plan/mesh mismatch: plan has {S} pipeline stages but the "
-                f"mesh {dict(mesh.shape)} has no 'stage' axis")
-        if mesh.shape["stage"] != S:
+                f"mesh {shape} has no 'stage' axis")
+        if shape["stage"] != S:
             raise ValueError(
                 f"plan/mesh mismatch: plan has {S} pipeline stages but the "
-                f"mesh 'stage' axis has size {mesh.shape['stage']}")
-    elif has_stage and mesh.shape["stage"] != 1:
+                f"mesh 'stage' axis has size {shape['stage']}")
+    elif has_stage and shape["stage"] != 1:
         raise ValueError(
             f"plan/mesh mismatch: single-stage plan on a mesh with a "
-            f"'stage' axis of size {mesh.shape['stage']}")
+            f"'stage' axis of size {shape['stage']}")
     for i, st in enumerate(plan.stages):
         ma = (SH.MeshAxes.from_mesh(mesh) if S > 1
               else plan_mesh_axes(mesh, st.tp))
@@ -146,7 +200,7 @@ def check_plan_mesh(plan: Plan, mesh) -> None:
         if (dp_size, tp_size) != (st.dp, st.tp):
             raise ValueError(
                 f"plan/mesh mismatch at stage {i}: plan wants (dp, tp) = "
-                f"({st.dp}, {st.tp}) but mesh {dict(mesh.shape)} provides "
+                f"({st.dp}, {st.tp}) but mesh {shape} provides "
                 f"(dp, tp) = ({dp_size}, {tp_size}); reshape the mesh view "
                 f"to match the plan (or retune the plan for this mesh)")
 
@@ -190,30 +244,71 @@ def lower_plan(cfg: ArchConfig, shape: Optional[ShapeConfig], plan: Plan,
 # -- execution ----------------------------------------------------------------
 
 
-def check_single_device_plan(plan: Plan, world_size: int = 1) -> None:
-    """Reject a plan this port cannot execute yet: it runs one pipeline
-    stage with dp = tp = 1 on one device."""
-    if world_size != 1:
-        raise ValueError(f"the port runs on one device; world size "
-                         f"{world_size} waits for the multi-device slice")
+def shard_tensor(x, spec, sizes: Mapping[str, int],
+                 coords: Mapping[str, int]):
+    """This rank's part of the full tensor (or numpy array) ``x``: each dim
+    whose ``spec`` entry names a mesh axis is cut into that axis' size
+    equal parts, and the part at the rank's coordinate on the axis is kept
+    (a view)."""
+    if len(spec) != len(x.shape):
+        raise ValueError(f"spec {spec} for a tensor of shape "
+                         f"{tuple(x.shape)}")
+    idx = []
+    for n, e in zip(x.shape, spec):
+        if e is None:
+            idx.append(slice(None))
+            continue
+        if not isinstance(e, str):
+            raise ValueError(f"spec entry {e!r}: the runtime splits a dim "
+                             "over one mesh axis")
+        k = sizes[e]
+        if n % k:
+            raise ValueError(f"dim {n} does not split into {k} parts")
+        w = n // k
+        idx.append(slice(coords[e] * w, (coords[e] + 1) * w))
+    return x[tuple(idx)]
+
+
+def check_train_plan(plan: Plan, world_size: int = 1) -> None:
+    """Reject a training plan this port cannot execute on ``world_size``
+    ranks: it runs one pipeline stage on exactly dp · tp ranks."""
     if plan.num_stages != 1:
         raise ValueError(f"plan has {plan.num_stages} pipeline stages; the "
-                         "port runs single-stage plans only")
+                         "port trains single-stage plans only (ROADMAP.md, "
+                         "queue A: pipeline)")
+    st = plan.stages[0]
+    if st.dp * st.tp != world_size:
+        raise ValueError(
+            f"plan wants dp · tp = {st.dp} x {st.tp} = {st.dp * st.tp} ranks "
+            f"but the world has {world_size}; run it on exactly dp · tp "
+            "ranks (launch/train.py --nproc, or torchrun) or retune it "
+            "(ROADMAP.md, queue A: sharding on torch)")
+
+
+def check_serve_plan(plan: Plan) -> None:
+    """Reject a serving plan this port cannot execute: it serves one
+    pipeline stage with dp = tp = 1 on one device."""
+    if plan.num_stages != 1:
+        raise ValueError(f"plan has {plan.num_stages} pipeline stages; the "
+                         "port serves single-stage plans only (ROADMAP.md, "
+                         "queue A: pipeline)")
     st = plan.stages[0]
     if (st.dp, st.tp) != (1, 1):
-        raise ValueError(f"plan wants (dp, tp) = ({st.dp}, {st.tp}); the port "
-                         "runs dp = tp = 1 only (multi-device slice pending)")
+        raise ValueError(f"serving plan wants (dp, tp) = ({st.dp}, {st.tp}); "
+                         "the port serves with dp = tp = 1 on one device "
+                         "(multi-device serving: ROADMAP.md, queue A: "
+                         "serving)")
 
 
-def train_exec_cfg(plan: Plan) -> ExecConfig:
+def train_exec_cfg(plan: Plan, world_size: int = 1) -> ExecConfig:
     """The training exec config: the plan's CKPT/AO segmentation, remat
     policy and kernel choice for its one stage."""
-    check_single_device_plan(plan)
+    check_train_plan(plan, world_size)
     return stage_exec_config(plan, plan.stages[0])
 
 
 def serve_exec_cfg(plan: Plan) -> ExecConfig:
     """Inference never remats/offloads activations."""
-    check_single_device_plan(plan)
+    check_serve_plan(plan)
     return stage_exec_config(plan, plan.stages[0]).replace(
         remat_policy="none", ckpt_layers=0, offload_layers=0)

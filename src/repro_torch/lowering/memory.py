@@ -20,9 +20,9 @@ so a regression is attributable.
 
 The reference's ``_state_walk`` / ``stage_state_bytes`` and
 ``stage_cache_bytes`` — walks over the PartitionSpec tables, kept there
-as independent oracles of the layouts — wait for the port's spec tables
-(ROADMAP.md, queue A item 6).  The tests hold this module against the
-reference's report instead.
+as independent oracles of the layouts — are not ported: the tests hold
+this module against the reference's report, and hold each rank's shards
+(cut by ``LoweredPlan``'s spec tables) to its state bytes.
 """
 from __future__ import annotations
 

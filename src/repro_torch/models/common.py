@@ -11,18 +11,41 @@ is a Python loop: serving takes views ``w[i]`` of the stacked tensors
 does, as segments ``[offload-remat | remat | saved]`` of the layer loop:
 remat is ``torch.utils.checkpoint`` (non-reentrant), and the offload
 segment also moves the layer inputs that checkpoint saves to pinned host
-memory (``OffloadActivations``).  ``shard_act``/``name_act`` are no-ops on
-one device and are not ported: the offload hook needs no activation tags.
+memory (``OffloadActivations``).  ``name_act`` is not ported: the offload
+hook needs no activation tags.
+
+Multi-device training (the counterpart of the reference's ``ShardRules`` /
+``use_rules`` / ``shard_act``): the reference constrains activations and
+lets XLA insert the collectives; the port writes them out.  ``Parallel``
+carries one rank's process groups, its coordinates and the sequence-
+parallel flag, and rides in ``ExecConfig.par`` (None on one device), so a
+layer recomputed under ``checkpoint`` in the backward sees the same groups.
+The collectives are autograd Functions over plain tensors:
+
+* copy-to-tp: identity forward, all-reduce backward (the input of a
+  column-parallel product, without sequence parallelism);
+* reduce-from-tp: all-reduce forward, identity backward (the output of a
+  row-parallel product, and the vocab-parallel loss's partial sums);
+* gather-sequence: all-gather forward, reduce-scatter backward (the input
+  of the vocab-parallel loss under sequence parallelism; the column-
+  parallel products gather inside their own Function, which keeps only
+  this rank's part of the input for the backward and gathers it again);
+* scatter-sequence: reduce-scatter forward, all-gather backward (the
+  output of a row-parallel product under sequence parallelism);
+* ZeRO-3 gather: all-gather over ``data`` forward, reduce-scatter
+  backward (a weight sharded over the data axis, gathered per layer).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -79,9 +102,186 @@ class ExecConfig:
     # plain versions.  "plain": the plain versions everywhere -- a test hook
     # that lets a run on the card compare the model against itself.
     kernel_impl: str = "kernel"
+    # this rank's place in a multi-device plan (``Parallel``); None on one
+    # device
+    par: Any = None
 
     def replace(self, **kw) -> "ExecConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Multi-device execution: one rank's groups and the TP / SP / ZeRO collectives
+# ---------------------------------------------------------------------------
+
+
+# torch 2.13 renames the two collectives below; the names used are the
+# ones both it and the card's torch 2.11 have
+warnings.filterwarnings(
+    "ignore", category=FutureWarning,
+    message=r"`torch\.distributed\.(all_gather_into_tensor|"
+            r"reduce_scatter_tensor)` is deprecated")
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' parts of ``x`` concatenated along ``dim`` in rank order."""
+    xt = x.movedim(dim, 0).contiguous()
+    n = dist.get_world_size(group)
+    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of the ranks' ``x``, cut into equal parts along ``dim``:
+    rank r keeps part r."""
+    xt = x.movedim(dim, 0).contiguous()
+    n = dist.get_world_size(group)
+    if xt.shape[0] % n:
+        raise ValueError(f"dim {x.shape[dim]} does not split into {n}")
+    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+    dist.reduce_scatter_tensor(out, xt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                           group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherDim(torch.autograd.Function):
+    """All-gather along ``dim`` forward, reduce-scatter backward (the
+    gradient summed in f32 and returned in the input's dtype)."""
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g.float(), ctx.dim, ctx.group).to(
+            g.dtype), None, None
+
+
+class _ScatterDim(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _GatheredProducts(torch.autograd.Function):
+    """``x`` gathered along the sequence, times each of ``ws``: the
+    column-parallel products under sequence parallelism.  Saves this
+    rank's part of ``x`` and gathers it again in the backward, so the
+    gathered copy lives only while the products run (the memory model
+    charges a layer's activations divided by tp); the gradient of x is
+    reduce-scattered in f32."""
+    @staticmethod
+    def forward(ctx, x, group, *ws):
+        ctx.group = group
+        ctx.save_for_backward(x, *ws)
+        xf = all_gather_dim(x, 1, group)
+        return tuple(xf @ w for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gys):
+        x, *ws = ctx.saved_tensors
+        xf = all_gather_dim(x, 1, ctx.group)
+        rows = xf.reshape(-1, xf.shape[-1])
+        dws = [rows.T @ gy.reshape(-1, gy.shape[-1]) for gy in gys]
+        dx = sum(gy @ w.T for gy, w in zip(gys, ws))
+        dx = reduce_scatter_dim(dx.float(), 1, ctx.group).to(x.dtype)
+        return (dx, None, *dws)
+
+
+class Parallel:
+    """One rank of a ``(data, model)`` mesh running a single-stage plan.
+
+    ``dp_group``/``tp_group`` are the mesh's process groups, ``dp_rank``/
+    ``tp_rank`` its coordinates.  ``sp``: the residual stream is split
+    along the sequence over ``model`` (sequence parallelism, tp > 1).
+    ``gather_dims``: under ZeRO 3, the dim of each param name that is split
+    over ``data`` (the param spec's ``"data"`` entry)."""
+
+    def __init__(self, dp_group, tp_group, dp: int, tp: int, dp_rank: int,
+                 tp_rank: int, sp: bool, gather_dims: Dict[str, int]):
+        self.dp_group, self.tp_group = dp_group, tp_group
+        self.dp, self.tp = dp, tp
+        self.dp_rank, self.tp_rank = dp_rank, tp_rank
+        self.sp = sp
+        self.gather_dims = dict(gather_dims)
+
+    def tp_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Into the tp region: the full sequence on every tp rank."""
+        if self.sp:
+            return _GatherDim.apply(x, 1, self.tp_group)
+        return _CopyToTP.apply(x, self.tp_group)
+
+    def column(self, x: torch.Tensor, *ws: torch.Tensor):
+        """``x @ w`` for each column-parallel ``w`` (this rank's columns),
+        ``x`` entering the tp region."""
+        if self.sp:
+            return _GatheredProducts.apply(x, self.tp_group, *ws)
+        x = _CopyToTP.apply(x, self.tp_group)
+        return tuple(x @ w for w in ws)
+
+    def tp_out(self, y: torch.Tensor) -> torch.Tensor:
+        """Out of a row-parallel product: the partial sums added, and under
+        sequence parallelism this rank's part of the sequence kept."""
+        if self.sp:
+            return _ScatterDim.apply(y, 1, self.tp_group)
+        return _ReduceFromTP.apply(y, self.tp_group)
+
+    def reduce_from_tp(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceFromTP.apply(x, self.tp_group)
+
+    def seq_part(self, x: torch.Tensor) -> torch.Tensor:
+        """This tp rank's part of dim 1 (the sequence)."""
+        n = x.shape[1] // self.tp
+        return x[:, self.tp_rank * n:(self.tp_rank + 1) * n]
+
+    def gather(self, params: Params, prefix: str = "", lead: int = 0
+               ) -> Params:
+        """ZeRO 3: each param split over ``data`` gathered whole (its
+        gradient reduce-scattered back in the backward).  ``prefix`` and
+        ``lead`` map a per-layer dict (``unbind_layers``) to the stacked
+        names and dims."""
+        out = {}
+        for n, t in params.items():
+            d = self.gather_dims.get(prefix + n)
+            out[n] = t if d is None else \
+                _GatherDim.apply(t, d - lead, self.dp_group)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -99,25 +299,36 @@ class ParamBuilder:
     """
 
     def __init__(self, generator: Optional[torch.Generator],
-                 dtype=torch.bfloat16, device: Union[str, torch.device] = "cpu"):
+                 dtype=torch.bfloat16, device: Union[str, torch.device] = "cpu",
+                 shard: Optional[Callable] = None):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
+        # shard(name, x, lead): this rank's part of x, the whole param
+        # (lead 0) or one slice of its ``lead`` leading layer dims.  Every
+        # rank draws the same numbers and keeps its part.
+        self.shard = shard
         self.params: Params = {}
         self.axes: Axes = {}
 
-    def _normal(self, shape, scale: float, dtype, lead: int) -> torch.Tensor:
-        out = torch.empty(shape, dtype=dtype, device=self.device)
+    def _part(self, name: str, x: torch.Tensor, lead: int) -> torch.Tensor:
+        return x if self.shard is None else self.shard(name, x, lead)
+
+    def _normal(self, name: str, shape, scale: float, dtype, lead: int
+                ) -> torch.Tensor:
+        local = self._part(name, torch.empty(shape, device="meta"), 0).shape
+        out = torch.empty(local, dtype=dtype, device=self.device)
         if out.is_meta:          # a shape probe: nothing to draw
             return out
         # stacked params (``lead`` leading layer dims) are drawn one layer at
         # a time, so the f32 draw stays one layer large at full width; the
         # rest in one draw
-        rows = out.view(-1, *shape[lead:]) if lead else out.unsqueeze(0)
+        rows = out.view(-1, *local[lead:]) if lead else out.unsqueeze(0)
+        full = tuple(shape[lead:])
         for r in rows:
-            r.copy_(torch.randn(r.shape, generator=self.generator,
-                                dtype=torch.float32, device=self.device)
-                    .mul_(scale))
+            x = torch.randn(full, generator=self.generator,
+                            dtype=torch.float32, device=self.device)
+            r.copy_(self._part(name, x, lead).mul_(scale))
         return out
 
     def add(self, name: str, shape: Tuple[int, ...],
@@ -126,17 +337,17 @@ class ParamBuilder:
         assert len(shape) == len(axes), (name, shape, axes)
         assert name not in self.params, f"duplicate param {name}"
         dtype = dtype or self.dtype
-        if init == "zeros":
-            v = torch.zeros(shape, dtype=dtype, device=self.device)
-        elif init == "ones":
-            v = torch.ones(shape, dtype=dtype, device=self.device)
+        if init in ("zeros", "ones"):
+            v = self._part(name, torch.empty(shape, device="meta"), 0)
+            v = (torch.zeros if init == "zeros" else torch.ones)(
+                v.shape, dtype=dtype, device=self.device)
         elif init == "normal":
             if scale is None:  # fan-in scaling over the (stacked) shape
                 fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
                 scale = 1.0 / math.sqrt(max(1, fan_in))
             lead = next((i for i, ax in enumerate(axes)
                          if not (ax or "").startswith("layers")), len(axes))
-            v = self._normal(tuple(shape), scale, dtype, lead)
+            v = self._normal(name, tuple(shape), scale, dtype, lead)
         else:
             raise ValueError(init)
         self.params[name] = v

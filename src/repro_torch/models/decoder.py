@@ -6,13 +6,25 @@ tensors.  ``run_layers`` (training and the cache-less prefill) runs the
 layers through ``segmented_layer_scan`` over the unbound stack; the serving
 paths loop over views of layer ``i``.  MoE, Mamba2 and mLSTM blocks wait
 for their slices.
+
+Training under a multi-device plan (``ExecConfig.par``, see
+``models/common.py``) runs on this rank's shards: attention and the MLP
+are tensor-parallel (``models/layers.py``); under sequence parallelism the
+residual stream, the norms and the embedding's output hold this rank's
+part of the sequence (the reference's ``shard_act(h, ("dp", "sp",
+None))``); the embedding and the loss are vocab-parallel when
+``embed/w``'s vocab dim is split over ``model``; under ZeRO 3 each layer
+gathers its weights inside the layer body, so a remat'd layer gathers them
+again in the backward.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -60,7 +72,7 @@ def apply_block(p: Params, h: torch.Tensor, cfg: ArchConfig, ec: ExecConfig,
         new_cache = _fresh_attn_cache(new_cache, hn.shape[1])
     h = h + a
     hn = L.norm(subtree(p, "ln2"), h, cfg, impl=ec.kernel_impl)
-    h = h + L.mlp(subtree(p, "mlp"), hn, cfg)
+    h = h + L.mlp(subtree(p, "mlp"), hn, cfg, ec.par)
     return h, 0.0, new_cache
 
 
@@ -80,8 +92,9 @@ def _fresh_attn_cache(kv: Dict, s: int) -> Dict:
 
 
 def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
-            dtype=torch.bfloat16, device="cpu") -> Tuple[Params, Axes]:
-    pb = ParamBuilder(generator, dtype, device)
+            dtype=torch.bfloat16, device="cpu", shard=None
+            ) -> Tuple[Params, Axes]:
+    pb = ParamBuilder(generator, dtype, device, shard)
     pb.add("embed/w", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
            scale=0.02)
     init_block(StackedBuilder(pb, "layers", cfg.num_layers), cfg)
@@ -92,9 +105,45 @@ def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
     return pb.params, pb.axes
 
 
+class _Lookup(torch.autograd.Function):
+    """``w[tokens]`` whose gradient sums the rows of repeated tokens in f32
+    in a fixed order (``embedding_dense_backward``) and rounds once to w's
+    dtype.  Indexing's own gradient (an accumulating ``index_put_``) adds
+    in an order that changes from run to run on the CPU, so two runs of
+    one step would differ."""
+    @staticmethod
+    def forward(ctx, w, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = w.shape[0]
+        return w[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        gw = torch.ops.aten.embedding_dense_backward(
+            g.float(), tokens, ctx.rows, -1, False)
+        return gw.to(g.dtype), None
+
+
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
                  ec: ExecConfig) -> torch.Tensor:
-    return params["embed/w"][tokens].to(ec.compute_dtype)
+    """The embedding lookup.  Under ``ec.par``: with the vocab split over
+    ``model``, a masked lookup of this rank's rows whose partial results
+    are summed over tp (reduce-scattered along the sequence under sequence
+    parallelism); with the vocab replicated, the lookup of this rank's
+    part of the sequence under sequence parallelism, else of all of it."""
+    w, par = params["embed/w"], ec.par
+    if par is None:
+        return _Lookup.apply(w, tokens).to(ec.compute_dtype)
+    if w.shape[0] == cfg.vocab_size:
+        if par.sp:
+            tokens = par.seq_part(tokens)
+        return _Lookup.apply(w, tokens).to(ec.compute_dtype)
+    ids = tokens - par.tp_rank * w.shape[0]
+    mine = (ids >= 0) & (ids < w.shape[0])
+    x = _Lookup.apply(w, ids.clamp(0, w.shape[0] - 1)) * mine[..., None]
+    x = x.to(ec.compute_dtype)
+    return par.tp_out(x) if par.sp else par.reduce_from_tp(x)
 
 
 def unembed_matrix(params: Params, cfg: ArchConfig) -> torch.Tensor:
@@ -117,6 +166,8 @@ def run_layers(params: Params, x: torch.Tensor, cfg: ArchConfig,
 
     def body(carry, lp):
         h, aux = carry
+        if ec.par is not None:      # ZeRO 3: this layer's weights, whole
+            lp = ec.par.gather(lp, "layers/", lead=1)
         h, a, _ = apply_block(lp, h, cfg, ec)
         return h, aux + a
 
@@ -131,6 +182,55 @@ def _chunk_nll(hh, w_out, ll, mm):
     gold = torch.gather(logits, -1, ll[..., None])[..., 0]
     nll = (lse - gold) * mm
     return nll.sum(), mm.sum()
+
+
+def _chunk_nll_vocab_parallel(hh, w_out, ll, mm, par):
+    """``_chunk_nll`` with this rank's columns of the vocab: the max and
+    the sum of exponentials summed over tp, the gold logit from the rank
+    that holds it."""
+    logits = (hh @ w_out).float()
+    m = logits.detach().amax(-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=par.tp_group)
+    se = par.reduce_from_tp(torch.exp(logits - m[..., None]).sum(-1))
+    ids = ll - par.tp_rank * w_out.shape[1]
+    mine = (ids >= 0) & (ids < w_out.shape[1])
+    gold = torch.gather(logits, -1, ids.clamp(0, w_out.shape[1] - 1)
+                        [..., None])[..., 0]
+    gold = par.reduce_from_tp(gold * mine)
+    nll = (torch.log(se) + m - gold) * mm
+    return nll.sum(), mm.sum()
+
+
+def _parallel_xent(h, w_out, labels, mask, chunk, par, vocab_par):
+    """``chunked_xent`` on one rank of a multi-device plan: vocab-parallel
+    over the full sequence when ``w_out``'s vocab is split over ``model``,
+    else the full head on this rank's part of the sequence (sequence
+    parallelism), the sums then added over tp."""
+    labels = labels.long()
+    mask = mask.float() if mask is not None else \
+        torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    if vocab_par:
+        h = par.tp_in(h)
+        fn = functools.partial(_chunk_nll_vocab_parallel, par=par)
+    else:
+        if par.sp:
+            labels, mask = par.seq_part(labels), par.seq_part(mask)
+        fn = _chunk_nll
+    s = h.shape[1]
+    c = min(chunk, s)
+    if s % c:
+        c = s
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // c):
+        sl = slice(i * c, (i + 1) * c)
+        t, n = checkpoint(fn, h[:, sl], w_out, labels[:, sl], mask[:, sl],
+                          use_reentrant=False, preserve_rng_state=False)
+        tot, cnt = tot + t, cnt + n
+    if par.sp and not vocab_par:
+        tot = par.reduce_from_tp(tot)
+        dist.all_reduce(cnt, group=par.tp_group)
+    return tot / torch.clamp_min(cnt, 1.0)
 
 
 def chunked_xent(h: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor,
@@ -167,10 +267,21 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     """Mean next-token loss of a batch ``{"tokens", "labels"[,
     "loss_mask"]}`` (B, S), plus ``AUX_COEF`` times the mean aux loss (0 for
     dense blocks)."""
+    par = ec.par
+    if par is not None:     # ZeRO 3: the embedding, final norm and head
+        params = {**params, **par.gather(
+            {n: v for n, v in params.items()
+             if not n.startswith("layers/")})}
     x = embed_tokens(params, batch["tokens"], cfg, ec)
     h, aux = run_layers(params, x, cfg, ec)
-    loss = chunked_xent(h, unembed_matrix(params, cfg), batch["labels"],
-                        batch.get("loss_mask"))
+    w_out = unembed_matrix(params, cfg)
+    vocab_par = w_out.shape[1] != cfg.vocab_size
+    if par is None or not (vocab_par or par.sp):
+        loss = chunked_xent(h, w_out, batch["labels"],
+                            batch.get("loss_mask"))
+    else:
+        loss = _parallel_xent(h, w_out, batch["labels"],
+                              batch.get("loss_mask"), 512, par, vocab_par)
     return loss + AUX_COEF * aux / cfg.num_layers
 
 

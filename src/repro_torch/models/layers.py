@@ -92,9 +92,16 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
 
 
-def mlp(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The gated MLP: act(x Wg) * (x Wu), then Wd."""
-    return (_act(x @ p["wg"], cfg.act) * (x @ p["wu"])) @ p["wd"]
+def mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, par=None
+        ) -> torch.Tensor:
+    """The gated MLP: act(x Wg) * (x Wu), then Wd.  With ``par`` (a
+    ``common.Parallel``), Wg/Wu are column-parallel (this rank's d_ff
+    columns) and Wd row-parallel: x enters the tp region and the partial
+    products leave it summed."""
+    if par is None:
+        return (_act(x @ p["wg"], cfg.act) * (x @ p["wu"])) @ p["wd"]
+    g, u = par.column(x, p["wg"], p["wu"])
+    return par.tp_out((_act(g, cfg.act) * u) @ p["wd"])
 
 
 # ---------------------------------------------------------------------------
@@ -156,11 +163,24 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
         raise NotImplementedError("MLA attention and qkv biases are not "
                                   "ported yet (ROADMAP.md, queue A: "
                                   "remaining families)")
-    b_, s, d = x.shape
-    h, kv, hd, g = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.q_per_kv
-    q = (x @ p["wq"].reshape(d, h * hd)).view(b_, s, h, hd)
-    k = (x @ p["wk"].reshape(d, kv * hd)).view(b_, s, kv, hd)
-    v = (x @ p["wv"].reshape(d, kv * hd)).view(b_, s, kv, hd)
+    par = exec_cfg.par
+    wk, wv = p["wk"], p["wv"]
+    if par is not None:
+        if cache is not None:
+            raise NotImplementedError("multi-device decode waits for "
+                                      "multi-device serving (ROADMAP.md, "
+                                      "queue A: serving)")
+        wk, wv = _local_kv(p, cfg, par)
+    # this rank's heads (all of them on one device)
+    d = x.shape[-1]
+    h, kv, hd = p["wq"].shape[1], wk.shape[1], cfg.head_dim
+    g = h // kv
+    ws = (p["wq"].reshape(d, h * hd), wk.reshape(d, kv * hd),
+          wv.reshape(d, kv * hd))
+    q, k, v = (x @ w for w in ws) if par is None else par.column(x, *ws)
+    b_, s = q.shape[:2]
+    q, k, v = (q.view(b_, s, h, hd), k.view(b_, s, kv, hd),
+               v.view(b_, s, kv, hd))
     if cache is not None and "pos" not in cache:
         raise NotImplementedError("cross-attention caches are not ported yet "
                                   "(ROADMAP.md, queue A: remaining families)")
@@ -210,7 +230,28 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
                     acc_dtype=ck.dtype)
 
     ctx = ctx.reshape(b_, s, h * hd)
-    return ctx @ p["wo"].reshape(h * hd, d), new_cache
+    out = ctx @ p["wo"].reshape(h * hd, d)
+    return (out if par is None else par.tp_out(out)), new_cache
+
+
+def _local_kv(p: Params, cfg: ArchConfig, par) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """wk/wv for this tp rank's query heads.  Sharded with the query heads
+    when the kv heads divide by tp; otherwise replicated, and the rank
+    takes the kv heads its query heads read (its gradient of the rest is
+    zero, and the step sums wk/wv's gradients over tp)."""
+    h_loc = p["wq"].shape[1]
+    if p["wk"].shape[1] != cfg.num_kv_heads or h_loc == cfg.num_heads:
+        return p["wk"], p["wv"]
+    g = cfg.q_per_kv
+    if h_loc % g and g % h_loc:
+        raise NotImplementedError(
+            f"{h_loc} query heads per rank over groups of {g}: the rank's "
+            "heads would read kv heads unevenly (ROADMAP.md, queue A: "
+            "sharding on torch)")
+    lo = par.tp_rank * h_loc // g
+    hi = -(-(par.tp_rank + 1) * h_loc // g)
+    return p["wk"][:, lo:hi], p["wv"][:, lo:hi]
 
 
 def cache_write(buf: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,

@@ -28,9 +28,15 @@ class Model:
     cfg: ArchConfig
     device: torch.device
 
-    def init(self, generator: torch.Generator, dtype=torch.bfloat16):
+    def init(self, generator: torch.Generator, dtype=torch.bfloat16,
+             shard=None):
         """(params, axes) with the reference's names, shapes and scales;
-        values drawn from ``generator`` (on the model's device)."""
+        values drawn from ``generator`` (on the model's device).
+        ``shard``: keep one rank's part of each param (``ParamBuilder``);
+        dense decoders only."""
+        if shard is not None:
+            return DEC.init_lm(self.cfg, generator, dtype, self.device,
+                               shard)
         return _FAMILIES[self.cfg.family][0](self.cfg, generator, dtype,
                                              self.device)
 

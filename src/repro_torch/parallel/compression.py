@@ -7,13 +7,18 @@ the same integers.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp_min(torch.max(torch.abs(x)), 1e-12) / 127.0
+def quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``amax``: the max |x| of the whole tensor when ``x`` is one rank's
+    shard of it (default: x's own)."""
+    if amax is None:
+        amax = torch.max(torch.abs(x))
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -22,11 +27,15 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def fake_compress(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Quantize-dequantize pass (simulates on-the-wire int8 gradients)."""
+def fake_compress(grads: Dict[str, torch.Tensor],
+                  amax: Optional[Callable] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Quantize-dequantize pass (simulates on-the-wire int8 gradients).
+    ``amax(name, g)``: the whole tensor's max |g| when the grads are one
+    rank's shards (``optimizer.StateSharding.global_amax``)."""
     out = {}
     for n, g in grads.items():
-        q, s = quantize_int8(g)
+        q, s = quantize_int8(g, None if amax is None else amax(n, g))
         out[n] = dequantize_int8(q, s).to(g.dtype)
     return out
 

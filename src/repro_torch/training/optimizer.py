@@ -14,13 +14,23 @@ repositioned optimizer step) is later work (ROADMAP.md).
 
 The update runs in place on the state (the reference's jitted step donates
 it instead) and takes the reference's f32 arithmetic step for step.
+
+On a rank of a multi-device plan every tensor of the state is this rank's
+shard (``lowering/lower.py``'s spec tables) and ``adam_update`` takes a
+``StateSharding``: the grad norm counts every element once (shard sums
+added over the axes a gradient is split over, never over those it is
+replicated on); under ZeRO 1 each rank updates its ``data`` part of the
+master/mu/nu from its part of the full gradient; under ZeRO 1 and 2 an
+all-gather over ``data`` then refreshes the bf16 params.  The WO/OO host
+splits cut the local shard's leading layer dim, which is never sharded.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.plan import StageConfig
 from repro_torch.models.common import Axes, Params
@@ -89,16 +99,84 @@ def init_opt_entry(params: Params, axes_table: Axes, ratio: float,
     return out
 
 
-def init_state(params: Params, axes_table: Axes, stage: StageConfig
-               ) -> Dict[str, Any]:
+def init_state(params: Params, axes_table: Axes, stage: StageConfig,
+               opt_params: Optional[Params] = None) -> Dict[str, Any]:
+    """``opt_params``: what master/mu/nu are made from, when they are split
+    finer than the params (this rank's ZeRO part of each); by default the
+    params themselves."""
     dev = next(iter(params.values())).device
+    src = params if opt_params is None else opt_params
     return {
         "step": torch.zeros((), dtype=torch.int32, device=dev),
         "params": dict(params),
-        "master": init_opt_entry(params, axes_table, stage.wo, "master"),
-        "mu": init_opt_entry(params, axes_table, stage.oo, "zeros"),
-        "nu": init_opt_entry(params, axes_table, stage.oo, "zeros"),
+        "master": init_opt_entry(src, axes_table, stage.wo, "master"),
+        "mu": init_opt_entry(src, axes_table, stage.oo, "zeros"),
+        "nu": init_opt_entry(src, axes_table, stage.oo, "zeros"),
     }
+
+
+def _data_dim(spec) -> Optional[int]:
+    return spec.index("data") if "data" in spec else None
+
+
+class StateSharding:
+    """Where one rank's state tensors sit on a ``(data, model)`` mesh: the
+    param / grad / opt specs of every param name (``LoweredPlan``'s
+    tables) and the rank's ``common.Parallel`` (groups, coordinates)."""
+
+    def __init__(self, pspecs: Mapping, gspecs: Mapping, ospecs: Mapping,
+                 par):
+        self.pspecs, self.gspecs, self.ospecs = pspecs, gspecs, ospecs
+        self.par = par
+
+    def global_norm(self, grads: Params) -> torch.Tensor:
+        """``global_norm`` of the whole gradient: each shard's sum of
+        squares added over the axes its tensor is split over.  With
+        nothing split it is ``global_norm``'s sum, bit for bit."""
+        sums: Dict[Tuple[bool, bool], Any] = {}
+        for n, g in grads.items():
+            key = ("data" in self.gspecs[n], "model" in self.gspecs[n])
+            sums[key] = sums.get(key, 0) + torch.sum(torch.square(g.float()))
+        z = torch.zeros((), dtype=torch.float32,
+                        device=next(iter(grads.values())).device)
+
+        def part(key):
+            return sums.get(key, z)
+
+        d = torch.stack([part((True, False)), part((True, True))])
+        dist.all_reduce(d, group=self.par.dp_group)
+        m = torch.stack([part((False, True)), d[1]])
+        dist.all_reduce(m, group=self.par.tp_group)
+        return torch.sqrt(part((False, False)) + d[0] + m[0] + m[1])
+
+    def global_amax(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """max |g| over the whole tensor (``fake_compress``'s scale)."""
+        amax = torch.max(torch.abs(g))
+        for ax, group in (("data", self.par.dp_group),
+                          ("model", self.par.tp_group)):
+            if ax in self.gspecs[name]:
+                dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        return amax
+
+    def opt_grad(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """The part of ``g`` this rank's master/mu/nu update: under ZeRO 1
+        the rank's ``data`` part of the full gradient."""
+        d = _data_dim(self.ospecs[name])
+        if d is None or _data_dim(self.gspecs[name]) is not None:
+            return g
+        w = g.shape[d] // self.par.dp
+        return g.narrow(d, self.par.dp_rank * w, w)
+
+    def write_params(self, name: str, p: torch.Tensor,
+                     master: torch.Tensor) -> None:
+        """bf16 params from the updated master: all-gathered over ``data``
+        where the master is split finer than the params (ZeRO 1 and 2)."""
+        d = _data_dim(self.ospecs[name])
+        if d is None or _data_dim(self.pspecs[name]) is not None:
+            p.copy_(master)
+            return
+        from repro_torch.models.common import all_gather_dim
+        p.copy_(all_gather_dim(master.to(p.dtype), d, self.par.dp_group))
 
 
 # ---------------------------------------------------------------------------
@@ -112,15 +190,25 @@ def global_norm(grads: Params) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adam_update(state: Dict[str, Any], grads: Params, acfg: AdamConfig
+def adam_update(state: Dict[str, Any], grads: Params, acfg: AdamConfig,
+                sharding: Optional[StateSharding] = None
                 ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  grads: f32 flat dict (same keys as
     params).  Host parts of split leaves are staged through the params'
     device for the update and copied back; on a CUDA device the copy back
     is asynchronous, so synchronize before reading a host part on the host
-    (``bridge.train_state_to_numpy`` does)."""
+    (``bridge.train_state_to_numpy`` does).  ``sharding``: the state is one
+    rank's shards (module docstring)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if sharding is None:
+        gnorm = global_norm(grads)
+
+        def write(name, p, master):
+            p.copy_(master)
+    else:
+        gnorm = sharding.global_norm(grads)
+        write = sharding.write_params
+        grads = {n: sharding.opt_grad(n, g) for n, g in grads.items()}
     clip = torch.clamp(acfg.grad_clip / (gnorm + 1e-12), max=1.0)
     c1 = 1.0 - acfg.b1 ** step.float()
     c2 = 1.0 - acfg.b2 ** step.float()
@@ -137,7 +225,7 @@ def adam_update(state: Dict[str, Any], grads: Params, acfg: AdamConfig
         leaves = [state[e][name] for e in ("master", "mu", "nu")]
         if not any(is_split(x) for x in leaves):
             upd(*leaves, g)
-            p.copy_(leaves[0])
+            write(name, p, leaves[0])
             continue
         kh = next(x["host"].shape[0] for x in leaves if is_split(x))
         for lo, hi in ((0, kh), (kh, g.shape[0])):
@@ -151,7 +239,7 @@ def adam_update(state: Dict[str, Any], grads: Params, acfg: AdamConfig
                 else:
                     parts.append(x["dev"])
             upd(*parts, g[lo:hi])
-            p[lo:hi].copy_(parts[0])
+            write(name, p[lo:hi], parts[0])
             for host, dev in staged:
                 if dev is not host:
                     host.copy_(dev, non_blocking=True)

@@ -1,13 +1,17 @@
 """Step builders (the port of ``repro/training/step.py``).
 
-``make_train_step`` realizes a single-stage, one-device plan: CKPT/AO remat
+``make_train_step`` realizes a single-stage plan: CKPT/AO remat
 segmentation (``segmented_layer_scan``), WO/OO host offload of the
 optimizer state, optional int8 gradient compression and gradient
-accumulation over G micro-batches.  ``make_prefill_step`` /
-``make_serve_step`` bind the plan's serve ``ExecConfig``.  All are closures:
-PyTorch runs eagerly, so there is no ``jit`` and no buffer donation; the
-train step updates its state in place, and decode writes its cache in
-place.
+accumulation over G micro-batches; on one device, or with ``mesh`` on one
+rank of the plan's ``(data, model)`` mesh (tensor parallelism with or
+without sequence parallelism, data parallelism, ZeRO 0-3), where every
+collective is written out and runs in the same order on every rank, at
+world size 1 too.  ``init_sharded_state`` builds a rank's part of a fresh
+state.  ``make_prefill_step`` / ``make_serve_step`` bind the plan's serve
+``ExecConfig``.  All are closures: PyTorch runs eagerly, so there is no
+``jit`` and no buffer donation; the train step updates its state in
+place, and decode writes its cache in place.
 """
 from __future__ import annotations
 
@@ -15,10 +19,13 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.plan import Plan
-from repro_torch.lowering import serve_exec_cfg, train_exec_cfg
-from repro_torch.models.common import ExecConfig
+from repro_torch.lowering import (lower_plan, serve_exec_cfg, shard_tensor,
+                                  train_exec_cfg)
+from repro_torch.models.common import (ExecConfig, Parallel,
+                                       reduce_scatter_dim)
 from repro_torch.models.zoo import Model
 from repro_torch.parallel.compression import fake_compress
 from repro_torch.training import optimizer as OPT
@@ -32,7 +39,7 @@ class TrainStep:
 
 def make_train_step(model: Model, plan: Plan,
                     adam: OPT.AdamConfig = OPT.AdamConfig(),
-                    kernel_impl: str = "kernel") -> TrainStep:
+                    kernel_impl: str = "kernel", mesh=None) -> TrainStep:
     """``fn(state, batch)`` -> ``(state, {"loss", "grad_norm", "step"})``.
 
     The batch (B, S) splits into G = ``plan.grad_accum`` contiguous
@@ -41,8 +48,16 @@ def make_train_step(model: Model, plan: Plan,
     micro-batch losses.  Then ``fake_compress`` if the plan asks for it, and
     ``adam_update`` on the state, in place.  ``kernel_impl="plain"`` is the
     test hook of ``ExecConfig.kernel_impl``.  Activations take the params'
-    dtype (bf16, as the reference trains; f32 params compute in f32)."""
-    ec = train_exec_cfg(plan).replace(kernel_impl=kernel_impl)
+    dtype (bf16, as the reference trains; f32 params compute in f32).
+
+    ``mesh``: the plan's live ``(data, model)`` DeviceMesh
+    (``launch/mesh.py``); the state is then this rank's shards
+    (``init_sharded_state``) and the batch the global batch, of which data
+    rank r takes its rows of each micro-batch (``_sharded_train_step``)."""
+    ec = train_exec_cfg(plan, 1 if mesh is None else mesh.size()
+                        ).replace(kernel_impl=kernel_impl)
+    if mesh is not None:
+        return _sharded_train_step(model, plan, adam, ec, mesh)
     G = plan.grad_accum
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
@@ -88,6 +103,153 @@ def init_train_state(model: Model, plan: Plan, generator: torch.Generator
     master/mu/nu split to host by the stage's WO/OO."""
     params, axes = model.init(generator)
     return OPT.init_state(params, axes, plan.stages[0])
+
+
+# -- multi-device -------------------------------------------------------------
+
+# the products whose weights tensor parallelism splits (column-parallel
+# wq/wg/wu, row-parallel wo/wd): tp > 1 needs their heads and d_ff split
+_TP_SPLIT = ("layers/attn/wq", "layers/attn/wo", "layers/mlp/wg",
+             "layers/mlp/wu", "layers/mlp/wd")
+
+
+def _lowered(model: Model, plan: Plan, mesh):
+    from repro_torch.launch.mesh import mesh_coords
+    from repro_torch.parallel.sharding import mesh_shape
+    if model.cfg.family != "dense":
+        raise NotImplementedError(
+            f"{model.cfg.name}: multi-device training of the "
+            f"{model.cfg.family} family is not ported (ROADMAP.md, queue A: "
+            "hybrid training)")
+    low = lower_plan(model.cfg, None, plan, mesh)
+    return low, mesh_shape(mesh), mesh_coords(mesh)
+
+
+def _parallel(low, sizes, coords, mesh) -> Parallel:
+    rules = low.shard_rules()
+    gather = {n: sp.index("data") for n, sp in low.param_specs().items()
+              if "data" in sp}
+    return Parallel(mesh.get_group("data"), mesh.get_group("model"),
+                    sizes["data"], sizes["model"], coords["data"],
+                    coords["model"], sp=rules["sp"] is not None,
+                    gather_dims=gather)
+
+
+def _tp_partial(pspecs, sp: bool, tp: int):
+    """Params replicated over ``model`` whose tp ranks each use them on
+    part of the work, so their gradients are summed over tp: under
+    sequence parallelism every one (the norms and the embedding see this
+    rank's part of the sequence), and wk/wv when the kv heads do not split
+    (each rank projects the kv heads its query heads read)."""
+    if tp == 1:
+        return set()
+    return {n for n, sp_ in pspecs.items() if "model" not in sp_
+            and (sp or n in ("layers/attn/wk", "layers/attn/wv"))}
+
+
+def _sharded_train_step(model, plan, adam, ec, mesh) -> TrainStep:
+    """The train step of one rank (``make_train_step``'s ``mesh``).
+
+    Gradients, by ZeRO level: at ZeRO 0/1 the f32 sums are all-reduced
+    over ``data`` once after the last micro-batch; at ZeRO 2 each
+    micro-batch's gradient is reduce-scattered into f32 accumulators split
+    over ``data`` (the reference's ``with_sharding_constraint(acc,
+    g_shardings)``); at ZeRO 3 the weights' gather does that in its
+    backward.  Params split over neither keep all-reduced sums.  Then the
+    sums of ``_tp_partial`` params are all-reduced over ``model``, and all
+    are divided by G · dp (the mean over the global batch).  The loss is
+    the micro-batches' mean, averaged over dp."""
+    low, sizes, coords = _lowered(model, plan, mesh)
+    pspecs, gspecs = low.param_specs(), low.grad_specs()
+    par = _parallel(low, sizes, coords, mesh)
+    if par.tp > 1:
+        whole = [n for n in _TP_SPLIT if "model" not in pspecs[n]]
+        if whole:
+            raise NotImplementedError(
+                f"tp {par.tp} does not split {whole} (heads "
+                f"{model.cfg.num_heads}, d_ff {model.cfg.d_ff}); ROADMAP.md, "
+                "queue A: sharding on torch")
+    ec = ec.replace(par=par)
+    sharding = OPT.StateSharding(pspecs, gspecs, low.opt_specs(), par)
+    partial = _tp_partial(pspecs, par.sp, par.tp)
+    G, dp = plan.grad_accum, par.dp
+
+    def micro_grad(name, g):
+        d = gspecs[name].index("data") if "data" in gspecs[name] else None
+        if d is None or "data" in pspecs[name]:
+            return g.float()
+        return reduce_scatter_dim(g.float(), d, par.dp_group)
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        names = list(state["params"])
+        leaves = [state["params"][n].detach().requires_grad_(True)
+                  for n in names]
+        params = dict(zip(names, leaves))
+        run_ec = ec.replace(compute_dtype=params["embed/w"].dtype)
+        b = batch["tokens"].shape[0]
+        if b % (G * dp):
+            raise ValueError(f"batch {b} does not split into {G} "
+                             f"micro-batches over {dp} data ranks")
+        if "loss_mask" in batch and dp > 1:
+            raise NotImplementedError(
+                "a loss mask under data parallelism (the mean over dp "
+                "weights every data rank alike); ROADMAP.md, queue A: "
+                "sharding on torch")
+        mbg = b // G
+        mb = mbg // dp
+        sums, losses = None, []
+        for i in range(G):
+            lo = i * mbg + par.dp_rank * mb
+            micro = {k: v[lo:lo + mb] for k, v in batch.items()}
+            loss = model.loss_fn(params, micro, run_ec)
+            grads = torch.autograd.grad(loss, leaves)
+            grads = [micro_grad(n, g) for n, g in zip(names, grads)]
+            if sums is None:
+                sums = grads
+            else:
+                for acc, g in zip(sums, grads):
+                    acc.add_(g)
+            losses.append(loss.detach())
+            del grads, loss
+        for n, acc in zip(names, sums):
+            if "data" not in gspecs[n]:
+                dist.all_reduce(acc, group=par.dp_group)
+            if n in partial:
+                dist.all_reduce(acc, group=par.tp_group)
+        grads = {n: acc.div_(G * dp) for n, acc in zip(names, sums)}
+        del sums, params, leaves
+        if plan.grad_compression:
+            grads = fake_compress(grads, sharding.global_amax)
+        state, om = OPT.adam_update(state, grads, adam, sharding)
+        loss = torch.stack(losses).mean()
+        dist.all_reduce(loss, group=par.dp_group)
+        metrics = {"loss": loss / dp, **om, "step": state["step"]}
+        return state, metrics
+
+    return TrainStep(fn=train_step, exec_cfg=ec)
+
+
+def init_sharded_state(model: Model, plan: Plan, mesh,
+                       generator: torch.Generator) -> Dict[str, Any]:
+    """This rank's part of a fresh train state (the reference's
+    ``init_sharded_state``): every rank draws the same params from
+    ``generator``, one stacked layer at a time, and keeps its part by the
+    param specs; master/mu/nu by the opt specs, split to host by WO/OO.
+    No rank holds more than one layer of a param whole."""
+    low, sizes, coords = _lowered(model, plan, mesh)
+    pspecs, ospecs = low.param_specs(), low.opt_specs()
+
+    def shard(name, x, lead):
+        return shard_tensor(x, pspecs[name][lead:], sizes, coords)
+
+    params, axes = model.init(generator, shard=shard)
+    # where the opt specs split finer (ZeRO 1 and 2), this rank's data part
+    finer = {n: tuple(o if p is None else None
+                      for p, o in zip(pspecs[n], ospecs[n])) for n in params}
+    opt_params = {n: shard_tensor(p, finer[n], sizes, coords)
+                  for n, p in params.items()}
+    return OPT.init_state(params, axes, plan.stages[0], opt_params)
 
 
 @dataclass

@@ -16,7 +16,7 @@ from repro_torch.configs.base import get_arch
 from repro_torch.core.plan import single_stage_plan
 from repro_torch.kernels import _build
 from repro_torch.launch import serve, train
-from repro_torch.lowering import check_single_device_plan
+from repro_torch.lowering import check_serve_plan, check_train_plan
 from repro_torch.models.zoo import Model, build_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -129,17 +129,29 @@ def test_unported_serve_modes_exit(flag):
 
 
 def test_only_dense_single_device_plans(no_cuda):
+    """Dense families only; training takes single-stage plans on exactly
+    dp · tp ranks, serving one device; each refusal names ROADMAP.md."""
     cfg = get_arch("granite-3-8b").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg.replace(num_experts=4, num_experts_per_tok=2), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg.replace(family="audio"), "cpu")
-    for dp, tp in ((2, 1), (1, 2)):
-        with pytest.raises(ValueError, match="dp = tp = 1"):
-            check_single_device_plan(single_stage_plan(
-                4, dp=dp, tp=tp, micro_batch=1, grad_accum=1))
-    check_single_device_plan(single_stage_plan(4, dp=1, tp=1, micro_batch=1,
-                                               grad_accum=1))
+    for dp, tp in ((1, 1), (2, 1), (1, 2), (2, 4)):
+        plan = single_stage_plan(4, dp=dp, tp=tp, micro_batch=1,
+                                 grad_accum=1)
+        check_train_plan(plan, dp * tp)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            check_train_plan(plan, dp * tp + 1)
+        if (dp, tp) != (1, 1):
+            with pytest.raises(ValueError, match="ROADMAP"):
+                check_serve_plan(plan)
+    check_serve_plan(single_stage_plan(4, dp=1, tp=1, micro_batch=1,
+                                       grad_accum=1))
+    two = single_stage_plan(4, dp=1, tp=1, micro_batch=1, grad_accum=1)
+    two = two.replace(stages=two.stages * 2)
+    for check in (lambda p: check_train_plan(p, 2), check_serve_plan):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            check(two)
     assert isinstance(build_model(cfg, "cpu"), Model)
 
 

@@ -41,8 +41,8 @@ from repro_torch.core.plan import Plan, StageConfig, single_stage_plan
 from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
 from repro_torch.lowering import (MEMORY_REL_TOL, check_plan_mesh,
-                                  check_single_device_plan, lower_plan,
-                                  memory_consistency, plan_mesh)
+                                  check_serve_plan, check_train_plan,
+                                  lower_plan, memory_consistency, plan_mesh)
 from repro_torch.parallel.sharding import abstract_mesh
 
 ARCHS = ("granite-3-8b", "zamba2-2.7b")
@@ -211,15 +211,22 @@ def test_pipeline_mesh_needs_a_stage_axis_of_its_size():
 
 
 def test_abstract_lowering_is_not_an_execution_guard():
-    """Lowering reaches any mesh; execution stays at one stage with
-    dp = tp = 1."""
+    """Lowering reaches any mesh; training executes a single-stage plan on
+    exactly dp · tp ranks, serving on one device."""
     plan = single_stage_plan(4, dp=4, tp=2, micro_batch=1, grad_accum=1)
     low = lower_plan(get_arch("granite-3-8b").reduced(), None, plan,
                      plan_mesh(plan))
     assert low.serve_exec_cfg.ckpt_layers == 0
     assert low.plan_exec_cfg.attn_impl == plan.attn_impl
-    with pytest.raises(ValueError, match="dp = tp = 1"):
-        check_single_device_plan(plan)
+    check_train_plan(plan, 8)
+    for world in (1, 4):
+        with pytest.raises(ValueError, match="world has"):
+            check_train_plan(plan, world)
+    with pytest.raises(ValueError, match="serves with dp = tp = 1"):
+        check_serve_plan(plan)
+    piped = Plan(grad_accum=1, stages=(_stage(2), _stage(2)))
+    with pytest.raises(ValueError, match="pipeline"):
+        check_train_plan(piped, 2)
 
 
 def _json_after(out: str) -> str:
