@@ -99,15 +99,31 @@ D. Multi-device plans.  D1: phase U's tuned plan through the launcher on
    trained as rank 0 of 4 in a child process under torch's ``fake``
    process group (its collectives move nothing, so the loss is not
    checked): exact launch counts per step, this rank's allocator peak
-   beside the plan's predicted bytes per device, and the step time of one
-   rank's compute without communication.  With two or more cards visible,
-   the reduced config at dp 2 ZeRO 3 and at tp 2 with sequence
-   parallelism through NCCL, its losses within 1e-2 of one card's, and
-   with four or more D2's plan on four cards through NCCL (launch counts,
-   finite losses, the step time with communication); with one, it prints
-   ``multi_card: not run (1 visible)``.  Phase 2 holds the
-   flash kernels at the tp-4 rank's shape (B 4, S 4096, H 8, KV 2, hd 128)
-   against their plain versions, and phase 4's timings add that shape.
+   beside the plan's predicted bytes per device (at most 1.02x), split by
+   term (the
+   state's own bytes, and the allocator's bytes at the boundaries of each
+   micro-batch's forward and backward and around the update), and the
+   step time of one rank's compute without communication.  With two or
+   more cards visible, the reduced config at dp 2 ZeRO 3 and at tp 2 with
+   sequence parallelism through NCCL, its losses within 1e-2 of one
+   card's, and with four or more the reduced config's pipelines (S 2 x dp
+   2 at ZeRO 1, S 4) through NCCL against one card and D2's plan on four
+   cards through NCCL (launch counts, finite losses, the step time with
+   communication); with one, it prints ``multi_card: not run (1
+   visible)``.  Phase 2 holds the flash kernels at the tp-4 rank's shape
+   (B 4, S 4096, H 8, KV 2, hd 128) against their plain versions, and
+   phase 4's timings add that shape.
+P. Pipelined plans: granite-3-8b at full depth and width tuned for 16
+   H100s (seq 4096, global batch 32); the tuner picks one stage there, so
+   the ``uniform`` space at S = 2 gives the plan (20 + 20 layers, tp 8
+   with SP, micro-batch 2, G 16), and both plans are printed.  The first
+   stage's rank 0 and the last stage's first rank, each through the
+   launcher (``--plan-json``) in a child process under the ``fake`` group
+   (sends, receives and collectives move nothing): exact launch counts per
+   step (that stage's layers, the final norm on the last), the allocator's
+   peak beside the stage's predicted bytes, one rank's compute per step.
+   Phase 2 holds the flash kernels at the stage rank's shape (B 2, S 4096,
+   H 4, KV 1, hd 128), and the kernels line adds that shape.
 5. Phases 3 and 4 for full-width zamba2-2.7b (all 54 Mamba2 layers in 9
    groups, one shared attention block, bf16): logits kernels vs plain
    (both held against the plain versions in f32, see ACCURACY_ROOM),
@@ -249,7 +265,16 @@ C_STEPS, C_WARMUP = 4, 2
 # 8 / 4 kv heads
 D_STEPS = 3
 D2_DEVICES, D2_GBS = 4, 8
+# D2's allocator peak over its predicted bytes per device, at most (read
+# 0.958 on an H100 80GB HBM3 at 700 W, PERF.md)
+D2_PEAK_ROOM = 1.02
 R_BATCH, R_HEADS, R_KV = 4, N_HEADS // D2_DEVICES, N_KV // D2_DEVICES
+# phase P: pipelined plans.  granite-3-8b at full depth and width tuned for
+# sixteen H100s (two HGX hosts), seq 4096, global batch 32; a stage's rank
+# of the tp-8 plan runs flash attention at micro-batch 2, 32 / 8 query
+# heads and 8 / 8 kv heads
+P_DEVICES, P_GBS, P_TP = 16, 32, 8
+P_BATCH, P_HEADS, P_KV = 2, N_HEADS // P_TP, N_KV // P_TP
 
 
 def log(msg: str) -> None:
@@ -465,7 +490,10 @@ def phase_kernels_vs_plain():
         (2, 129, 200, 8, 2, 32, False),
         # a rank of the tp-4 plan (phase D)
         (R_BATCH, T_SEQ, T_SEQ, R_HEADS, R_KV, HEAD_DIM, True),
+        # a pipeline stage's rank of the tp-8 plan (phase P)
+        (P_BATCH, T_SEQ, T_SEQ, P_HEADS, P_KV, HEAD_DIM, True),
     ]
+    rank_cases = {len(cases) - 2: "tp4", len(cases) - 1: "tp8"}
     for i, (b, sq, sk, h, kv, hd, causal) in enumerate(cases):
         q, k, v = _qkv(b, sq, sk, h, kv, hd, seed=10 + i)
         o, lse = FA.flash_attention(q, k, v, causal=causal)
@@ -482,8 +510,8 @@ def phase_kernels_vs_plain():
                                  f"plain version (case {i})")
         if i < 2:
             errs[f"flash_attention_fwd@hd{hd}"] = err_o
-        if i == len(cases) - 1:
-            errs["flash_attention_fwd@tp4"] = err_o
+        if i in rank_cases:
+            errs[f"flash_attention_fwd@{rank_cases[i]}"] = err_o
 
     rn_cases = [  # (rows, d, x dtype, scale dtype, aligned)
         (BATCH * PROMPT_LEN, D_MODEL, None, None, True),
@@ -624,7 +652,9 @@ def _backward_kernels_vs_plain():
         (2, 129, 200, 8, 2, 32, False),
         (2, 256, 333, 8, 8, 80, False),
         (R_BATCH, T_SEQ, T_SEQ, R_HEADS, R_KV, HEAD_DIM, True),  # tp-4 rank
+        (P_BATCH, T_SEQ, T_SEQ, P_HEADS, P_KV, HEAD_DIM, True),  # tp-8 stage
     ]
+    rank_cases = {len(cases) - 2: "tp4", len(cases) - 1: "tp8"}
     def check(what, got, want):
         res = [flash_bwd_close(g, w) for g, w in zip(got, want)]
         log(f"# flash bwd {what}: dq/dk/dv max err "
@@ -658,8 +688,9 @@ def _backward_kernels_vs_plain():
         want = plain(q, k, v, o, lse, dout, causal)
         res = check(f"B{b} Sq{sq} Sk{sk} H{h} KV{kv} hd{hd} causal={causal}",
                     got, want)
-        if i == len(cases) - 1:
-            errs["flash_attention_bwd@tp4"] = max(r[1] for r in res)
+        if i in rank_cases:
+            errs[f"flash_attention_bwd@{rank_cases[i]}"] = max(
+                r[1] for r in res)
         if i == 0:
             train = (q, k, v, o, lse, dout), want
             errs["flash_attention_bwd"] = max(r[1] for r in res)
@@ -2157,23 +2188,116 @@ def _d1_world_size_one(plan):
                              f"device in {differ}")
 
 
-# rank 0 of a multi-device plan on this one card: the process joins a
-# "fake" process group of the plan's world size, whose collectives return
-# at once and move nothing
-_FAKE_RANK0 = r"""
+# one rank of a multi-device plan on this one card: the process joins a
+# "fake" process group of the plan's world size (argv 2) as the given rank
+# (argv 3), whose collectives, sends and receives return at once and move
+# nothing; HOOK runs before the launcher
+_FAKE_RANK = r"""
+import json
 import sys
 sys.path.insert(0, sys.argv[1])
 import torch
 import torch.distributed as dist
 from torch.testing._internal.distributed.fake_pg import FakeStore
 torch.cuda.set_device(0)
-dist.init_process_group("fake", store=FakeStore(), rank=0,
+dist.init_process_group("fake", store=FakeStore(), rank=int(sys.argv[3]),
                         world_size=int(sys.argv[2]))
+split = []
+HOOK
 from repro_torch.launch import train
-rc = train.main(sys.argv[3:])
+rc = train.main(sys.argv[4:])
+if split:
+    print("# memory split: " + json.dumps(split))
 dist.destroy_process_group()
 raise SystemExit(rc)
 """
+
+# the allocator's bytes at the boundaries of each micro-batch's forward and
+# backward and around the optimizer step, and the state's own bytes: a
+# rank's peak split by term (run in the fake-rank child, before the
+# launcher).  Each phase's peak is read and the peak statistic reset; the
+# launcher's own max_memory_allocated then reads the largest of them.
+_MEMORY_SPLIT = r"""
+from repro_torch.training import optimizer as OPT
+from repro_torch.training import step as ST
+top = [0]
+real_max = torch.cuda.max_memory_allocated
+
+
+def phase_peak():
+    p = real_max()
+    top[0] = max(top[0], p)
+    torch.cuda.reset_peak_memory_stats()
+    return p
+
+
+torch.cuda.max_memory_allocated = lambda *a, **k: max(top[0], real_max())
+
+
+def micro_steps(model, params, micros, ec, sink):
+    run_ec = ec.replace(compute_dtype=params["embed/w"].dtype, sink=sink)
+    losses = []
+    for micro in micros:
+        phase_peak()
+        before = torch.cuda.memory_allocated()
+        loss = model.loss_fn(params, micro, run_ec)
+        fwd_peak, after_fwd = phase_peak(), torch.cuda.memory_allocated()
+        loss.backward()
+        split.append(dict(before_fwd=before, fwd_peak=fwd_peak,
+                          after_fwd=after_fwd, bwd_peak=phase_peak(),
+                          after_bwd=torch.cuda.memory_allocated()))
+        losses.append(loss.detach())
+        del loss
+    return losses
+
+
+real_adam = OPT.adam_update
+
+
+def on_card(v):
+    parts = v.values() if isinstance(v, dict) else (v,)
+    return sum(t.numel() * t.element_size() for t in parts if t.is_cuda)
+
+
+def adam_update(state, grads, *a):
+    phase_peak()
+    before = torch.cuda.memory_allocated()
+    held = {e: sum(on_card(v) for v in state[e].values())
+            for e in ("params", "master", "mu", "nu")}
+    held["grad_sums"] = sum(on_card(g) for g in grads.values())
+    out = real_adam(state, grads, *a)
+    split.append(dict(adam_before=before, adam_peak=phase_peak(),
+                      state_bytes=held))
+    return out
+
+
+ST.micro_steps = micro_steps
+OPT.adam_update = adam_update
+"""
+
+
+def _split_terms(text, accum):
+    """The last step's readings of ``_MEMORY_SPLIT`` as terms: the state
+    (bf16 weights, master, mu and nu on the card), the f32 gradient sums,
+    the activations one micro-batch's forward leaves for its backward, and
+    the transients above them in the forward, the backward and the update
+    (bytes)."""
+    got = json.loads(re.search(r"# memory split: (.*)", text).group(1))
+    *micro, adam = got[-(accum + 1):]
+    held = adam["state_bytes"]
+    acts = max(m["after_fwd"] - m["before_fwd"] for m in micro)
+    return {
+        "weights_bf16": held["params"],
+        "master_mu_nu": held["master"] + held["mu"] + held["nu"],
+        "grad_sums_f32": held["grad_sums"],
+        "saved_activations_one_micro_batch": acts,
+        "forward_transient": max(m["fwd_peak"] - m["after_fwd"]
+                                 for m in micro),
+        "backward_transient_over_saved": max(m["bwd_peak"] - m["after_fwd"]
+                                             for m in micro),
+        "update_transient": adam["adam_peak"] - adam["adam_before"],
+        "phase_peaks": [max(m["fwd_peak"], m["bwd_peak"]) for m in micro]
+        + [adam["adam_peak"]]}
 
 
 def _d2_rank0_of_four():
@@ -2183,13 +2307,15 @@ def _d2_rank0_of_four():
     beside the plan's predicted bytes per device, and the step time of one
     rank's compute with no communication.  The collectives move nothing,
     so the loss is not checked."""
-    args = [str(D2_DEVICES), "--arch", "granite-3-8b", "--tune",
+    args = [str(D2_DEVICES), "0", "--arch", "granite-3-8b", "--tune",
             "--devices", str(D2_DEVICES), "--steps", str(D_STEPS), "--seq",
             str(T_SEQ), "--global-batch", str(D2_GBS)]
     t0 = time.perf_counter()
-    text = _launcher_process(args, code=_FAKE_RANK0, timeout=900)
+    text = _launcher_process(
+        args, code=_FAKE_RANK.replace("HOOK", _MEMORY_SPLIT), timeout=900)
     secs = time.perf_counter() - t0
     plan = _tuned_plan(text)
+    split = _split_terms(text, plan.grad_accum)
     st = plan.stages[0]
     if st.dp * st.tp != D2_DEVICES:
         raise AssertionError(f"the tuned plan is not for {D2_DEVICES} ranks")
@@ -2206,9 +2332,15 @@ def _d2_rank0_of_four():
         launches_per_step=per_step, max_memory_allocated=peak,
         predicted_peak_bytes_per_device=pred,
         allocator_over_predicted=peak / pred,
+        peak_split_by_term=split,
         step_ms_compute_of_one_rank_no_communication=ms,
         median_step_ms_after_first=statistics.median(ms[1:]),
         process_seconds=secs, smi=smi_line())}))
+    # the memory report sizes the plans: the rank's peak may not run past
+    # its predicted bytes by more than 2%
+    if peak > D2_PEAK_ROOM * pred:
+        raise AssertionError(f"rank 0 of the tp plan peaks at {peak} B, over "
+                             f"{D2_PEAK_ROOM} x its predicted {pred} B")
     # the kernel rows of phases 2 and 4 pair these counts with this shape
     if rank_shape != (R_BATCH, T_SEQ, R_HEADS, R_KV):
         raise AssertionError(f"the tuned plan's rank runs flash attention at "
@@ -2253,8 +2385,36 @@ def _multi_card():
         if not ok:
             raise AssertionError(f"multi_card {name}: losses off one card's")
     if n < D2_DEVICES:
-        log(f"multi_card: D2 on {D2_DEVICES} cards not run ({n} visible)")
+        log(f"multi_card: the pipelines and D2 on {D2_DEVICES} cards not "
+            f"run ({n} visible)")
         return
+    # pipelined plans of the reduced config on four cards through NCCL (1F1B
+    # hand-offs over NVLink), their losses held to one card's
+    from repro_torch.core.plan import Plan, StageConfig
+    one = single_stage_plan(4, dp=1, tp=1, micro_batch=4, grad_accum=2,
+                            zero=1, ckpt_layers=0, attn_impl="pallas",
+                            use_pallas=True)
+    path = build / "multi_pipe_1.json"
+    path.write_text(one.to_json())
+    want = _launcher_lines(_launcher_process(
+        base + ["--plan-json", str(path)]))[1]
+    for name, S, dp in (("s2_dp2_z1", 2, 2), ("s4", 4, 1)):
+        plan = Plan(grad_accum=2, attn_impl="pallas", use_pallas=True,
+                    stages=tuple(StageConfig(
+                        layers=4 // S, micro_batch=4 // dp, dp=dp, tp=1,
+                        zero=1, ckpt_layers=0) for _ in range(S)))
+        path = build / f"multi_pipe_{name}.json"
+        path.write_text(plan.to_json())
+        text = _launcher_process(base + ["--plan-json", str(path),
+                                         "--nproc", "4"])
+        losses = [float(x) for x in
+                  re.search(r"# losses: (.*)", text).group(1).split()]
+        ok = all(abs(a - b) <= REDUCED_LOSS_RTOL * abs(b)
+                 for a, b in zip(losses, want)) and len(losses) == len(want)
+        log(json.dumps({"multi_card": dict(case=name, losses_4_cards=losses,
+                                           losses_1_card=want, ok=ok)}))
+        if not ok:
+            raise AssertionError(f"multi_card {name}: losses off one card's")
     t0 = time.perf_counter()
     text = _launcher_process(
         ["--arch", "granite-3-8b", "--tune", "--devices", str(D2_DEVICES),
@@ -2278,6 +2438,111 @@ def _multi_card():
         process_seconds=time.perf_counter() - t0, smi=smi_line())}))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"D2 on four cards: losses {losses}")
+
+
+# ---------------------------------------------------------------------------
+# phase P: pipelined plans
+# ---------------------------------------------------------------------------
+
+
+def _pipeline_plan():
+    """granite-3-8b at full depth tuned for P_DEVICES H100s; when that plan
+    has one stage, or stages that differ in (dp, tp), the uniform space's
+    plan at S = 2 too, which phase P then runs (with the flash-attention
+    kernel the cost model priced)."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.tuner import tune
+    cfg = get_arch("granite-3-8b")
+    shape = ShapeConfig("p", T_SEQ, P_GBS, "train")
+    reps = {"mist": tune(cfg, shape, P_DEVICES)}
+    plan = reps["mist"].plan
+    if plan.num_stages == 1 or len({(st.dp, st.tp)
+                                    for st in plan.stages}) > 1:
+        reps["uniform_s2"] = tune(cfg, shape, P_DEVICES, space="uniform",
+                                  stage_counts=(2,))
+        plan = reps["uniform_s2"].plan
+    log(json.dumps({"p_tuned": {k: dict(
+        plan=json.loads(r.plan.to_json()), predicted_step_s=r.objective,
+        tune_seconds=r.tune_seconds) for k, r in reps.items()}}))
+    return plan.replace(attn_impl="pallas", use_pallas=True)
+
+
+def _stage_launches(layers, ckpt, accum, last):
+    """``_train_launches`` of one pipeline stage: its layers, and the final
+    norm on the last stage only."""
+    want = _train_launches(layers, ckpt, accum)
+    if not last:
+        want["rmsnorm"] -= accum
+        want["rmsnorm_bwd"] -= accum
+    return want
+
+
+def _stage_lines(text, stage):
+    """A stage rank's step times, launch counts and peak-memory numbers
+    (allocator, predicted), from the launcher's ``(stage s)`` lines."""
+    tag = re.escape(f"(stage {stage})")
+    ms = re.search(rf"# step ms {tag}: (.*)", text)
+    counts = re.search(rf"# launches {tag}: (.*)", text)
+    peak = re.search(rf"# peak memory {tag}: max_memory_allocated (\d+) B "
+                     r".*predicted (\d+) B", text)
+    if not (ms and counts and peak):
+        raise AssertionError(f"the launcher's output lacks stage {stage}'s "
+                             "lines")
+    return ([float(x) for x in ms.group(1).split()],
+            json.loads(counts.group(1)), int(peak.group(1)),
+            int(peak.group(2)))
+
+
+def phase_pipeline():
+    """The first stage's rank 0 and the last stage's first rank of
+    granite's pipelined plan for P_DEVICES H100s, each through the
+    launcher (``--plan-json``) in a child process under the ``fake``
+    group (its sends, receives and collectives move nothing, so the loss
+    is not checked): exact launch counts per step, the allocator's peak
+    beside the stage's predicted bytes per device, one rank's compute per
+    step.  Returns the first stage rank's launches per step."""
+    t0 = time.perf_counter()
+    plan = _pipeline_plan()
+    S, st = plan.num_stages, plan.stages[0]
+    if S < 2 or len({(x.dp, x.tp) for x in plan.stages}) > 1:
+        raise AssertionError("phase P has no pipelined plan to run")
+    shape = (st.micro_batch, T_SEQ, N_HEADS // st.tp,
+             N_KV // st.tp if N_KV % st.tp == 0 else None)
+    if shape != (P_BATCH, T_SEQ, P_HEADS, P_KV):
+        raise AssertionError(f"the pipelined plan's ranks run flash attention "
+                             f"at B, S, H, KV = {shape}; phases 2 and 4 time "
+                             f"{(P_BATCH, T_SEQ, P_HEADS, P_KV)}")
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    path = build / "p_plan.json"
+    path.write_text(plan.to_json())
+    out = {}
+    for s in (0, S - 1):
+        rank = s * st.dp * st.tp
+        t1 = time.perf_counter()
+        text = _launcher_process(
+            [str(plan.devices), str(rank), "--arch", "granite-3-8b",
+             "--plan-json", str(path), "--steps", str(D_STEPS), "--seq",
+             str(T_SEQ), "--global-batch", str(P_GBS)],
+            code=_FAKE_RANK.replace("HOOK", ""), timeout=900)
+        ms, counts, peak, pred = _stage_lines(text, s)
+        sc = plan.stages[s]
+        rule = _stage_launches(sc.layers, min(sc.ckpt_layers, sc.layers),
+                               plan.grad_accum, s == S - 1)
+        per_step = _per_step(counts, rule, D_STEPS, f"stage {s}'s rank")
+        out[s] = per_step
+        log(json.dumps({"p_stage_rank": dict(
+            model="granite-3-8b", layers=sc.layers, stage=s, stages=S,
+            rank=rank, world=plan.devices, seq=T_SEQ, global_batch=P_GBS,
+            plan=json.loads(plan.to_json()), rank_flash_shape_B_S_H_KV=shape,
+            launches_per_step=per_step, max_memory_allocated=peak,
+            predicted_peak_bytes_of_stage=pred,
+            allocator_over_predicted=peak / pred,
+            step_ms_compute_of_one_rank_no_communication=ms,
+            median_step_ms_after_first=statistics.median(ms[1:]),
+            process_seconds=time.perf_counter() - t1, smi=smi_line())}))
+    log(f"# phase P: {time.perf_counter() - t0:.1f} s")
+    return out[0]
 
 
 def _tuned_plan(text):
@@ -2493,6 +2758,21 @@ def main() -> int:
                         errs["flash_attention_bwd@tp4"],
                         (R_BATCH, T_SEQ, R_HEADS, R_KV, HEAD_DIM),
                         "granite-3-8b (tp-4 rank, training)")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # pipelined plans: two stage ranks of granite's plan for 16 H100s
+    stage_launches = phase_pipeline()
+    kernels += [
+        _time_flash("granite-3-8b (tp-8 pipeline stage rank, training)",
+                    P_BATCH, T_SEQ, P_HEADS, P_KV, HEAD_DIM,
+                    stage_launches["flash_attention_fwd"],
+                    errs["flash_attention_fwd@tp8"]),
+        _time_flash_bwd(stage_launches["flash_attention_bwd"],
+                        errs["flash_attention_bwd@tp8"],
+                        (P_BATCH, T_SEQ, P_HEADS, P_KV, HEAD_DIM),
+                        "granite-3-8b (tp-8 pipeline stage rank, training)")]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

@@ -10,7 +10,12 @@ f32 (exact) and is rounded back here (exact again).  A train state
 leaves ``{"host", "dev"}`` included.  A rank's shards of a multi-device
 train state cross whole: ``gather_train_state`` assembles the full state
 on rank 0, ``shard_train_state`` cuts a rank's part of a full one (both by
-``LoweredPlan.state_specs``).
+``LoweredPlan.state_specs``).  A pipelined plan's state crosses the same
+way across its stages: each stage's stacked layers in their place in the
+whole stack, the embedding, head and final norm from the first stage, and
+every optimizer leaf whole (the stages split their host parts by their own
+WO/OO, so a gathered leaf joins its host and device parts, and a rank's
+cut is split again by its stage's).
 """
 from __future__ import annotations
 
@@ -123,53 +128,105 @@ def train_state_to_numpy(state: Mapping) -> Dict:
     }
 
 
-def _state_specs(cfg, plan, mesh):
+def _lowered(cfg, plan, mesh):
     from repro_torch.lowering import lower_plan
-    return lower_plan(cfg, None, plan, mesh).state_specs()
+    return lower_plan(cfg, None, plan, mesh)
+
+
+def _joined(v):
+    """A split leaf ``{"host", "dev"}`` as one tensor or array."""
+    if not isinstance(v, Mapping):
+        return v
+    if isinstance(v["dev"], torch.Tensor):
+        return torch.cat([v["host"].to(v["dev"].device), v["dev"]])
+    return np.concatenate([v["host"], v["dev"]])
 
 
 def gather_train_state(state: Mapping, cfg, plan, mesh) -> Optional[Dict]:
     """One rank's shards of a train state (``training.step.
     init_sharded_state``) -> the full state as numpy on rank 0 (None on the
-    other ranks), in ``train_state_to_numpy``'s form.  Every rank must
-    call it: each shard is all-gathered over the mesh axes its spec
-    names."""
+    other ranks), in ``train_state_to_numpy``'s form (a pipelined plan's
+    optimizer leaves whole, module docstring).  Every rank must call it:
+    each shard is all-gathered over the mesh axes its spec names, and each
+    stage's first rank sends its stage's part to rank 0."""
+    from repro_torch.launch.mesh import mesh_coords
     from repro_torch.models.common import all_gather_dim
     dev = state["step"].device
     if dev.type == "cuda":
         # adam_update writes the host parts back with non-blocking copies
         torch.cuda.synchronize(dev)
-    specs = _state_specs(cfg, plan, mesh)
-    rank0 = dist.get_rank() == 0
+    low = _lowered(cfg, plan, mesh)
+    coords = mesh_coords(mesh)
+    stage = coords.get("stage", 0)
+    specs = low.state_specs(stage)
+    piped = len(low.stages) > 1
+    lead = coords["data"] == coords["model"] == 0
+    keep = dist.get_rank() == 0 or (piped and lead)
 
     def whole(t, spec):
         t = t.to(dev)
         for d, ax in enumerate(spec):
             if ax is not None:
                 t = all_gather_dim(t, d, mesh.get_group(ax))
-        return _to_numpy(t) if rank0 else None
+        return _to_numpy(t) if keep else None
 
     def leaf(v, spec):
         if isinstance(v, Mapping):
-            return {k: whole(x, spec[k]) for k, x in v.items()}
+            parts = {k: whole(x, spec[k]) for k, x in v.items()}
+            return _joined(parts) if piped and keep else parts
         return whole(v, spec)
 
     out = {"step": np.asarray(_to_numpy(state["step"]), np.int32)}
     for e in ("params", "master", "mu", "nu"):
         out[e] = {n: leaf(v, specs[e][n]) for n, v in state[e].items()}
-    return out if rank0 else None
+    if not piped:
+        return out if keep else None
+    parts = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+    dist.gather_object((stage, out) if keep else None, parts, dst=0)
+    if dist.get_rank() != 0:
+        return None
+    stages = dict(p for p in parts if p is not None)
+    full = {"step": stages[0]["step"]}
+    for e in ("params", "master", "mu", "nu"):
+        full[e] = {}
+        for n, v in stages[0][e].items():
+            full[e][n] = v if not n.startswith("layers/") else \
+                np.concatenate([stages[i][e][n] for i in sorted(stages)])
+    return full
 
 
 def shard_train_state(full: Mapping, cfg, plan, mesh, *,
                       param_dtype: torch.dtype = torch.bfloat16,
                       device: Device = "cpu") -> Dict:
-    """A full train state as numpy (``train_state_to_numpy``'s form) ->
-    this rank's part of it, on ``device``."""
+    """A full train state as numpy (``train_state_to_numpy``'s form, or a
+    pipelined plan's ``gather_train_state``) -> this rank's part of it, on
+    ``device``."""
     from repro_torch.launch.mesh import mesh_coords
     from repro_torch.lowering import shard_tensor
     from repro_torch.parallel.sharding import mesh_shape
-    specs = _state_specs(cfg, plan, mesh)
+    from repro_torch.training.optimizer import split_k
+    low = _lowered(cfg, plan, mesh)
     sizes, coords = mesh_shape(mesh), mesh_coords(mesh)
+    stage = coords.get("stage", 0)
+    specs = low.state_specs(stage)
+    if len(low.stages) > 1:
+        # the stage's layers and params, its own host splits
+        ls = low.stages[stage]
+        lo, hi = ls.layers
+        metas, axes = low.stage_params(stage)
+        ratio = {"master": ls.stage.wo, "mu": ls.stage.oo,
+                 "nu": ls.stage.oo}
+
+        def mine(e, n, v):
+            v = np.asarray(_joined(v))
+            if n.startswith("layers/"):
+                v = v[lo:hi]
+            k = split_k(n, v.shape, axes, ratio.get(e, 0.0))
+            return {"host": v[:k], "dev": v[k:]} if k else v
+
+        full = {"step": full["step"], **{
+            e: {n: mine(e, n, full[e][n]) for n in metas}
+            for e in ("params", "master", "mu", "nu")}}
 
     def cut(v, spec):
         if isinstance(v, Mapping):

@@ -405,32 +405,44 @@ class StageCostModel:
         }
 
         # ---- collective times (per microbatch) ------------------------------
-        ici = hw.ici_bw_total * cp.ici_eff
+        ici_tp = ici_dp = hw.ici_bw_total * cp.ici_eff
+        if hw.devices_per_host:
+            # ranks lie stage-major, then d * tp + t inside a stage
+            # (launch/mesh.py): a tp group spans hosts when tp exceeds a
+            # host, a data group (and the ZeRO collectives over it) when
+            # the stage's dp * tp does; their links then run at dci_bw.
+            # Within a host the blend is exactly ici, bit for bit
+            dci = hw.dci_bw * cp.ici_eff
+            host = float(hw.devices_per_host)
+            ici_tp = where(tp > host, dci, ici_tp)
+            ici_dp = where(dp * tp > host, dci, ici_dp)
         lat = cp.coll_latency_us * 1e-6
         tp_on = (tp > 1)
         # TP: 2 AR (or AG+RS pair ~ same wire bytes) per layer fwd; 2 in bwd
         tp_wire_l = 2.0 * (2.0 * (tp - 1.0) / tp) * (2.0 * st.d_model * tok
                                                      / sp_div)
         attn_layers = st.attn_layers_frac
-        t_tp_fwd = tp_on * (L * tp_wire_l / ici + L * 2.0 * lat)
-        t_tp_bwd = tp_on * (L * tp_wire_l / ici + L * 2.0 * lat) \
+        t_tp_fwd = tp_on * (L * tp_wire_l / ici_tp + L * 2.0 * lat)
+        t_tp_bwd = tp_on * (L * tp_wire_l / ici_tp + L * 2.0 * lat) \
             + tp_on * t_recompute * 0.0  # recompute TP comm folded below
         # recomputed layers redo their fwd TP collectives in bwd
-        t_tp_bwd = t_tp_bwd + tp_on * (ck * tp_wire_l / ici)
+        t_tp_bwd = t_tp_bwd + tp_on * (ck * tp_wire_l / ici_tp)
 
         dp_on = (dp > 1)
         w_msg = 2.0 * n_tp                      # bf16 params
         g_msg = 4.0 * n_tp                      # f32 grads
         # ZeRO-3: AG params each microbatch fwd + bwd
-        t_z3_fwd = z3 * dp_on * ((dp - 1.0) / dp * w_msg / ici + lat * 8.0)
+        t_z3_fwd = z3 * dp_on * ((dp - 1.0) / dp * w_msg / ici_dp
+                                 + lat * 8.0)
         t_z3_bwd = t_z3_fwd
         # ZeRO-2: RS grads each microbatch (no persistent full-grad buffer)
-        t_z2_rs = z2 * dp_on * ((dp - 1.0) / dp * g_msg / ici + lat * 8.0)
+        t_z2_rs = z2 * dp_on * ((dp - 1.0) / dp * g_msg / ici_dp + lat * 8.0)
         # ZeRO<=1: one grad AR at the last microbatch
-        t_dp_sync = (1.0 - z2) * dp_on * (2.0 * (dp - 1.0) / dp * g_msg / ici
-                                          + lat * 8.0)
+        t_dp_sync = (1.0 - z2) * dp_on * (2.0 * (dp - 1.0) / dp * g_msg
+                                          / ici_dp + lat * 8.0)
         # ZeRO>=1: updated-param AG once per step (first microbatch)
-        t_z1_ag = z1 * dp_on * ((dp - 1.0) / dp * w_msg / ici + lat * 8.0)
+        t_z1_ag = z1 * dp_on * ((dp - 1.0) / dp * w_msg / ici_dp
+                                + lat * 8.0)
 
         # ---- host-offload DMA times -----------------------------------------
         host = hw.host_bw * cp.host_eff

@@ -27,7 +27,7 @@ class HardwareSpec:
     ici_bw: float = 25e9
     ici_links: int = 18
     # across hosts: one 400 Gb/s NIC per GPU (50 GB/s, the H100 HGX
-    # reference design); the cost model does not price it yet
+    # reference design)
     dci_bw: float = 50e9
     # data sheet: PCIe Gen5 x16, 64 GB/s per direction.  Measured on one
     # H100 80GB HBM3 (700 W) for the WO/OO host copies of a train step:
@@ -40,10 +40,16 @@ class HardwareSpec:
     # Read only by the kernel terms of the cost model, which still price
     # the reference's TPU tiles (ROADMAP.md, the Hopper tile menu)
     vmem_bytes: float = 232448.0
+    # devices one fast fabric joins (``ici_bw``); a collective whose group
+    # spans more is priced at ``dci_bw`` (``costmodel.StageCostModel``).
+    # 0: one fabric joins every device, the reference's single-fabric
+    # pricing
+    devices_per_host: int = 0
 
     @property
     def ici_bw_total(self) -> float:
         return self.ici_bw * self.ici_links
 
 
-H100 = HardwareSpec()
+# data sheet: an HGX H100 host joins 8 GPUs over NVLink
+H100 = HardwareSpec(devices_per_host=8)

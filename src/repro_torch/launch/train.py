@@ -47,17 +47,21 @@ allocator's peak beside the plan's predicted bytes per device
 (``--save-params`` writes the losses and the final params, whole, to an
 ``.npz``).
 
-Multi-device plans (a single stage with dp · tp > 1) run one process per
-device: ``--nproc N`` spawns N ranks, or ``torchrun`` starts them; either
-way each rank joins the process group from ``RANK`` / ``WORLD_SIZE`` /
-``LOCAL_RANK`` (``launch/mesh.py``: NCCL on cards, gloo with ``--device
-cpu``), and a process that has already joined one keeps it.  Each rank
-builds its part of the state (``init_sharded_state``) and takes its rows
-of the same global batch; rank 0 prints.  The world size must equal the
-plan's dp · tp.  ``--tune`` then tunes on rank 0, which sends the plan
-to every rank, and trains it with the flash-attention kernel the cost
-model priced in place of the ``naive`` attention tuned plans name
-(ROADMAP.md, section C).
+Multi-device plans (dp · tp > 1, or S > 1 pipeline stages) run one
+process per device: ``--nproc N`` spawns N ranks, or ``torchrun`` starts
+them; either way each rank joins the process group from ``RANK`` /
+``WORLD_SIZE`` / ``LOCAL_RANK`` (``launch/mesh.py``: NCCL on cards, gloo
+with ``--device cpu``), and a process that has already joined one keeps
+it.  Each rank builds its part of the state (``init_sharded_state``: on a
+pipeline stage, its own layers) and takes its rows of the same global
+batch; a pipelined plan runs ``parallel/pipeline.py``'s 1F1B step.  Rank 0
+prints; on a pipeline, the first rank of each stage prints its stage's
+step times, launch counts and peak memory, tagged ``(stage s)``.  The
+world size must equal the plan's S · dp · tp, every stage with the same
+(dp, tp) (``check_train_plan``).  ``--tune`` then tunes on rank 0, which
+sends the plan, whatever its S, to every rank, and trains it with the
+flash-attention kernel the cost model priced in place of the ``naive``
+attention tuned plans name (ROADMAP.md, section C), on every stage.
 """
 from __future__ import annotations
 
@@ -264,30 +268,42 @@ def _run(args, device: torch.device, distributed: bool) -> int:
     model = build_model(cfg, device)
     if args.plan_json:
         plan = Plan.from_json(pathlib.Path(args.plan_json).read_text())
-        say(memory_line(cfg, shape, plan))
     elif plan is None:
         plan = single_stage_plan(cfg.num_layers, dp=1, tp=1,
                                  micro_batch=gbs // 2 or 1, grad_accum=2,
                                  zero=1, ckpt_layers=cfg.num_layers // 2,
                                  attn_impl="pallas", use_pallas=True)
+    from repro_torch.lowering import check_train_plan
+    try:
+        check_train_plan(plan, world, cfg.num_layers)
+    except ValueError as e:
+        say(f"error: {e}")
+        return 1
+    if args.plan_json:
+        say(memory_line(cfg, shape, plan))
     gen = torch.Generator(device).manual_seed(0)
-    mesh = None
+    mesh, S, stage = None, plan.num_stages, 0
     if distributed:
-        from repro_torch.launch.mesh import make_plan_mesh
-        from repro_torch.lowering import check_train_plan
+        from repro_torch.launch.mesh import make_plan_mesh, mesh_coords
         from repro_torch.training.step import init_sharded_state
-        try:
-            check_train_plan(plan, world)
-        except ValueError as e:
-            say(f"error: {e}")
-            return 1
         st = plan.stages[0]
-        mesh = make_plan_mesh(st.dp, st.tp, device)
-        step = make_train_step(model, plan, mesh=mesh)
+        mesh = make_plan_mesh(st.dp, st.tp, device, S)
+        if S > 1:
+            from repro_torch.parallel.pipeline import \
+                make_pipeline_train_step
+            step = make_pipeline_train_step(model, plan, mesh)
+            c = mesh_coords(mesh)
+            stage = c["stage"]
+            if c["data"] == c["model"] == 0:
+                def say(*a):    # this stage's lines
+                    print(*a, flush=True)
+        else:
+            step = make_train_step(model, plan, mesh=mesh)
         state = init_sharded_state(model, plan, mesh, gen)
     else:
         step = make_train_step(model, plan)
         state = init_train_state(model, plan, gen)
+    tag = f" (stage {stage})" if S > 1 else ""
     data = SyntheticLM(BatchSpec(global_batch=gbs, seq_len=seq,
                                  vocab_size=cfg.vocab_size))
     if device.type == "cuda":
@@ -305,15 +321,17 @@ def _run(args, device: torch.device, distributed: bool) -> int:
     dt = time.perf_counter() - t0
     n = len(losses)
     counts = {k: v - counts0[k] for k, v in _launch_counts().items()}
-    where = f"{device}" + (f", rank 0 of {world}" if distributed else "")
+    where = f"{device}" + (f", rank {rank} of {world}" if distributed
+                           else "")
     if n:
-        say("# step ms: " + " ".join(f"{x:.1f}" for x in step_ms))
-        say("# losses: " + " ".join(repr(x) for x in losses))
-    say(f"# launches: {json.dumps(counts)}")
+        say(f"# step ms{tag}: " + " ".join(f"{x:.1f}" for x in step_ms))
+        if rank == 0:
+            print("# losses: " + " ".join(repr(x) for x in losses))
+    say(f"# launches{tag}: {json.dumps(counts)}")
     if device.type == "cuda":
         from repro_torch.core.costmodel import estimate_plan
-        est = estimate_plan(cfg, shape, plan)["mem_peak_max"]
-        say(f"# peak memory: max_memory_allocated "
+        est = estimate_plan(cfg, shape, plan)["mem_per_stage"][stage]
+        say(f"# peak memory{tag}: max_memory_allocated "
             f"{torch.cuda.max_memory_allocated(device)} B ({where}); "
             f"predicted {est:.0f} B per device")
     if args.save_params:
@@ -323,9 +341,10 @@ def _run(args, device: torch.device, distributed: bool) -> int:
         if rank == 0:
             np.savez(args.save_params, losses=np.asarray(losses),
                      **full["params"])
-    say(f"trained {n} steps in {dt:.1f}s ({dt / max(1, n):.2f}s/step) on "
-        f"{where}; loss {losses[0]:.3f} -> {losses[-1]:.3f}"
-        if n else f"trained 0 steps on {where}")
+    if rank == 0:
+        print(f"trained {n} steps in {dt:.1f}s ({dt / max(1, n):.2f}s/step) "
+              f"on {where}; loss {losses[0]:.3f} -> {losses[-1]:.3f}"
+              if n else f"trained 0 steps on {where}", flush=True)
     return 0
 
 

@@ -14,13 +14,18 @@ guards the second:
   map every param of the config to the mesh axes its dims are split over,
   the counterparts of the reference's ``param_shardings`` /
   ``grad_shardings`` / ``state_shardings``; ``shard_tensor`` cuts one
-  rank's part of a full tensor by a spec.  The pipeline specs wait for
-  pipelines (ROADMAP.md, queue A: pipeline).
+  rank's part of a full tensor by a spec.  Each stage of a pipelined plan
+  has its own tables: the params it holds (its own stacked layers, and
+  the embedding, head and final norm on the first and last stage only,
+  as ``state_layout.state_terms`` charges them) at its own layer count,
+  and its own layer range of the whole stack (``LoweredStage.layers``).
 
-* Execution: training runs one pipeline stage on exactly dp · tp ranks
-  (``check_train_plan``), serving one stage on one device
-  (``check_serve_plan``); ``train_exec_cfg`` and ``serve_exec_cfg`` apply
-  them before they hand the step builders their ExecConfig.
+* Execution: training runs S stages on exactly S · dp · tp ranks, every
+  stage with the same (dp, tp) (``check_train_plan``); serving one stage
+  on one device (``check_serve_plan``).  ``train_exec_cfg`` and
+  ``serve_exec_cfg`` apply them before they hand the single-stage step
+  builders their ExecConfig; ``parallel/pipeline.py`` takes each stage's
+  own ``exec_cfg``.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.plan import Plan, StageConfig
+from repro_torch.lowering.state_layout import param_class
 from repro_torch.models.common import ExecConfig
 from repro_torch.parallel import sharding as SH
 
@@ -72,6 +78,15 @@ class LoweredStage:
     has_head: bool = True
     # live microbatches at this stage's memory peak (1F1B: S - i)
     inflight: int = 1
+    # this stage's range [start, stop) of the whole layer stack
+    layers: Tuple[int, int] = (0, 0)
+
+    def holds(self, name: str, axes) -> bool:
+        """Whether this stage holds the param: every stage its stacked
+        layers (and a shared block), the first and last stage the
+        embedding, the head and the final norm."""
+        return param_class(name, axes) != "embed" or \
+            self.has_embed or self.has_head
 
 
 @dataclass(frozen=True)
@@ -111,9 +126,23 @@ class LoweredPlan:
         return SH.make_shard_rules(self.mesh, self.stages[i].mesh_axes,
                                    self.plan.sequence_parallel)
 
-    def _spec_table(self, i: int, spec_fn, zero_kw: str) -> Dict[str, Any]:
+    def stage_cfg(self, i: int = 0) -> ArchConfig:
+        """The config of stage ``i``'s program: its own layer count."""
+        if len(self.stages) == 1:
+            return self.cfg
+        return self.cfg.replace(num_layers=self.stages[i].stage.layers)
+
+    def stage_params(self, i: int = 0):
+        """(params, axes) on the meta device of what stage ``i`` holds,
+        at its own layer count."""
         from repro_torch.core.costmodel_params import meta_params
-        params, axes = meta_params(self.cfg)
+        params, axes = meta_params(self.stage_cfg(i))
+        st = self.stages[i]
+        return ({n: p for n, p in params.items() if st.holds(n, axes[n])},
+                axes)
+
+    def _spec_table(self, i: int, spec_fn, zero_kw: str) -> Dict[str, Any]:
+        params, axes = self.stage_params(i)
         st = self.stages[i]
         tp_size = SH.axis_size(self.mesh, st.mesh_axes.tp)
         ep_ok = self.cfg.num_experts > 0 and \
@@ -141,9 +170,8 @@ class LoweredPlan:
         ``param_specs``, master/mu/nu by ``opt_specs``, a WO/OO-split leaf
         as ``{"host", "dev"}`` with the same spec (the split cuts the
         leading layer dim, which is never sharded)."""
-        from repro_torch.core.costmodel_params import meta_params
         from repro_torch.training.optimizer import split_k
-        params, axes = meta_params(self.cfg)
+        params, axes = self.stage_params(i)
         st = self.stages[i].stage
         ospecs = self.opt_specs(i)
 
@@ -225,7 +253,7 @@ def lower_plan(cfg: ArchConfig, shape: Optional[ShapeConfig], plan: Plan,
     parallel degrees (``check_plan_mesh``)."""
     check_plan_mesh(plan, mesh)
     S = plan.num_stages
-    stages = []
+    stages, start = [], 0
     for i, st in enumerate(plan.stages):
         # pipeline stages live in one program whose 'data'/'model' axes
         # are fixed by the mesh; single-stage plans may fold a tp=1
@@ -236,7 +264,8 @@ def lower_plan(cfg: ArchConfig, shape: Optional[ShapeConfig], plan: Plan,
             index=i, stage=st, mesh_axes=ma,
             exec_cfg=stage_exec_config(plan, st),
             has_embed=(i == 0), has_head=(i == S - 1),
-            inflight=max(1, S - i)))
+            inflight=max(1, S - i), layers=(start, start + st.layers)))
+        start += st.layers
     return LoweredPlan(cfg=cfg, shape=shape, plan=plan, mesh=mesh,
                        stages=tuple(stages))
 
@@ -269,20 +298,33 @@ def shard_tensor(x, spec, sizes: Mapping[str, int],
     return x[tuple(idx)]
 
 
-def check_train_plan(plan: Plan, world_size: int = 1) -> None:
+def check_train_plan(plan: Plan, world_size: int = 1,
+                     num_layers: Optional[int] = None) -> None:
     """Reject a training plan this port cannot execute on ``world_size``
-    ranks: it runs one pipeline stage on exactly dp · tp ranks."""
-    if plan.num_stages != 1:
-        raise ValueError(f"plan has {plan.num_stages} pipeline stages; the "
-                         "port trains single-stage plans only (ROADMAP.md, "
-                         "queue A: pipeline)")
-    st = plan.stages[0]
-    if st.dp * st.tp != world_size:
+    ranks: it runs S pipeline stages on exactly S · dp · tp ranks, every
+    stage with the same (dp, tp), so that an activation passes between
+    the ranks at the same (data, model) coordinates of two stages (the
+    reference's executor asks the same, ``uniform_shards``); with
+    ``num_layers``, the stages' layers must add up to it."""
+    S, st = plan.num_stages, plan.stages[0]
+    shards = {(s.dp, s.tp) for s in plan.stages}
+    if len(shards) > 1:
         raise ValueError(
-            f"plan wants dp · tp = {st.dp} x {st.tp} = {st.dp * st.tp} ranks "
-            f"but the world has {world_size}; run it on exactly dp · tp "
-            "ranks (launch/train.py --nproc, or torchrun) or retune it "
-            "(ROADMAP.md, queue A: sharding on torch)")
+            f"plan's {S} stages differ in (dp, tp): {sorted(shards)}; the "
+            "port runs a pipeline whose stages share one (dp, tp) (retune "
+            "with --space uniform; ROADMAP.md, queue A: pipeline)")
+    if num_layers is not None and plan.total_layers != num_layers:
+        raise ValueError(
+            f"plan's stages hold {plan.total_layers} layers; the model has "
+            f"{num_layers} (ROADMAP.md, queue A: pipeline)")
+    if S * st.dp * st.tp != world_size:
+        what = (f"S · dp · tp = {S} x {st.dp} x {st.tp}" if S > 1 else
+                f"dp · tp = {st.dp} x {st.tp}")
+        raise ValueError(
+            f"plan wants {what} = {S * st.dp * st.tp} ranks but the world "
+            f"has {world_size}; run it on exactly that many ranks "
+            "(launch/train.py --nproc, or torchrun) or retune it "
+            "(ROADMAP.md, queue A: sharding on torch and pipeline)")
 
 
 def check_serve_plan(plan: Plan) -> None:
@@ -301,9 +343,14 @@ def check_serve_plan(plan: Plan) -> None:
 
 
 def train_exec_cfg(plan: Plan, world_size: int = 1) -> ExecConfig:
-    """The training exec config: the plan's CKPT/AO segmentation, remat
-    policy and kernel choice for its one stage."""
+    """The training exec config of a single-stage plan: its CKPT/AO
+    segmentation, remat policy and kernel choice (a pipelined plan runs
+    through ``parallel/pipeline.py``, which takes each stage's own)."""
     check_train_plan(plan, world_size)
+    if plan.num_stages != 1:
+        raise ValueError(f"plan has {plan.num_stages} pipeline stages: "
+                         "train it with parallel/pipeline.py "
+                         "(make_pipeline_train_step)")
     return stage_exec_config(plan, plan.stages[0])
 
 

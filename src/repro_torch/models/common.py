@@ -4,8 +4,10 @@ Params are a *flat dict* ``{"path/to/param": Tensor}`` with the reference's
 names and stacked-layer shapes (leading ``L`` dim, or ``(groups, per)``
 dims for the hybrid's Mamba stack), so weights cross
 between the two packages by name (``repro_torch.bridge``).  The layer loop
-is a Python loop: serving takes views ``w[i]`` of the stacked tensors
-(``layer``); training unbinds them once per loss (``unbind_layers``).
+is a Python loop over views ``w[i]`` of the stacked tensors (``layer``),
+which a train step's ``GradSink`` takes into the graph; a caller that
+makes the params autograd leaves itself unbinds them once per loss
+instead (``unbind_layers``).
 
 ``segmented_layer_scan`` realises a plan's CKPT_i/AO_i as the reference
 does, as segments ``[offload-remat | remat | saved]`` of the layer loop:
@@ -31,9 +33,18 @@ The collectives are autograd Functions over plain tensors:
   parallel products gather inside their own Function, which keeps only
   this rank's part of the input for the backward and gathers it again);
 * scatter-sequence: reduce-scatter forward, all-gather backward (the
-  output of a row-parallel product under sequence parallelism);
-* ZeRO-3 gather: all-gather over ``data`` forward, reduce-scatter
-  backward (a weight sharded over the data axis, gathered per layer).
+  output of a row-parallel product under sequence parallelism).
+
+Gradients (``GradSink``, in ``ExecConfig.sink`` while a train step runs):
+the params are no autograd leaves.  Each use of a param -- layer l's slice
+of a stacked weight, the final norm, the embedding's lookup and, tied, its
+head -- enters the graph through a sink whose backward adds that use's
+gradient in f32 into the param's accumulator (``sums[name][l]`` for a
+layer) and hands nothing back, so no whole bf16 gradient of a stacked
+weight is ever made.  Under ZeRO 2 the sink reduce-scatters the gradient
+over ``data`` before it adds it; under ZeRO 3 it also all-gathers the
+weight over ``data`` in the forward (per layer, inside the layer's body,
+so a remat'd layer gathers again in the backward).
 """
 from __future__ import annotations
 
@@ -105,6 +116,9 @@ class ExecConfig:
     # this rank's place in a multi-device plan (``Parallel``); None on one
     # device
     par: Any = None
+    # where a train step's gradients go (``GradSink``); None when the caller
+    # takes gradients itself (autograd leaves) or runs without autograd
+    sink: Any = None
 
     def replace(self, **kw) -> "ExecConfig":
         return dataclasses.replace(self, **kw)
@@ -229,17 +243,14 @@ class Parallel:
 
     ``dp_group``/``tp_group`` are the mesh's process groups, ``dp_rank``/
     ``tp_rank`` its coordinates.  ``sp``: the residual stream is split
-    along the sequence over ``model`` (sequence parallelism, tp > 1).
-    ``gather_dims``: under ZeRO 3, the dim of each param name that is split
-    over ``data`` (the param spec's ``"data"`` entry)."""
+    along the sequence over ``model`` (sequence parallelism, tp > 1)."""
 
     def __init__(self, dp_group, tp_group, dp: int, tp: int, dp_rank: int,
-                 tp_rank: int, sp: bool, gather_dims: Dict[str, int]):
+                 tp_rank: int, sp: bool):
         self.dp_group, self.tp_group = dp_group, tp_group
         self.dp, self.tp = dp, tp
         self.dp_rank, self.tp_rank = dp_rank, tp_rank
         self.sp = sp
-        self.gather_dims = dict(gather_dims)
 
     def tp_in(self, x: torch.Tensor) -> torch.Tensor:
         """Into the tp region: the full sequence on every tp rank."""
@@ -270,18 +281,76 @@ class Parallel:
         n = x.shape[1] // self.tp
         return x[:, self.tp_rank * n:(self.tp_rank + 1) * n]
 
-    def gather(self, params: Params, prefix: str = "", lead: int = 0
-               ) -> Params:
-        """ZeRO 3: each param split over ``data`` gathered whole (its
-        gradient reduce-scattered back in the backward).  ``prefix`` and
-        ``lead`` map a per-layer dict (``unbind_layers``) to the stacked
-        names and dims."""
-        out = {}
-        for n, t in params.items():
-            d = self.gather_dims.get(prefix + n)
-            out[n] = t if d is None else \
-                _GatherDim.apply(t, d - lead, self.dp_group)
-        return out
+
+
+class _Sink(torch.autograd.Function):
+    """``w`` as the graph uses it (all-gathered along ``dim`` over
+    ``group`` when ``gather``); the backward adds the gradient into ``acc``
+    in f32, reduce-scattered along ``dim`` first when ``dim`` is set, and
+    returns nothing.  ``anchor`` is the step's one leaf that requires grad,
+    so that the graph reaches every sink."""
+    @staticmethod
+    def forward(ctx, anchor, w, acc, dim, group, gather):
+        ctx.acc, ctx.dim, ctx.group = acc, dim, group
+        if gather:
+            return all_gather_dim(w, dim, group)
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.dim is None:
+            ctx.acc.add_(g)
+        else:
+            ctx.acc.add_(reduce_scatter_dim(g.float(), ctx.dim, ctx.group))
+        return (None,) * 6
+
+
+class GradSink:
+    """The f32 gradient accumulators of one train step (module docstring).
+
+    ``sums``: name -> this rank's f32 accumulator (the grad spec's shard,
+    zeros at the start of the step).  ``scatter``: name -> the dim the
+    gradient is reduce-scattered along over ``group`` (the grad spec's
+    ``"data"`` entry, ZeRO 2 and 3); ``gather``: the names whose weight is
+    split over ``group`` too (ZeRO 3: the param spec splits the same dim)
+    and is all-gathered along that dim.  Dims count the stacked param's
+    own; a layer's slice drops the leading one."""
+
+    def __init__(self, sums: Params, scatter: Optional[Dict[str, int]] = None,
+                 gather: Sequence[str] = (), group=None):
+        self.sums = sums
+        self.scatter, self.gather = dict(scatter or {}), frozenset(gather)
+        assert self.gather <= set(self.scatter), self.gather
+        self.group = group
+        dev = next(iter(sums.values())).device
+        self.anchor = torch.zeros((), device=dev, requires_grad=True)
+
+    def take(self, name: str, w: torch.Tensor, layer: Optional[int] = None
+             ) -> torch.Tensor:
+        """``w`` (the param ``name``, or its slice ``layer``) entering the
+        graph."""
+        acc, lead = self.sums[name], 0
+        if layer is not None:
+            acc, lead = acc[layer], 1
+        d = self.scatter.get(name)
+        return _Sink.apply(self.anchor, w, acc,
+                           None if d is None else d - lead, self.group,
+                           name in self.gather)
+
+    def params(self, params: Params, prefix: str = "",
+               layer: Optional[int] = None) -> Params:
+        """``take`` of each of ``params``, named ``prefix + name``."""
+        return {n: self.take(prefix + n, w, layer)
+                for n, w in params.items()}
+
+
+def in_use(params: Params, ec: ExecConfig, prefix: str = "",
+           layer: Optional[int] = None) -> Params:
+    """``params`` as the graph uses them: through the train step's sink
+    when there is one (``GradSink.params``), else as they are."""
+    if ec.sink is None:
+        return params
+    return ec.sink.params(params, prefix, layer)
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +369,9 @@ class ParamBuilder:
 
     def __init__(self, generator: Optional[torch.Generator],
                  dtype=torch.bfloat16, device: Union[str, torch.device] = "cpu",
-                 shard: Optional[Callable] = None):
+                 shard: Optional[Callable] = None,
+                 layers: Optional[Tuple[int, int]] = None,
+                 keep: Optional[Callable[[str], bool]] = None):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(device)
@@ -308,15 +379,30 @@ class ParamBuilder:
         # (lead 0) or one slice of its ``lead`` leading layer dims.  Every
         # rank draws the same numbers and keeps its part.
         self.shard = shard
+        # a pipeline stage's part: the layers [start, stop) of each stacked
+        # param, and only the params ``keep`` names; every param is still
+        # drawn, so the kept numbers are the whole model's
+        self.layers = layers
+        self.keep = keep
         self.params: Params = {}
         self.axes: Axes = {}
 
     def _part(self, name: str, x: torch.Tensor, lead: int) -> torch.Tensor:
         return x if self.shard is None else self.shard(name, x, lead)
 
-    def _normal(self, name: str, shape, scale: float, dtype, lead: int
-                ) -> torch.Tensor:
-        local = self._part(name, torch.empty(shape, device="meta"), 0).shape
+    def _local(self, name: str, shape, lead: int) -> Tuple[int, ...]:
+        """This rank's shape of the param: its stage's layers of a stacked
+        param, its part of every dim the shard splits."""
+        local = list(self._part(name, torch.empty(shape, device="meta"),
+                                0).shape)
+        if lead and self.layers is not None:
+            assert lead == 1, "a layer range cuts one stacked dim"
+            local[0] = self.layers[1] - self.layers[0]
+        return tuple(local)
+
+    def _normal(self, name: str, shape, scale: float, dtype, lead: int,
+                kept: bool) -> torch.Tensor:
+        local = self._local(name, shape, lead) if kept else (0,)
         out = torch.empty(local, dtype=dtype, device=self.device)
         if out.is_meta:          # a shape probe: nothing to draw
             return out
@@ -324,11 +410,13 @@ class ParamBuilder:
         # a time, so the f32 draw stays one layer large at full width; the
         # rest in one draw
         rows = out.view(-1, *local[lead:]) if lead else out.unsqueeze(0)
+        lo = self.layers[0] if lead and self.layers is not None else 0
         full = tuple(shape[lead:])
-        for r in rows:
+        for j in range(math.prod(shape[:lead])):
             x = torch.randn(full, generator=self.generator,
                             dtype=torch.float32, device=self.device)
-            r.copy_(self._part(name, x, lead).mul_(scale))
+            if kept and 0 <= j - lo < rows.shape[0]:
+                rows[j - lo].copy_(self._part(name, x, lead).mul_(scale))
         return out
 
     def add(self, name: str, shape: Tuple[int, ...],
@@ -337,21 +425,23 @@ class ParamBuilder:
         assert len(shape) == len(axes), (name, shape, axes)
         assert name not in self.params, f"duplicate param {name}"
         dtype = dtype or self.dtype
+        kept = self.keep is None or self.keep(name)
+        lead = next((i for i, ax in enumerate(axes)
+                     if not (ax or "").startswith("layers")), len(axes))
         if init in ("zeros", "ones"):
-            v = self._part(name, torch.empty(shape, device="meta"), 0)
             v = (torch.zeros if init == "zeros" else torch.ones)(
-                v.shape, dtype=dtype, device=self.device)
+                self._local(name, tuple(shape), lead) if kept else (0,),
+                dtype=dtype, device=self.device)
         elif init == "normal":
             if scale is None:  # fan-in scaling over the (stacked) shape
                 fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
                 scale = 1.0 / math.sqrt(max(1, fan_in))
-            lead = next((i for i, ax in enumerate(axes)
-                         if not (ax or "").startswith("layers")), len(axes))
-            v = self._normal(name, tuple(shape), scale, dtype, lead)
+            v = self._normal(name, tuple(shape), scale, dtype, lead, kept)
         else:
             raise ValueError(init)
-        self.params[name] = v
-        self.axes[name] = tuple(axes)
+        if kept:
+            self.params[name] = v
+            self.axes[name] = tuple(axes)
 
     def scope(self, prefix: str) -> "ScopedBuilder":
         return ScopedBuilder(self, prefix)

@@ -3,8 +3,9 @@
 
 Init / loss / prefill / decode over flat-dict params with stacked-``L``
 tensors.  ``run_layers`` (training and the cache-less prefill) runs the
-layers through ``segmented_layer_scan`` over the unbound stack; the serving
-paths loop over views of layer ``i``.  MoE, Mamba2 and mLSTM blocks wait
+layers through ``segmented_layer_scan`` (over views of each layer taken
+by the train step's sink, or over the unbound stack); the serving paths
+loop over views of layer ``i``.  MoE, Mamba2 and mLSTM blocks wait
 for their slices.
 
 Training under a multi-device plan (``ExecConfig.par``, see
@@ -13,9 +14,18 @@ are tensor-parallel (``models/layers.py``); under sequence parallelism the
 residual stream, the norms and the embedding's output hold this rank's
 part of the sequence (the reference's ``shard_act(h, ("dp", "sp",
 None))``); the embedding and the loss are vocab-parallel when
-``embed/w``'s vocab dim is split over ``model``; under ZeRO 3 each layer
-gathers its weights inside the layer body, so a remat'd layer gathers them
-again in the backward.
+``embed/w``'s vocab dim is split over ``model``.  A train step's
+``ExecConfig.sink`` takes every use of a param into the graph
+(``common.GradSink``): each layer's slices inside the layer body (under
+ZeRO 3 that gathers them there, so a remat'd layer gathers them again in
+the backward), the final norm, and the embedding once for its lookup and
+once more, tied, for the head, so the two uses' gradients add into f32
+apart.
+
+The loss comes in the pieces a pipeline stage runs
+(``parallel/pipeline.py``): ``embed_tokens`` on the first stage,
+``run_layers`` over a stage's own layers on each (``final=False``), and
+``final_norm`` with ``head_loss`` on the last; ``lm_loss`` runs them all.
 """
 from __future__ import annotations
 
@@ -30,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.common import (Axes, ExecConfig, ParamBuilder, Params,
-                                       StackedBuilder, layer,
+                                       StackedBuilder, in_use, layer,
                                        segmented_layer_scan, softmax_xent,
                                        subtree, unbind_layers)
 
@@ -92,9 +102,9 @@ def _fresh_attn_cache(kv: Dict, s: int) -> Dict:
 
 
 def init_lm(cfg: ArchConfig, generator: Optional[torch.Generator],
-            dtype=torch.bfloat16, device="cpu", shard=None
-            ) -> Tuple[Params, Axes]:
-    pb = ParamBuilder(generator, dtype, device, shard)
+            dtype=torch.bfloat16, device="cpu", shard=None, layers=None,
+            keep=None) -> Tuple[Params, Axes]:
+    pb = ParamBuilder(generator, dtype, device, shard, layers, keep)
     pb.add("embed/w", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
            scale=0.02)
     init_block(StackedBuilder(pb, "layers", cfg.num_layers), cfg)
@@ -157,23 +167,36 @@ def _logits(params: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return (h @ unembed_matrix(params, cfg)).float()
 
 
+def final_norm(params: Params, h: torch.Tensor, cfg: ArchConfig,
+               ec: ExecConfig) -> torch.Tensor:
+    return L.norm(in_use(subtree(params, "final_norm"), ec, "final_norm/"),
+                  h, cfg, impl=ec.kernel_impl)
+
+
 def run_layers(params: Params, x: torch.Tensor, cfg: ArchConfig,
-               ec: ExecConfig) -> Tuple[torch.Tensor, float]:
-    """All layers (through ``segmented_layer_scan``, so the exec config's
-    remat and offload segments apply) then the final norm.  Returns
-    (h, aux_loss)."""
-    layers = unbind_layers(subtree(params, "layers"), cfg.num_layers)
+               ec: ExecConfig, final: bool = True
+               ) -> Tuple[torch.Tensor, float]:
+    """The ``cfg.num_layers`` stacked layers of ``params`` (through
+    ``segmented_layer_scan``, so the exec config's remat and offload
+    segments apply), then the final norm unless ``final`` is False (a
+    pipeline stage before the last).  Returns (h, aux_loss)."""
+    stacked = subtree(params, "layers")
+    if ec.sink is None:
+        layers = unbind_layers(stacked, cfg.num_layers)
+    else:       # views: the sink takes each layer's slices
+        layers = [layer(stacked, i) for i in range(cfg.num_layers)]
 
     def body(carry, lp):
-        h, aux = carry
-        if ec.par is not None:      # ZeRO 3: this layer's weights, whole
-            lp = ec.par.gather(lp, "layers/", lead=1)
+        h, aux, i = carry
+        lp = in_use(lp, ec, "layers/", i)
         h, a, _ = apply_block(lp, h, cfg, ec)
-        return h, aux + a
+        return h, aux + a, i + 1
 
-    h, aux = segmented_layer_scan(body, (x, 0.0), layers, cfg.num_layers, ec)
-    return L.norm(subtree(params, "final_norm"), h, cfg,
-                  impl=ec.kernel_impl), aux
+    h, aux, _ = segmented_layer_scan(body, (x, 0.0, 0), layers,
+                                     cfg.num_layers, ec)
+    if final:
+        h = final_norm(params, h, cfg, ec)
+    return h, aux
 
 
 def _chunk_nll(hh, w_out, ll, mm):
@@ -262,27 +285,33 @@ def chunked_xent(h: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor,
 AUX_COEF = 0.01
 
 
+def head_loss(params: Params, h: torch.Tensor,
+              batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+              ec: ExecConfig) -> torch.Tensor:
+    """The mean next-token loss of the final-normed hidden states ``h``
+    against ``batch["labels"]`` (and ``"loss_mask"``): ``chunked_xent``
+    through the head, vocab- or sequence-parallel under ``ec.par``."""
+    head = "embed/w" if cfg.tie_embeddings else "lm_head/w"
+    w_out = unembed_matrix(in_use({head: params[head]}, ec), cfg)
+    par = ec.par
+    vocab_par = w_out.shape[1] != cfg.vocab_size
+    if par is None or not (vocab_par or par.sp):
+        return chunked_xent(h, w_out, batch["labels"],
+                            batch.get("loss_mask"))
+    return _parallel_xent(h, w_out, batch["labels"],
+                          batch.get("loss_mask"), 512, par, vocab_par)
+
+
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             ec: ExecConfig) -> torch.Tensor:
     """Mean next-token loss of a batch ``{"tokens", "labels"[,
     "loss_mask"]}`` (B, S), plus ``AUX_COEF`` times the mean aux loss (0 for
     dense blocks)."""
-    par = ec.par
-    if par is not None:     # ZeRO 3: the embedding, final norm and head
-        params = {**params, **par.gather(
-            {n: v for n, v in params.items()
-             if not n.startswith("layers/")})}
-    x = embed_tokens(params, batch["tokens"], cfg, ec)
+    x = embed_tokens(in_use({"embed/w": params["embed/w"]}, ec),
+                     batch["tokens"], cfg, ec)
     h, aux = run_layers(params, x, cfg, ec)
-    w_out = unembed_matrix(params, cfg)
-    vocab_par = w_out.shape[1] != cfg.vocab_size
-    if par is None or not (vocab_par or par.sp):
-        loss = chunked_xent(h, w_out, batch["labels"],
-                            batch.get("loss_mask"))
-    else:
-        loss = _parallel_xent(h, w_out, batch["labels"],
-                              batch.get("loss_mask"), 512, par, vocab_par)
-    return loss + AUX_COEF * aux / cfg.num_layers
+    return head_loss(params, h, batch, cfg, ec) \
+        + AUX_COEF * aux / cfg.num_layers
 
 
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],

@@ -92,16 +92,42 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
 
 
+class _GatedDown(torch.autograd.Function):
+    """``(act(g) * u) @ wd`` that saves only g, u and wd: the backward
+    takes act(g) and the gated product again, the same ops on the same
+    inputs, so its gradients are autograd's.  Eager autograd would also
+    keep act(g) and the product, two (tokens, d_ff) tensors a layer that
+    the memory model does not charge (XLA recomputes such elementwise
+    work)."""
+    @staticmethod
+    def forward(ctx, g, u, wd, kind):
+        ctx.kind = kind
+        ctx.save_for_backward(g, u, wd)
+        return (_act(g, kind) * u) @ wd
+
+    @staticmethod
+    def backward(ctx, dy):
+        g, u, wd = ctx.saved_tensors
+        with torch.enable_grad():
+            gg = g.detach().requires_grad_(True)
+            a = _act(gg, ctx.kind)
+        h = a.detach() * u
+        dwd = h.reshape(-1, h.shape[-1]).T @ dy.reshape(-1, dy.shape[-1])
+        dh = dy @ wd.T
+        dg, = torch.autograd.grad(a, gg, dh * u)
+        return dg, dh * a.detach(), dwd, None
+
+
 def mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, par=None
         ) -> torch.Tensor:
-    """The gated MLP: act(x Wg) * (x Wu), then Wd.  With ``par`` (a
-    ``common.Parallel``), Wg/Wu are column-parallel (this rank's d_ff
-    columns) and Wd row-parallel: x enters the tp region and the partial
-    products leave it summed."""
+    """The gated MLP: act(x Wg) * (x Wu), then Wd (``_GatedDown``).  With
+    ``par`` (a ``common.Parallel``), Wg/Wu are column-parallel (this
+    rank's d_ff columns) and Wd row-parallel: x enters the tp region and
+    the partial products leave it summed."""
     if par is None:
-        return (_act(x @ p["wg"], cfg.act) * (x @ p["wu"])) @ p["wd"]
+        return _GatedDown.apply(x @ p["wg"], x @ p["wu"], p["wd"], cfg.act)
     g, u = par.column(x, p["wg"], p["wu"])
-    return par.tp_out((_act(g, cfg.act) * u) @ p["wd"])
+    return par.tp_out(_GatedDown.apply(g, u, p["wd"], cfg.act))
 
 
 # ---------------------------------------------------------------------------

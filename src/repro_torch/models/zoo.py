@@ -29,14 +29,15 @@ class Model:
     device: torch.device
 
     def init(self, generator: torch.Generator, dtype=torch.bfloat16,
-             shard=None):
+             shard=None, layers=None, keep=None):
         """(params, axes) with the reference's names, shapes and scales;
         values drawn from ``generator`` (on the model's device).
-        ``shard``: keep one rank's part of each param (``ParamBuilder``);
-        dense decoders only."""
-        if shard is not None:
+        ``shard``, ``layers``, ``keep``: keep one rank's part of each param,
+        and a pipeline stage's layers and params (``ParamBuilder``); dense
+        decoders only."""
+        if (shard, layers, keep) != (None, None, None):
             return DEC.init_lm(self.cfg, generator, dtype, self.device,
-                               shard)
+                               shard, layers, keep)
         return _FAMILIES[self.cfg.family][0](self.cfg, generator, dtype,
                                              self.device)
 

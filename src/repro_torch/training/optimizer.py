@@ -23,6 +23,9 @@ replicated on); under ZeRO 1 each rank updates its ``data`` part of the
 master/mu/nu from its part of the full gradient; under ZeRO 1 and 2 an
 all-gather over ``data`` then refreshes the bf16 params.  The WO/OO host
 splits cut the local shard's leading layer dim, which is never sharded.
+On a stage of a pipelined plan the norm also adds over the stages, each
+param counted once: the embedding, head and final norm that the first and
+the last stage both hold count on the first.
 """
 from __future__ import annotations
 
@@ -122,19 +125,32 @@ def _data_dim(spec) -> Optional[int]:
 class StateSharding:
     """Where one rank's state tensors sit on a ``(data, model)`` mesh: the
     param / grad / opt specs of every param name (``LoweredPlan``'s
-    tables) and the rank's ``common.Parallel`` (groups, coordinates)."""
+    tables) and the rank's ``common.Parallel`` (groups, coordinates).
+
+    On a pipeline stage: ``stage_group``, the ranks at this rank's (data,
+    model) coordinates in every stage; ``across_stages``, the names every
+    stage holds a part of (the stacked layers); ``counted_elsewhere``, the
+    names whose gradient another stage counts in the norm (the last
+    stage's copy of what the first stage also holds)."""
 
     def __init__(self, pspecs: Mapping, gspecs: Mapping, ospecs: Mapping,
-                 par):
+                 par, stage_group=None, across_stages=(),
+                 counted_elsewhere=()):
         self.pspecs, self.gspecs, self.ospecs = pspecs, gspecs, ospecs
         self.par = par
+        self.stage_group = stage_group
+        self.across_stages = frozenset(across_stages)
+        self.counted_elsewhere = frozenset(counted_elsewhere)
 
     def global_norm(self, grads: Params) -> torch.Tensor:
         """``global_norm`` of the whole gradient: each shard's sum of
-        squares added over the axes its tensor is split over.  With
-        nothing split it is ``global_norm``'s sum, bit for bit."""
+        squares added over the axes its tensor is split over, then over the
+        stages.  With nothing split it is ``global_norm``'s sum, bit for
+        bit."""
         sums: Dict[Tuple[bool, bool], Any] = {}
         for n, g in grads.items():
+            if n in self.counted_elsewhere:
+                continue
             key = ("data" in self.gspecs[n], "model" in self.gspecs[n])
             sums[key] = sums.get(key, 0) + torch.sum(torch.square(g.float()))
         z = torch.zeros((), dtype=torch.float32,
@@ -147,15 +163,22 @@ class StateSharding:
         dist.all_reduce(d, group=self.par.dp_group)
         m = torch.stack([part((False, True)), d[1]])
         dist.all_reduce(m, group=self.par.tp_group)
-        return torch.sqrt(part((False, False)) + d[0] + m[0] + m[1])
+        total = part((False, False)) + d[0] + m[0] + m[1]
+        if self.stage_group is not None:
+            dist.all_reduce(total, group=self.stage_group)
+        return torch.sqrt(total)
 
     def global_amax(self, name: str, g: torch.Tensor) -> torch.Tensor:
-        """max |g| over the whole tensor (``fake_compress``'s scale)."""
+        """max |g| over the whole tensor (``fake_compress``'s scale), the
+        stacked layers of every stage included."""
         amax = torch.max(torch.abs(g))
         for ax, group in (("data", self.par.dp_group),
                           ("model", self.par.tp_group)):
             if ax in self.gspecs[name]:
                 dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        if name in self.across_stages:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                            group=self.stage_group)
         return amax
 
     def opt_grad(self, name: str, g: torch.Tensor) -> torch.Tensor:

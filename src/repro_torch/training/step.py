@@ -7,7 +7,10 @@ accumulation over G micro-batches; on one device, or with ``mesh`` on one
 rank of the plan's ``(data, model)`` mesh (tensor parallelism with or
 without sequence parallelism, data parallelism, ZeRO 0-3), where every
 collective is written out and runs in the same order on every rank, at
-world size 1 too.  ``init_sharded_state`` builds a rank's part of a fresh
+world size 1 too.  Gradients accumulate through a ``GradSink``
+(``models/common.py``): each use of a param adds its gradient in f32 into
+the step's sums as the backward reaches it, and no param is an autograd
+leaf.  ``init_sharded_state`` builds a rank's part of a fresh
 state.  ``make_prefill_step`` / ``make_serve_step`` bind the plan's serve
 ``ExecConfig``.  All are closures: PyTorch runs eagerly, so there is no
 ``jit`` and no buffer donation; the train step updates its state in
@@ -24,8 +27,7 @@ import torch.distributed as dist
 from repro_torch.core.plan import Plan
 from repro_torch.lowering import (lower_plan, serve_exec_cfg, shard_tensor,
                                   train_exec_cfg)
-from repro_torch.models.common import (ExecConfig, Parallel,
-                                       reduce_scatter_dim)
+from repro_torch.models.common import ExecConfig, GradSink, Parallel
 from repro_torch.models.zoo import Model
 from repro_torch.parallel.compression import fake_compress
 from repro_torch.training import optimizer as OPT
@@ -44,11 +46,12 @@ def make_train_step(model: Model, plan: Plan,
 
     The batch (B, S) splits into G = ``plan.grad_accum`` contiguous
     micro-batches; each micro-batch's gradients (in the params' dtype) add
-    into f32 sums, divided by G at the end, and the loss is the mean of the
-    micro-batch losses.  Then ``fake_compress`` if the plan asks for it, and
-    ``adam_update`` on the state, in place.  ``kernel_impl="plain"`` is the
-    test hook of ``ExecConfig.kernel_impl``.  Activations take the params'
-    dtype (bf16, as the reference trains; f32 params compute in f32).
+    into f32 sums as its backward runs (``GradSink``), divided by G at the
+    end, and the loss is the mean of the micro-batch losses.  Then
+    ``fake_compress`` if the plan asks for it, and ``adam_update`` on the
+    state, in place.  ``kernel_impl="plain"`` is the test hook of
+    ``ExecConfig.kernel_impl``.  Activations take the params' dtype (bf16,
+    as the reference trains; f32 params compute in f32).
 
     ``mesh``: the plan's live ``(data, model)`` DeviceMesh
     (``launch/mesh.py``); the state is then this rank's shards
@@ -62,30 +65,18 @@ def make_train_step(model: Model, plan: Plan,
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
-        names = list(state["params"])
-        leaves = [state["params"][n].detach().requires_grad_(True)
-                  for n in names]
-        params = dict(zip(names, leaves))
-        run_ec = ec.replace(compute_dtype=params["embed/w"].dtype)
+        params = state["params"]
         b = batch["tokens"].shape[0]
         if b % G:
             raise ValueError(f"batch {b} does not split into {G} "
                              "micro-batches")
         mb = b // G
-        sums, losses = None, []
-        for i in range(G):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss = model.loss_fn(params, micro, run_ec)
-            grads = torch.autograd.grad(loss, leaves)
-            if sums is None:
-                sums = [g.float() for g in grads]
-            else:
-                for acc, g in zip(sums, grads):
-                    acc.add_(g)
-            losses.append(loss.detach())
-            del grads, loss
-        grads = {n: acc.div_(G) for n, acc in zip(names, sums)}
-        del sums, params, leaves
+        sink = GradSink(grad_sums(params))
+        losses = micro_steps(model, params, [
+            {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            for i in range(G)], ec, sink)
+        grads = {n: acc.div_(G) for n, acc in sink.sums.items()}
+        del sink
         if plan.grad_compression:
             grads = fake_compress(grads)
         state, om = OPT.adam_update(state, grads, adam)
@@ -94,6 +85,28 @@ def make_train_step(model: Model, plan: Plan,
         return state, metrics
 
     return TrainStep(fn=train_step, exec_cfg=ec)
+
+
+def grad_sums(params, shapes=None) -> Dict[str, torch.Tensor]:
+    """The step's f32 gradient accumulators, zeros: of each param's shape,
+    or of ``shapes[name]`` (a gradient shard finer than the param)."""
+    shapes = shapes or {}
+    return {n: torch.zeros(shapes.get(n, p.shape), dtype=torch.float32,
+                           device=p.device) for n, p in params.items()}
+
+
+def micro_steps(model: Model, params, micros, ec: ExecConfig,
+                sink: GradSink):
+    """Forward and backward of each micro-batch, its gradients into
+    ``sink``; returns the micro-batch losses (detached)."""
+    run_ec = ec.replace(compute_dtype=params["embed/w"].dtype, sink=sink)
+    losses = []
+    for micro in micros:
+        loss = model.loss_fn(params, micro, run_ec)
+        loss.backward()
+        losses.append(loss.detach())
+        del loss
+    return losses
 
 
 def init_train_state(model: Model, plan: Plan, generator: torch.Generator
@@ -125,14 +138,89 @@ def _lowered(model: Model, plan: Plan, mesh):
     return low, mesh_shape(mesh), mesh_coords(mesh)
 
 
-def _parallel(low, sizes, coords, mesh) -> Parallel:
-    rules = low.shard_rules()
-    gather = {n: sp.index("data") for n, sp in low.param_specs().items()
-              if "data" in sp}
-    return Parallel(mesh.get_group("data"), mesh.get_group("model"),
-                    sizes["data"], sizes["model"], coords["data"],
-                    coords["model"], sp=rules["sp"] is not None,
-                    gather_dims=gather)
+@dataclass
+class RankPlan:
+    """One rank's part of a multi-device plan: the lowering, its stage
+    (0 for a single-stage plan), its ``Parallel`` and its stage's spec
+    tables."""
+    low: Any
+    stage: int
+    par: Parallel
+    pspecs: Dict[str, Any]
+    gspecs: Dict[str, Any]
+    ospecs: Dict[str, Any]
+
+    @property
+    def tp_partial(self):
+        return _tp_partial(self.pspecs, self.par.sp, self.par.tp)
+
+
+def rank_plan(model: Model, plan: Plan, mesh) -> RankPlan:
+    """This rank's ``RankPlan`` on the live mesh; raises where tp does not
+    split the products tensor parallelism splits."""
+    low, sizes, coords = _lowered(model, plan, mesh)
+    i = coords.get("stage", 0)
+    pspecs = low.param_specs(i)
+    par = Parallel(mesh.get_group("data"), mesh.get_group("model"),
+                   sizes["data"], sizes["model"], coords["data"],
+                   coords["model"], sp=low.shard_rules(i)["sp"] is not None)
+    if par.tp > 1:
+        whole = [n for n in _TP_SPLIT if n in pspecs
+                 and "model" not in pspecs[n]]
+        if whole:
+            raise NotImplementedError(
+                f"tp {par.tp} does not split {whole} (heads "
+                f"{model.cfg.num_heads}, d_ff {model.cfg.d_ff}); ROADMAP.md, "
+                "queue A: sharding on torch")
+    return RankPlan(low, i, par, pspecs, low.grad_specs(i),
+                    low.opt_specs(i))
+
+
+def data_micros(batch, G: int, par: Parallel):
+    """This data rank's rows of each of the G micro-batches of the global
+    ``batch``."""
+    b, dp = batch["tokens"].shape[0], par.dp
+    if b % (G * dp):
+        raise ValueError(f"batch {b} does not split into {G} "
+                         f"micro-batches over {dp} data ranks")
+    if "loss_mask" in batch and dp > 1:
+        raise NotImplementedError(
+            "a loss mask under data parallelism (the mean over dp "
+            "weights every data rank alike); ROADMAP.md, queue A: "
+            "sharding on torch")
+    mbg = b // G
+    lo = par.dp_rank * (mbg // dp)
+    return [{k: v[i * mbg + lo:i * mbg + lo + mbg // dp]
+             for k, v in batch.items()} for i in range(G)]
+
+
+def reduce_sums(rp: RankPlan, sums) -> None:
+    """After the last micro-batch: the sums no grad spec splits over
+    ``data`` all-reduced over it, then the ``tp_partial`` ones over
+    ``model``."""
+    partial = rp.tp_partial
+    for n, acc in sums.items():
+        if "data" not in rp.gspecs[n]:
+            dist.all_reduce(acc, group=rp.par.dp_group)
+        if n in partial:
+            dist.all_reduce(acc, group=rp.par.tp_group)
+
+
+def rank_sink(params, pspecs, gspecs, par: Parallel) -> GradSink:
+    """A rank's ``GradSink``: accumulators of the grad specs' shards,
+    gradients reduce-scattered over ``data`` where the grad spec splits a
+    dim (ZeRO 2 and 3), weights gathered where the param spec does too
+    (ZeRO 3)."""
+    scatter = {n: gspecs[n].index("data") for n in params
+               if "data" in gspecs[n]}
+    gather = [n for n in scatter if "data" in pspecs[n]]
+    shapes = {}
+    for n, d in scatter.items():
+        if n not in gather:
+            shape = list(params[n].shape)
+            shape[d] //= par.dp
+            shapes[n] = shape
+    return GradSink(grad_sums(params, shapes), scatter, gather, par.dp_group)
 
 
 def _tp_partial(pspecs, sp: bool, tp: int):
@@ -151,74 +239,29 @@ def _sharded_train_step(model, plan, adam, ec, mesh) -> TrainStep:
     """The train step of one rank (``make_train_step``'s ``mesh``).
 
     Gradients, by ZeRO level: at ZeRO 0/1 the f32 sums are all-reduced
-    over ``data`` once after the last micro-batch; at ZeRO 2 each
-    micro-batch's gradient is reduce-scattered into f32 accumulators split
-    over ``data`` (the reference's ``with_sharding_constraint(acc,
-    g_shardings)``); at ZeRO 3 the weights' gather does that in its
-    backward.  Params split over neither keep all-reduced sums.  Then the
-    sums of ``_tp_partial`` params are all-reduced over ``model``, and all
-    are divided by G · dp (the mean over the global batch).  The loss is
-    the micro-batches' mean, averaged over dp."""
-    low, sizes, coords = _lowered(model, plan, mesh)
-    pspecs, gspecs = low.param_specs(), low.grad_specs()
-    par = _parallel(low, sizes, coords, mesh)
-    if par.tp > 1:
-        whole = [n for n in _TP_SPLIT if "model" not in pspecs[n]]
-        if whole:
-            raise NotImplementedError(
-                f"tp {par.tp} does not split {whole} (heads "
-                f"{model.cfg.num_heads}, d_ff {model.cfg.d_ff}); ROADMAP.md, "
-                "queue A: sharding on torch")
+    over ``data`` once after the last micro-batch; at ZeRO 2 and 3 each
+    use's gradient is reduce-scattered into f32 accumulators split over
+    ``data`` as the backward reaches it (the reference's
+    ``with_sharding_constraint(acc, g_shardings)``; ``rank_sink``).
+    Params split over neither keep all-reduced sums.  Then the sums of
+    ``_tp_partial`` params are all-reduced over ``model``, and all are
+    divided by G · dp (the mean over the global batch).  The loss is the
+    micro-batches' mean, averaged over dp."""
+    rp = rank_plan(model, plan, mesh)
+    par = rp.par
     ec = ec.replace(par=par)
-    sharding = OPT.StateSharding(pspecs, gspecs, low.opt_specs(), par)
-    partial = _tp_partial(pspecs, par.sp, par.tp)
+    sharding = OPT.StateSharding(rp.pspecs, rp.gspecs, rp.ospecs, par)
     G, dp = plan.grad_accum, par.dp
-
-    def micro_grad(name, g):
-        d = gspecs[name].index("data") if "data" in gspecs[name] else None
-        if d is None or "data" in pspecs[name]:
-            return g.float()
-        return reduce_scatter_dim(g.float(), d, par.dp_group)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
-        names = list(state["params"])
-        leaves = [state["params"][n].detach().requires_grad_(True)
-                  for n in names]
-        params = dict(zip(names, leaves))
-        run_ec = ec.replace(compute_dtype=params["embed/w"].dtype)
-        b = batch["tokens"].shape[0]
-        if b % (G * dp):
-            raise ValueError(f"batch {b} does not split into {G} "
-                             f"micro-batches over {dp} data ranks")
-        if "loss_mask" in batch and dp > 1:
-            raise NotImplementedError(
-                "a loss mask under data parallelism (the mean over dp "
-                "weights every data rank alike); ROADMAP.md, queue A: "
-                "sharding on torch")
-        mbg = b // G
-        mb = mbg // dp
-        sums, losses = None, []
-        for i in range(G):
-            lo = i * mbg + par.dp_rank * mb
-            micro = {k: v[lo:lo + mb] for k, v in batch.items()}
-            loss = model.loss_fn(params, micro, run_ec)
-            grads = torch.autograd.grad(loss, leaves)
-            grads = [micro_grad(n, g) for n, g in zip(names, grads)]
-            if sums is None:
-                sums = grads
-            else:
-                for acc, g in zip(sums, grads):
-                    acc.add_(g)
-            losses.append(loss.detach())
-            del grads, loss
-        for n, acc in zip(names, sums):
-            if "data" not in gspecs[n]:
-                dist.all_reduce(acc, group=par.dp_group)
-            if n in partial:
-                dist.all_reduce(acc, group=par.tp_group)
-        grads = {n: acc.div_(G * dp) for n, acc in zip(names, sums)}
-        del sums, params, leaves
+        params = state["params"]
+        micros = data_micros(batch, G, par)
+        sink = rank_sink(params, rp.pspecs, rp.gspecs, par)
+        losses = micro_steps(model, params, micros, ec, sink)
+        reduce_sums(rp, sink.sums)
+        grads = {n: acc.div_(G * dp) for n, acc in sink.sums.items()}
+        del sink
         if plan.grad_compression:
             grads = fake_compress(grads, sharding.global_amax)
         state, om = OPT.adam_update(state, grads, adam, sharding)
@@ -235,21 +278,33 @@ def init_sharded_state(model: Model, plan: Plan, mesh,
     """This rank's part of a fresh train state (the reference's
     ``init_sharded_state``): every rank draws the same params from
     ``generator``, one stacked layer at a time, and keeps its part by the
-    param specs; master/mu/nu by the opt specs, split to host by WO/OO.
-    No rank holds more than one layer of a param whole."""
+    param specs; master/mu/nu by the opt specs, split to host by its
+    stage's WO/OO.  On a pipeline stage, its part is its own layers and,
+    on the first and the last stage, the embedding, head and final norm
+    (``LoweredStage.holds``).  No rank holds more than one layer of a
+    param whole."""
     low, sizes, coords = _lowered(model, plan, mesh)
-    pspecs, ospecs = low.param_specs(), low.opt_specs()
+    i = coords.get("stage", 0)
+    ls = low.stages[i]
+    pspecs, ospecs = low.param_specs(i), low.opt_specs(i)
 
     def shard(name, x, lead):
         return shard_tensor(x, pspecs[name][lead:], sizes, coords)
 
-    params, axes = model.init(generator, shard=shard)
+    if len(low.stages) == 1:
+        params, axes = model.init(generator, shard=shard)
+    else:
+        from repro_torch.core.costmodel_params import meta_params
+        _, full_axes = meta_params(model.cfg)
+        params, axes = model.init(
+            generator, shard=shard, layers=ls.layers,
+            keep=lambda n: ls.holds(n, full_axes[n]))
     # where the opt specs split finer (ZeRO 1 and 2), this rank's data part
     finer = {n: tuple(o if p is None else None
                       for p, o in zip(pspecs[n], ospecs[n])) for n in params}
     opt_params = {n: shard_tensor(p, finer[n], sizes, coords)
                   for n, p in params.items()}
-    return OPT.init_state(params, axes, plan.stages[0], opt_params)
+    return OPT.init_state(params, axes, ls.stage, opt_params)
 
 
 @dataclass

@@ -129,8 +129,9 @@ def test_unported_serve_modes_exit(flag):
 
 
 def test_only_dense_single_device_plans(no_cuda):
-    """Dense families only; training takes single-stage plans on exactly
-    dp · tp ranks, serving one device; each refusal names ROADMAP.md."""
+    """Dense families only; training takes plans on exactly S · dp · tp
+    ranks, serving single-stage plans on one device; each refusal names
+    ROADMAP.md."""
     cfg = get_arch("granite-3-8b").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg.replace(num_experts=4, num_experts_per_tok=2), "cpu")
@@ -149,7 +150,10 @@ def test_only_dense_single_device_plans(no_cuda):
                                        grad_accum=1))
     two = single_stage_plan(4, dp=1, tp=1, micro_batch=1, grad_accum=1)
     two = two.replace(stages=two.stages * 2)
-    for check in (lambda p: check_train_plan(p, 2), check_serve_plan):
+    check_train_plan(two, 2)        # a pipeline of two stages of 4 layers
+    for check in (lambda p: check_train_plan(p, 1),
+                  lambda p: check_train_plan(p, 2, num_layers=4),
+                  check_serve_plan):
         with pytest.raises(ValueError, match="ROADMAP"):
             check(two)
     assert isinstance(build_model(cfg, "cpu"), Model)

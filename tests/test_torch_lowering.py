@@ -42,11 +42,17 @@ from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
 from repro_torch.lowering import (MEMORY_REL_TOL, check_plan_mesh,
                                   check_serve_plan, check_train_plan,
-                                  lower_plan, memory_consistency, plan_mesh)
+                                  lower_plan, memory_consistency, plan_mesh,
+                                  train_exec_cfg)
 from repro_torch.parallel.sharding import abstract_mesh
 
 ARCHS = ("granite-3-8b", "zamba2-2.7b")
-H100_AS_REF = JHardwareSpec(**dataclasses.asdict(H100))
+# the port's H100, as a reference spec, less the one field the reference
+# lacks (devices_per_host: the plans held here fit one host, where it
+# changes no price)
+H100_AS_REF = JHardwareSpec(**{
+    k: v for k, v in dataclasses.asdict(H100).items()
+    if k != "devices_per_host"})
 TRAIN = ("t", 4096, 32, "train")
 
 
@@ -211,8 +217,9 @@ def test_pipeline_mesh_needs_a_stage_axis_of_its_size():
 
 
 def test_abstract_lowering_is_not_an_execution_guard():
-    """Lowering reaches any mesh; training executes a single-stage plan on
-    exactly dp · tp ranks, serving on one device."""
+    """Lowering reaches any mesh; training executes a plan on exactly
+    S · dp · tp ranks (a pipelined one through parallel/pipeline.py),
+    serving on one device."""
     plan = single_stage_plan(4, dp=4, tp=2, micro_batch=1, grad_accum=1)
     low = lower_plan(get_arch("granite-3-8b").reduced(), None, plan,
                      plan_mesh(plan))
@@ -225,8 +232,11 @@ def test_abstract_lowering_is_not_an_execution_guard():
     with pytest.raises(ValueError, match="serves with dp = tp = 1"):
         check_serve_plan(plan)
     piped = Plan(grad_accum=1, stages=(_stage(2), _stage(2)))
+    check_train_plan(piped, 2)
+    with pytest.raises(ValueError, match="S · dp · tp"):
+        check_train_plan(piped, 1)
     with pytest.raises(ValueError, match="pipeline"):
-        check_train_plan(piped, 2)
+        train_exec_cfg(piped, 2)
 
 
 def _json_after(out: str) -> str:

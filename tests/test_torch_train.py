@@ -503,6 +503,46 @@ def test_tuned_plan_executes_in_the_port_as_in_the_reference(weights):
                                rtol=5e-2)
 
 
+def test_train_step_makes_no_whole_bf16_gradient():
+    """The step takes its gradients through the sink (``GradSink``): no
+    param is an autograd leaf (every ``.grad`` stays None), no stacked
+    param is unbound, and no op makes a bf16 tensor of a stacked param's
+    whole shape (``unbind``'s backward would stack one)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    model = build_model(TCFG, "cpu")
+    plan = single_stage_plan(TCFG.num_layers, dp=1, tp=1, micro_batch=1,
+                             grad_accum=2, zero=1, ckpt_layers=2, ao=0.5,
+                             attn_impl="blocked")
+    state = init_train_state(model, plan, torch.Generator().manual_seed(0))
+    whole = {tuple(p.shape) for n, p in state["params"].items()
+             if n.startswith("layers/")}
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func._schema.name
+            if name == "aten::unbind":
+                seen.append(name)
+            elif not name.endswith("_"):    # in place: the update's writes
+                seen.extend(name for t in tree_flatten(out)[0]
+                            if isinstance(t, torch.Tensor)
+                            and t.dtype == torch.bfloat16
+                            and tuple(t.shape) in whole)
+            return out
+
+    step = make_train_step(model, plan)
+    batch = {k: torch.from_numpy(v) for k, v in _batches(1, gbs=2)[0].items()}
+    with Record():
+        state, m = step.fn(state, batch)
+    assert seen == []
+    assert torch.isfinite(m["loss"]) and int(m["step"]) == 1
+    assert all(p.grad is None and not p.requires_grad
+               for p in state["params"].values())
+
+
 def test_init_train_state_splits_by_the_stage(monkeypatch):
     model = build_model(TCFG, "cpu")
     plan = Plan.from_json(jax_plan(TCFG.num_layers, dp=1, tp=1,

@@ -48,7 +48,8 @@ from repro_torch.core import costmodel_params as TCP
 from repro_torch.core import golden
 from repro_torch.core import symbolic as TS
 from repro_torch.core.hardware import H100, HardwareSpec
-from repro_torch.core.schedule import validate_plan
+from repro_torch.core.plan import single_stage_plan
+from repro_torch.core.schedule import Candidate, validate_plan
 from repro_torch.core.tuner import MistTuner, TuneSpec, tune
 from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
@@ -59,8 +60,12 @@ ARCHS = ("granite-3-8b", "zamba2-2.7b")
 # the reference's hardware, as a port spec: the golden fixtures and the
 # test_system plan were tuned for it
 V5E_VALUES = HardwareSpec(**dataclasses.asdict(V5E))
-# the port's H100, as a reference spec
-H100_AS_REF = JHardwareSpec(**dataclasses.asdict(H100))
+# the port's H100, as a reference spec, less the one field the reference
+# lacks (devices_per_host: the plans held here fit one host, where it
+# changes no price)
+H100_AS_REF = JHardwareSpec(**{
+    k: v for k, v in dataclasses.asdict(H100).items()
+    if k != "devices_per_host"})
 SYSTEM = dict(stage_counts=(1,), grad_accums=(4,))
 
 
@@ -383,9 +388,70 @@ def test_h100_spec_is_the_data_sheet():
         (989e12, 3.35e12, 80e9)
     assert H100.ici_bw_total == 450e9      # NVLink 4: 900 GB/s both ways
     assert (H100.host_bw, H100.vmem_bytes) == (64e9, 232448.0)
+    # an HGX host: 8 GPUs on NVLink, one 400 Gb/s NIC each across hosts
+    assert (H100.devices_per_host, H100.dci_bw) == (8, 50e9)
+    # the reference's fields, and the host size it lacks, whose default
+    # is the reference's single fabric
     assert dataclasses.fields(HardwareSpec) and [
         f.name for f in dataclasses.fields(HardwareSpec)] == [
-        f.name for f in dataclasses.fields(JHardwareSpec)]
+        f.name for f in dataclasses.fields(JHardwareSpec)] + [
+        "devices_per_host"]
+    assert HardwareSpec.devices_per_host == 0
+
+
+# items of the stage cost model priced on the tp and on the data groups
+_TP_ITEMS = ("tp_fwd", "tp_bwd")
+_DP_ITEMS = ("zero3_allgather_fwd", "zero3_allgather_bwd",
+             "zero2_reduce_scatter", "dp_grad_sync", "zero1_param_allgather")
+
+
+@pytest.mark.parametrize("dp,tp,zero", [(1, 16, 0), (2, 8, 2), (2, 8, 3),
+                                        (4, 4, 1), (1, 8, 0), (8, 1, 3),
+                                        (2, 4, 2)])
+def test_links_across_hosts_are_priced_at_dci(dp, tp, zero):
+    """granite-3-8b's stage on the H100 spec (8 devices a host) against the
+    same spec on one fabric: a tp group larger than a host pays its wire
+    bytes at ``dci_bw`` (the wire term, less the latencies, grows by
+    ici / dci exactly), a stage larger than a host pays its data-group
+    collectives there; a stage within one host is priced bit for bit as on
+    one fabric, memory included."""
+    one = dataclasses.replace(H100, devices_per_host=0)
+    cand = Candidate(b=2, dp=dp, tp=tp, zero=zero, ckpt=4, wo=0.0, go=0.0,
+                     oo=0.0, ao=0.0, qb=512, kvb=512, rnb=256, sch=256)
+    out = {}
+    for name, hw in (("hosts", H100), ("one", one)):
+        scm = TCM.StageCostModel(get_arch("granite-3-8b"), 4096, hw=hw)
+        env = scm.env_from_candidates([cand], layers=20, grad_accum=4)
+        out[name] = scm.evaluate(env)
+    got, base = out["hosts"], out["one"]
+    lat = TCM.CostParams().coll_latency_us * 1e-6
+    ratio = H100.ici_bw_total / H100.dci_bw
+    fixed = {"tp_fwd": 20 * 2 * lat, "tp_bwd": 20 * 2 * lat}
+    crossed = {**{k: tp > 8 for k in _TP_ITEMS},
+               **{k: dp * tp > 8 for k in _DP_ITEMS}}
+    for k in got["items"]:
+        a, b = float(got["items"][k][0]), float(base["items"][k][0])
+        if not crossed.get(k) or b == 0.0:
+            assert bitwise_equal(a, b), k
+            continue
+        lat_k = fixed.get(k, 8 * lat)
+        np.testing.assert_allclose(a - lat_k, (b - lat_k) * ratio,
+                                   rtol=1e-12, err_msg=k)
+    assert any(crossed.values()) or bitwise_equal(got["t_step"],
+                                                  base["t_step"])
+    for k in ("mem_fwd", "mem_bwd"):
+        assert bitwise_equal(got[k], base[k]), k
+    # estimate_plan (and the calibration fit, which calls it) prices
+    # through the same stage model
+    plan = single_stage_plan(40, dp=dp, tp=tp, micro_batch=2, grad_accum=4,
+                             zero=zero, ckpt_layers=4)
+    shape = ShapeConfig("t", 4096, 2 * dp * 4, "train")
+    est = [TCM.estimate_plan(get_arch("granite-3-8b"), shape, plan, hw=hw)
+           for hw in (H100, one)]
+    if any(crossed.values()):
+        assert est[0]["t_step"] > est[1]["t_step"]
+    else:
+        assert est[0]["t_step"] == est[1]["t_step"]
 
 
 @pytest.mark.parametrize("layers,feasible", [(8, True), (40, False)])
@@ -424,13 +490,15 @@ def _json_after(out: str) -> str:
 
 
 def test_train_launcher_tunes_as_the_reference(capsys):
-    argv = ["--arch", "granite-3-8b", "--tune", "--devices", "16",
+    # eight devices: one host, where the port's H100 prices every link as
+    # the reference's single fabric does
+    argv = ["--arch", "granite-3-8b", "--tune", "--devices", "8",
             "--space", "megatron", "--device", "cpu"]
     assert train_launch.main(argv) == 0
     out = capsys.readouterr().out
     assert out.startswith("# tuned in") and "predicted step" in out
     ref = JMistTuner(JTuneSpec(arch=jax_get_arch("granite-3-8b"),
-                               seq_len=4096, global_batch=8, n_devices=16,
+                               seq_len=4096, global_batch=8, n_devices=8,
                                space="megatron"), hw=H100_AS_REF).tune()
     assert _json_after(out) == ref.plan.to_json()
 
