@@ -65,6 +65,33 @@ T. Training granite-3-8b at its published widths, its depth cut from 40 to
    the CPU; the step's time, tokens/s, model FLOP/s, peak memory and
    pinned host bytes; the backward kernels' times at the training shapes.
    Then its state is freed.
+L. The training loop (``training/loop.py``) and its checkpointer on the
+   main path's train step: granite-3-8b at its published widths, depth
+   cut to 2 layers (599.8 M params, a checkpoint of ~8.4 GB), seq 4096,
+   micro-batch 1, G 2, CKPT 1 of 2 with AO 0.5, WO = OO = 0.5, Adam at
+   T_LR, checkpoints under ``build/phase_l`` (keep 2, removed at the end;
+   the phase fails if the disk has less than three checkpoints' worth
+   free).  (a) 7 steps with a checkpoint every 3; (b) the same with a
+   fault at step 5 (one restart from the step-3 checkpoint); (c) with
+   ``embed/w`` poisoned with NaN before step 4 (one rollback to the
+   snapshot taken before step 3); (d) ``TrainLoop.resume`` of (a)'s step-6
+   checkpoint into a fresh state, then one step -- every loss, and every
+   leaf of the final state, bit for bit (a)'s; (e) one step on a
+   ``PackedCorpus`` batch (a finite loss).  Launch counts exact per
+   executed step, replays and the poisoned step included; the final
+   states compared on the card.  Printed: bytes per checkpoint, each of
+   (a)'s saves (the blocking snapshot, the background write in s and
+   GB/s), the restore in place of (d), (a)'s steps with a write in flight
+   against those without, the rollback snapshots.  With two or more cards, the reduced
+   config saved at dp 2 ZeRO 1 through NCCL and restored at tp 2 with SP
+   (four: also S 2 x dp 2 -> dp 4 ZeRO 2), one step each, the loss within
+   1e-2 of one card's; with one, ``multi_card: not run (1 visible)``.
+   Then the launcher's first step taken apart in a fresh process at phase
+   T's config: CUDA context, state init with its pinned host parts, a
+   pinned allocation of those bytes, the rollback snapshot, the kernel
+   library's load, cuBLAS's first GEMM, the import of ``torch._dynamo``
+   (which ``torch.utils.checkpoint``'s first call makes), and four steps
+   (the last after ``empty_cache``).
 U. Tune then execute: the tuner's H100 spec beside the card's memory; the
    stage cost model's memory and time tapes of granite-3-8b on numpy and
    as float64 torch ops on the card, 2^10 to 2^20 rows (every output
@@ -97,7 +124,8 @@ D. Multi-device plans.  D1: phase U's tuned plan through the launcher on
    step.  D2: granite-3-8b at full depth and width tuned by the launcher
    for four H100s (``--tune --devices 4``, seq 4096, global batch 8) and
    trained as rank 0 of 4 in a child process under torch's ``fake``
-   process group (its collectives move nothing, so the loss is not
+   process group (its collectives move nothing -- its gathers are filled
+   with the rank's own data, so the loss is finite -- and the loss is not
    checked): exact launch counts per step, this rank's allocator peak
    beside the plan's predicted bytes per device (at most 1.02x), split by
    term (the
@@ -1661,6 +1689,558 @@ def phase_train(profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase L: the training loop and its checkpoints
+# ---------------------------------------------------------------------------
+
+# granite-3-8b at its published widths, depth cut to 2 layers (599.8 M
+# params: a checkpoint of bf16 params and f32 master, mu and nu is ~8.4 GB,
+# 2.39 GB of it the pinned host parts), seq 4096, micro-batch 1, G 2, CKPT
+# 1 of 2 with AO 0.5, WO = OO = 0.5, Adam at T_LR.  The uninterrupted loop
+# runs L_STEPS steps with a checkpoint every L_EVERY (keep 2); the fault
+# run fails once at L_FAULT_AT, the NaN run poisons embed/w before
+# L_POISON_AT once.  Each check is exact: losses and every leaf of the
+# final state bit for bit.
+L_LAYERS, L_CKPT, L_STEPS, L_EVERY = 2, 1, 7, 3
+L_FAULT_AT, L_POISON_AT = 5, 4
+
+
+def _l_setup(layers=L_LAYERS):
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.plan import single_stage_plan
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training.checkpoint import StatePlacement
+    from repro_torch.training.data import BatchSpec, SyntheticLM
+    from repro_torch.training.optimizer import AdamConfig
+    from repro_torch.training.step import make_train_step
+
+    cfg = get_arch("granite-3-8b").replace(num_layers=layers)
+    model = build_model(cfg, DEVICE)
+    plan = single_stage_plan(layers, dp=1, tp=1, micro_batch=T_MICRO,
+                             grad_accum=T_ACCUM, zero=1, ckpt_layers=L_CKPT,
+                             ao=0.5, wo=0.5, oo=0.5, attn_impl="pallas",
+                             use_pallas=True, remat_policy="full")
+    step = make_train_step(model, plan, AdamConfig(lr=T_LR))
+    data = SyntheticLM(BatchSpec(global_batch=T_MICRO * T_ACCUM,
+                                 seq_len=T_SEQ, vocab_size=cfg.vocab_size))
+    return cfg, model, plan, step, data, StatePlacement(cfg, plan, None,
+                                                        DEVICE)
+
+
+def _l_fresh(model, plan, seed=0):
+    from repro_torch.training.step import init_train_state
+    return init_train_state(model, plan,
+                            torch.Generator(DEVICE).manual_seed(seed))
+
+
+def _l_batch(data, i):
+    return {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in data.batch(i).items()}
+
+
+def _l_same(got, want) -> list:
+    """The leaves of two states (device tensors and pinned host parts)
+    that differ in any bit."""
+    from repro_torch.training.checkpoint import _flatten
+    a, b = _flatten(got), _flatten(want)
+    if a.keys() != b.keys():
+        return ["<tree>"]
+    return [k for k in b if a[k].dtype != b[k].dtype
+            or not torch.equal(a[k], b[k])]
+
+
+def _l_loop(ckdir, setup, per_step, fault_at=None, poison_at=None,
+            state=None, start=0):
+    """``TrainLoop`` over the main path's step, every count set to 0 just
+    before ``run`` and read just after, held to ``per_step`` times the
+    steps executed (replays and the poisoned step included).  Returns the
+    loop's stats, [(step, loss, start, end)] per executed step (host
+    clock), its checkpointer (``saves`` records each save) and the final
+    (live) state."""
+    from repro_torch.training.loop import LoopConfig, TrainLoop
+
+    cfg, model, plan, step, data, place = setup
+    cur, seen, hits = {}, [], []
+
+    def batches(i):
+        cur["i"] = i
+        return _l_batch(data, i)
+
+    def fn(state, batch):
+        t0 = time.perf_counter()
+        if cur["i"] == poison_at and not hits:
+            hits.append(cur["i"])
+            state["params"]["embed/w"].fill_(float("nan"))
+        state, m = step.fn(state, batch)
+        seen.append((cur["i"], float(m["loss"]), t0, time.perf_counter()))
+        return state, m
+
+    def fault(i):
+        if i == fault_at and not hits:
+            hits.append(i)
+            raise RuntimeError("simulated node failure")
+
+    loop = TrainLoop(fn, _l_fresh(model, plan) if state is None else state,
+                     batches, ckpt_dir=str(ckdir), place=place,
+                     fault_hook=fault, meta={"arch": cfg.name,
+                                             "plan": plan.to_json()},
+                     cfg=LoopConfig(total_steps=L_STEPS,
+                                    ckpt_every=L_EVERY, keep_ckpts=2))
+    loop._step = start
+    _reset_counts()
+    stats = loop.run()
+    sync()
+    counts = _read_counts()
+    want = {k: len(seen) * n for k, n in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"loop launch counts {counts} != {want} "
+                             f"({len(seen)} steps)")
+    return stats, seen, loop.ckpt, loop.state
+
+
+def _l_packed(setup, per_step):
+    """One step on a ``PackedCorpus`` batch (documents of 16-4095 tokens
+    drawn from seed 0): a finite loss, exact launch counts."""
+    import numpy as np
+
+    from repro_torch.training.data import BatchSpec, PackedCorpus
+
+    cfg, model, plan, step, _, _ = setup
+    rng = np.random.default_rng(0)
+    docs = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(16, 4096)))
+            for _ in range(64)]
+    corpus = PackedCorpus(docs, BatchSpec(T_MICRO * T_ACCUM, T_SEQ,
+                                          cfg.vocab_size), seed=0)
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in corpus.batch(0).items()}
+    state = _l_fresh(model, plan)
+    _reset_counts()
+    state, m = step.fn(state, batch)
+    loss = float(m["loss"])
+    sync()
+    counts = _read_counts()
+    if counts != per_step or not math.isfinite(loss):
+        raise AssertionError(f"PackedCorpus step: loss {loss}, counts "
+                             f"{counts} != {per_step}")
+    return dict(loss=loss, mask_tokens=int(batch["loss_mask"].sum()),
+                tokens=batch["tokens"].numel())
+
+
+def _l_check(name, got, want_losses, want_final, seen, steps, **counts):
+    """A run's executed steps, their losses (each equal bit for bit to
+    the uninterrupted run's at that step; a NaN allowed only where
+    ``counts`` names a rollback) and its final state against (a)'s."""
+    stats, final = got
+    ran = [i for i, *_ in seen]
+    differ = _l_same(final, want_final)
+    bad = [(i, x) for i, x, *_ in seen
+           if x != want_losses[i] and not (counts.get("rollbacks") and
+                                           math.isnan(x))]
+    nans = sum(math.isnan(x) for _, x, *_ in seen)
+    if ran != steps or differ or bad or any(
+            getattr(stats, k) != v for k, v in counts.items()) or \
+            nans != counts.get("rollbacks", 0):
+        raise AssertionError(f"({name}): steps {ran}, losses off (a)'s "
+                             f"{bad}, leaves differ {differ}, stats "
+                             f"{stats}")
+
+
+def phase_loop():
+    """Phase L: ``TrainLoop`` with its checkpointer on the main path's
+    step (module docstring)."""
+    import shutil
+
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.training.loop import TrainLoop
+
+    t_phase = time.perf_counter()
+    setup = _l_setup()
+    cfg, model, plan, step, data, place = setup
+    per_step = _train_launches(L_LAYERS, L_CKPT, T_ACCUM)
+    root = ROOT / "build" / "phase_l"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    from repro_torch.core.costmodel_params import meta_params
+    n_params = sum(p.numel() for p in meta_params(cfg)[0].values())
+    # bf16 params, f32 master, mu and nu, the int32 step
+    ck_bytes = n_params * (2 + 3 * 4) + 4
+    free = shutil.disk_usage(root).free
+    if free < 3 * ck_bytes:
+        raise AssertionError(f"phase L needs three checkpoints' worth of "
+                             f"disk ({3 * ck_bytes} B) under {root}; "
+                             f"{free} B free")
+    secs = {}
+    replayed = [0, 1, 2, 3, 4, 3, 4, 5, 6]
+    try:
+        # (a) uninterrupted
+        t0 = time.perf_counter()
+        a_stats, a_seen, ck, a_final = _l_loop(root / "a", setup, per_step)
+        a_saves = list(ck.saves)
+        secs["a"] = time.perf_counter() - t0
+        losses = {i: x for i, x, *_ in a_seen}
+        if [i for i, *_ in a_seen] != list(range(L_STEPS)) or not all(
+                math.isfinite(x) for x in losses.values()):
+            raise AssertionError(f"(a): steps and losses {a_seen}")
+        if Checkpointer(root / "a").all_steps() != [3, 6]:
+            raise AssertionError("(a) did not keep the step-3 and step-6 "
+                                 "checkpoints")
+        on_disk = sum(p.stat().st_size
+                      for p in (root / "a" / "step_000000006").iterdir())
+
+        # (d) resume the step-6 checkpoint into a fresh state, one step
+        t0 = time.perf_counter()
+        live = _l_fresh(model, plan, seed=1)
+        at, state, _ = TrainLoop.resume(root / "a", place, into=live)
+        sync()
+        secs["d_restore"] = time.perf_counter() - t0
+        if at != 6 or state is not live:
+            raise AssertionError(f"(d): resumed at {at}")
+        _reset_counts()
+        state, m = step.fn(state, _l_batch(data, 6))
+        d_loss = float(m["loss"])
+        sync()
+        d_counts = _read_counts()
+        differ = _l_same(state, a_final)
+        if d_loss != losses[6] or differ or d_counts != per_step:
+            raise AssertionError(f"(d): loss {d_loss} vs {losses[6]}, "
+                                 f"leaves differ {differ}, counts "
+                                 f"{d_counts}")
+        # a step while a save's background write is in flight, against
+        # one after it ((a)'s writes may end inside a rollback snapshot),
+        # with (a)'s checkpointer, whose snapshot buffer is warm
+        batch = _l_batch(data, 6)
+        ck.save_async(100, state, place=place)
+        t0 = time.perf_counter()
+        state, m = step.fn(state, batch)
+        float(m["loss"])
+        t1 = time.perf_counter()
+        ck.wait()
+        sv = ck.saves[-1]
+        extra = dict(snapshot_s=sv["snapshot_s"],
+                     write_s=sv["write_end"] - sv["write_start"],
+                     step_ms=(t1 - t0) * 1e3,
+                     step_inside_write=sv["write_start"] <= t0
+                     and t1 <= sv["write_end"])
+        t0 = time.perf_counter()
+        state, m = step.fn(state, batch)
+        float(m["loss"])
+        extra["step_ms_after"] = (time.perf_counter() - t0) * 1e3
+        del state, live, m, ck
+        shutil.rmtree(root / "a")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) a fault at step 5: restart from the step-3 checkpoint
+        t0 = time.perf_counter()
+        b_stats, b_seen, _, b_final = _l_loop(root / "b", setup, per_step,
+                                              fault_at=L_FAULT_AT)
+        secs["b"] = time.perf_counter() - t0
+        shutil.rmtree(root / "b")
+        _l_check("b", (b_stats, b_final), losses, a_final, b_seen,
+                 replayed, restarts=1, rollbacks=0)
+        del b_final
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) embed/w poisoned with NaN before step 4: roll back to the
+        # snapshot taken before step 3
+        t0 = time.perf_counter()
+        c_stats, c_seen, _, c_final = _l_loop(root / "c", setup, per_step,
+                                              poison_at=L_POISON_AT)
+        secs["c"] = time.perf_counter() - t0
+        shutil.rmtree(root / "c")
+        _l_check("c", (c_stats, c_final), losses, a_final, c_seen,
+                 replayed, rollbacks=1, restarts=0)
+        if not math.isnan(c_seen[4][1]):
+            raise AssertionError(f"(c): step 4 ran from a clean state")
+        del c_final, a_final
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) a PackedCorpus batch
+        packed = _l_packed(setup, per_step)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["phase"] = time.perf_counter() - t_phase
+
+    # (a)'s costs: each save's blocking snapshot and background write;
+    # the steps that ran while a write was in flight against those with
+    # neither a write nor a rollback snapshot
+    def in_flight(t0, t1):
+        return any(sv["write_start"] <= t0 and t1 <= sv["write_end"]
+                   for sv in a_saves)
+
+    snapped = {i for i in range(L_STEPS) if i % L_EVERY == 0}
+    during = [(t1 - t0) * 1e3 for i, _, t0, t1 in a_seen
+              if i not in snapped and in_flight(t0, t1)]
+    clear = [(t1 - t0) * 1e3 for i, _, t0, t1 in a_seen
+             if i not in snapped and not in_flight(t0, t1)]
+    saves = [dict(step=sv["step"], snapshot_s=sv["snapshot_s"],
+                  write_s=sv["write_end"] - sv["write_start"],
+                  write_gb_per_s=sv["bytes"] / (sv["write_end"]
+                                                - sv["write_start"]) / 1e9)
+             for sv in a_saves]
+    log(json.dumps({"loop": dict(
+        model="granite-3-8b", layers=L_LAYERS,
+        reduced=f"layers {N_LAYERS} -> {L_LAYERS}", n_params=n_params,
+        plan=json.loads(plan.to_json()), steps=L_STEPS, ckpt_every=L_EVERY,
+        launches_per_step=per_step, checkpoint_bytes=ck_bytes,
+        checkpoint_bytes_on_disk=on_disk, disk_free_bytes=free,
+        saves=saves, save_beside_a_step=extra,
+        restore_in_place_s=secs["d_restore"],
+        step_ms_with_write_in_flight=during,
+        step_ms_without_write_or_snapshot=clear,
+        rollback_snapshot_s=a_stats.snapshot_times,
+        rollback_snapshot_bytes=a_stats.snapshot_bytes,
+        a_step_ms=[x * 1e3 for x in a_stats.step_times],
+        a_losses=[losses[i] for i in range(L_STEPS)],
+        a_straggler_events=a_stats.straggler_events,
+        b=dict(restarts=b_stats.restarts, steps=[i for i, *_ in b_seen]),
+        c=dict(rollbacks=c_stats.rollbacks, steps=[i for i, *_ in c_seen]),
+        d=dict(resumed_at=at, loss=d_loss), e_packed=packed, seconds=secs,
+        smi=smi_line())}))
+    _loop_multi_card()
+    _first_step_split()
+
+
+# the elastic restore through NCCL, one process per rank (argv: src, the
+# case, the checkpoint directory, the device type): the reduced config
+# saved under one plan, restored into a fresh state of another on the same
+# world, then one step; rank 0 prints the loss
+_L_ELASTIC = r"""
+import json
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import torch.distributed as dist
+from repro_torch.configs.base import get_arch
+from repro_torch.core.plan import Plan, StageConfig, single_stage_plan
+from repro_torch.launch.mesh import init_distributed, make_plan_mesh
+from repro_torch.models.zoo import build_model
+from repro_torch.training.checkpoint import Checkpointer, StatePlacement
+from repro_torch.training.data import BatchSpec, SyntheticLM
+from repro_torch.training.loop import TrainLoop
+from repro_torch.training.step import init_sharded_state, make_train_step
+
+case, ckdir, kind = sys.argv[2], sys.argv[3], sys.argv[4]
+rank, world, dev = init_distributed(kind)
+cfg = get_arch("granite-3-8b").reduced()
+model = build_model(cfg, dev)
+GBS = 8
+
+
+def single(dp, tp, zero=1, sp=False):
+    return single_stage_plan(cfg.num_layers, dp=dp, tp=tp,
+                             micro_batch=GBS // (2 * dp), grad_accum=2,
+                             zero=zero, attn_impl="pallas", use_pallas=True,
+                             sequence_parallel=sp)
+
+
+def piped(S, dp):
+    return Plan(grad_accum=2, attn_impl="pallas", use_pallas=True,
+                stages=tuple(StageConfig(layers=cfg.num_layers // S,
+                                         micro_batch=GBS // (2 * dp), dp=dp,
+                                         tp=1, zero=1, ckpt_layers=0)
+                             for _ in range(S)))
+
+
+PLANS = {"dp2_z1": single(2, 1), "tp2_sp": single(1, 2, sp=True),
+         "s2_dp2": piped(2, 2), "dp4_z2": single(4, 1, zero=2),
+         "one": single(1, 1)}
+src, dst = case.split("->")
+
+
+def mesh_of(plan):
+    st = plan.stages[0]
+    return make_plan_mesh(st.dp, st.tp, kind, plan.num_stages)
+
+
+def step_of(plan, mesh):
+    if plan.num_stages > 1:
+        from repro_torch.parallel.pipeline import make_pipeline_train_step
+        return make_pipeline_train_step(model, plan, mesh).fn
+    return make_train_step(model, plan, mesh=mesh).fn
+
+
+data = SyntheticLM(BatchSpec(GBS, 128, cfg.vocab_size))
+batch = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+         for i in range(2)]
+losses = []
+for name, i in ((src, 0), (dst, 1)):
+    plan = PLANS[name]
+    mesh = mesh_of(plan)
+    place = StatePlacement(cfg, plan, mesh, dev)
+    gen = torch.Generator(dev).manual_seed(i)
+    state = init_sharded_state(model, plan, mesh, gen)
+    if i == 1:
+        at, state, _ = TrainLoop.resume(ckdir, place, into=state)
+        assert at == 1, at
+    state, m = step_of(plan, mesh)(state, batch[i])
+    losses.append(float(m["loss"]))
+    if i == 0:
+        Checkpointer(ckdir).save(1, state, place=place)
+        dist.barrier()
+if rank == 0:
+    print(json.dumps({"elastic": case, "losses": losses}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _l_elastic(case, world, kind="cuda"):
+    """``_L_ELASTIC`` on ``world`` ranks (one process each, as torchrun
+    starts them); returns rank 0's losses (saved plan's step, restored
+    plan's step)."""
+    import shutil
+    import socket
+    ckdir = ROOT / "build" / "phase_l_elastic"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(world),
+               "LOCAL_RANK": str(r), "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _L_ELASTIC, str(ROOT / "src"), case,
+             str(ckdir), kind], env=env, cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"elastic {case}: a rank failed:\n"
+                             + "\n".join(e[-3000:] for _, e in outs))
+    line = [x for x in outs[0][0].splitlines() if x.startswith('{"elastic"')]
+    return json.loads(line[-1])["losses"]
+
+
+def _loop_multi_card(kind="cuda"):
+    """With two or more cards: the reduced config saved at dp 2 ZeRO 1
+    through NCCL and restored at tp 2 with SP, one step, its loss within
+    REDUCED_LOSS_RTOL of one card's (the same save and restore on a world
+    of one); with four or more, also S 2 x dp 2 -> dp 4 ZeRO 2."""
+    n = torch.cuda.device_count() if kind == "cuda" else 4
+    if n < 2:
+        log(f"multi_card: not run ({n} visible)")
+        return
+    want = _l_elastic("one->one", 1, kind)
+    cases = [("dp2_z1->tp2_sp", 2)] + ([("s2_dp2->dp4_z2", 4)]
+                                       if n >= 4 else [])
+    for case, world in cases:
+        got = _l_elastic(case, world, kind)
+        ok = all(abs(a - b) <= REDUCED_LOSS_RTOL * abs(b)
+                 for a, b in zip(got, want))
+        log(json.dumps({"multi_card": dict(phase="L", case=case,
+                                           losses=got, one_card=want,
+                                           ok=ok)}))
+        if not ok:
+            raise AssertionError(f"multi_card {case}: losses off one "
+                                 "card's")
+    if n < 4:
+        log(f"multi_card: S 2 x dp 2 -> dp 4 ZeRO 2 not run ({n} visible)")
+
+
+# the launcher's first step, taken apart in a fresh process (argv: src,
+# layers, seq): each set-up the launcher's first step meets is done and
+# timed on its own, at phase T's plan; then four steps
+_FIRST_STEP = r"""
+import json
+import sys
+import time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.configs.base import get_arch
+from repro_torch.core.plan import single_stage_plan
+from repro_torch.models.zoo import build_model
+from repro_torch.training.checkpoint import host_snapshot
+from repro_torch.training.data import BatchSpec, SyntheticLM
+from repro_torch.training.optimizer import is_split
+from repro_torch.training.step import init_train_state, make_train_step
+out = {"import_s": time.perf_counter() - t0}
+
+
+def timed(name, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    out[name] = time.perf_counter() - t
+    return r
+
+
+layers, seq = int(sys.argv[2]), int(sys.argv[3])
+timed("cuda_context_s", lambda: torch.zeros(1, device="cuda"))
+cfg = get_arch("granite-3-8b").replace(num_layers=layers)
+model = build_model(cfg, "cuda")
+plan = single_stage_plan(layers, dp=1, tp=1, micro_batch=1, grad_accum=2,
+                         zero=1, ckpt_layers=min(6, layers), ao=0.5, wo=0.5,
+                         oo=0.5, attn_impl="pallas", use_pallas=True,
+                         remat_policy="full")
+state = timed("init_state_s", lambda: init_train_state(
+    model, plan, torch.Generator("cuda").manual_seed(0)))
+host = sum(x["host"].numel() * 4 for e in ("master", "mu", "nu")
+           for x in state[e].values() if is_split(x))
+out["pinned_host_bytes"] = host
+pinned = timed("pinned_alloc_s", lambda: torch.empty(host // 4,
+                                                     pin_memory=True))
+del pinned
+snap = timed("rollback_snapshot_s", lambda: host_snapshot(state))
+del snap
+from repro_torch.kernels import _build
+timed("kernel_library_load_s", _build.load_library)
+a = torch.randn(4096, 4096, dtype=torch.bfloat16, device="cuda")
+timed("cublas_first_gemm_s", lambda: a @ a)
+timed("cublas_second_gemm_s", lambda: a @ a)
+del a
+# torch.utils.checkpoint's first call imports torch._dynamo (through its
+# disable-dynamo wrapper), ~830 modules
+import importlib
+timed("torch_dynamo_import_s", lambda: importlib.import_module("torch._dynamo"))
+step = make_train_step(model, plan)
+data = SyntheticLM(BatchSpec(2, seq, cfg.vocab_size))
+batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+steps = []
+for i in range(4):
+    if i == 3:
+        torch.cuda.empty_cache()
+    state, m = timed("step", lambda: step.fn(state, batch))
+    steps.append(out.pop("step"))
+out["steps_s"] = steps
+out["note"] = "steps 1-3 in a row; step 4 after empty_cache"
+print(json.dumps({"first_step_split": out}), flush=True)
+"""
+
+
+def _first_step_split(layers=T_LAYERS):
+    """``_FIRST_STEP`` in a fresh process at phase T's config (8 layers):
+    what the launcher's first step pays once, split."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _FIRST_STEP, str(ROOT / "src"),
+                        str(layers), str(T_SEQ)], capture_output=True,
+                       text=True, timeout=600, cwd=ROOT)
+    if r.returncode != 0:
+        raise AssertionError(f"first-step split failed:\n{r.stderr[-3000:]}")
+    line = [x for x in r.stdout.splitlines()
+            if x.startswith('{"first_step_split"')][-1]
+    rep = json.loads(line)
+    rep["first_step_split"].update(layers=layers, seq=T_SEQ,
+                                   process_s=time.perf_counter() - t0,
+                                   smi=smi_line())
+    log(json.dumps(rep))
+
+
+# ---------------------------------------------------------------------------
 # phase U: tune then execute
 # ---------------------------------------------------------------------------
 
@@ -2202,6 +2782,43 @@ from torch.testing._internal.distributed.fake_pg import FakeStore
 torch.cuda.set_device(0)
 dist.init_process_group("fake", store=FakeStore(), rank=int(sys.argv[3]),
                         world_size=int(sys.argv[2]))
+# the fake group's gathers, reduce-scatters and receives return without
+# writing their outputs.  A gather's output is a fresh block of the caching
+# allocator, whose old bits may read as NaN, and a pipeline stage's
+# received activations stay zero, through which each RMSNorm's backward
+# scales the gradient by rsqrt(eps) = 1000 until it overflows in 20
+# layers.  Fill them as if every rank held this rank's data and the
+# stage before sent unit-scale activations (and the stage after unit-scale
+# gradients), so that the loss stays finite: the training loop stops on a
+# non-finite loss it cannot roll back
+_gather, _scatter = dist.all_gather_into_tensor, dist.reduce_scatter_tensor
+_p2p = dist.batch_isend_irecv
+_sent = torch.Generator("cuda").manual_seed(0)
+
+
+def _filled_gather(out, inp, *a, **k):
+    work = _gather(out, inp, *a, **k)
+    out.view((-1,) + tuple(inp.shape)).copy_(inp)
+    return work
+
+
+def _filled_scatter(out, inp, *a, **k):
+    work = _scatter(out, inp, *a, **k)
+    out.copy_(inp.view((-1,) + tuple(out.shape))[0])
+    return work
+
+
+def _filled_p2p(ops):
+    works = _p2p(ops)
+    for op in ops:
+        if op.op is dist.irecv:
+            op.tensor.normal_(generator=_sent)
+    return works
+
+
+dist.all_gather_into_tensor = _filled_gather
+dist.reduce_scatter_tensor = _filled_scatter
+dist.batch_isend_irecv = _filled_p2p
 split = []
 HOOK
 from repro_torch.launch import train
@@ -2305,8 +2922,9 @@ def _d2_rank0_of_four():
     launcher (``--tune --devices 4``), run as rank 0 of 4 under the fake
     backend: exact launch counts per step, this rank's allocator peak
     beside the plan's predicted bytes per device, and the step time of one
-    rank's compute with no communication.  The collectives move nothing,
-    so the loss is not checked."""
+    rank's compute with no communication.  The collectives move nothing
+    (the gathers are filled with this rank's data, ``_FAKE_RANK``), so the
+    loss is not checked."""
     args = [str(D2_DEVICES), "0", "--arch", "granite-3-8b", "--tune",
             "--devices", str(D2_DEVICES), "--steps", str(D_STEPS), "--seq",
             str(T_SEQ), "--global-batch", str(D2_GBS)]
@@ -2730,6 +3348,12 @@ def main() -> int:
                         errs["flash_attention_bwd"]),
         _time_rmsnorm_bwd(train_launches["rmsnorm_bwd"],
                           errs["rmsnorm_bwd"])]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the training loop: checkpoints, restart, rollback, resume
+    phase_loop()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()

@@ -14,8 +14,12 @@ on rank 0, ``shard_train_state`` cuts a rank's part of a full one (both by
 way across its stages: each stage's stacked layers in their place in the
 whole stack, the embedding, head and final norm from the first stage, and
 every optimizer leaf whole (the stages split their host parts by their own
-WO/OO, so a gathered leaf joins its host and device parts, and a rank's
-cut is split again by its stage's).
+WO/OO, so a gathered leaf joins its host and device parts).  A rank's cut
+joins any split leaf of the full state and splits it again by its own
+stage's WO/OO, so a state gathered under one plan places onto any other
+plan of the same model (``load_train_state`` writes it into a live state
+in place).  Every array or tensor these functions return is a copy the
+caller owns: none is a view of a live tensor that a later step writes.
 """
 from __future__ import annotations
 
@@ -30,17 +34,24 @@ Device = Union[str, torch.device]
 
 def _to_torch(arr, dtype: Optional[torch.dtype], device: Device
               ) -> torch.Tensor:
-    t = torch.from_numpy(np.array(arr, copy=True))
+    """An array or a tensor as a new tensor (a copy) on ``device``;
+    floating ones cast to ``dtype``."""
+    t = arr.detach().clone() if isinstance(arr, torch.Tensor) else \
+        torch.from_numpy(np.array(arr, copy=True))
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.numpy()
+    """An owned numpy copy (never a view of a CPU tensor); bf16 as f32."""
+    dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    return t.detach().to("cpu", dtype, copy=True).numpy()
+
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """An owned CPU copy of ``t`` in its own dtype (bf16 kept)."""
+    return t.detach().to("cpu", copy=True)
 
 
 def params_from_numpy(flat: Mapping[str, np.ndarray], *,
@@ -133,21 +144,30 @@ def _lowered(cfg, plan, mesh):
     return lower_plan(cfg, None, plan, mesh)
 
 
+def _cat(parts):
+    """Arrays or tensors joined along their first dim (tensors on the
+    last part's device)."""
+    if isinstance(parts[-1], torch.Tensor):
+        return torch.cat([p.to(parts[-1].device) for p in parts])
+    return np.concatenate(parts)
+
+
 def _joined(v):
     """A split leaf ``{"host", "dev"}`` as one tensor or array."""
     if not isinstance(v, Mapping):
         return v
-    if isinstance(v["dev"], torch.Tensor):
-        return torch.cat([v["host"].to(v["dev"].device), v["dev"]])
-    return np.concatenate([v["host"], v["dev"]])
+    return _cat([v["host"], v["dev"]])
 
 
-def gather_train_state(state: Mapping, cfg, plan, mesh) -> Optional[Dict]:
+def gather_train_state(state: Mapping, cfg, plan, mesh,
+                       keep_dtype: bool = False) -> Optional[Dict]:
     """One rank's shards of a train state (``training.step.
     init_sharded_state``) -> the full state as numpy on rank 0 (None on the
     other ranks), in ``train_state_to_numpy``'s form (a pipelined plan's
-    optimizer leaves whole, module docstring).  Every rank must call it:
-    each shard is all-gathered over the mesh axes its spec names, and each
+    optimizer leaves whole, module docstring).  ``keep_dtype``: leaves as
+    owned CPU tensors in their own dtype (``host_copy``; bf16 kept, the
+    checkpointer's form) instead of numpy.  Every rank must call it: each
+    shard is all-gathered over the mesh axes its spec names, and each
     stage's first rank sends its stage's part to rank 0."""
     from repro_torch.launch.mesh import mesh_coords
     from repro_torch.models.common import all_gather_dim
@@ -162,13 +182,14 @@ def gather_train_state(state: Mapping, cfg, plan, mesh) -> Optional[Dict]:
     piped = len(low.stages) > 1
     lead = coords["data"] == coords["model"] == 0
     keep = dist.get_rank() == 0 or (piped and lead)
+    out_of = host_copy if keep_dtype else _to_numpy
 
     def whole(t, spec):
         t = t.to(dev)
         for d, ax in enumerate(spec):
             if ax is not None:
                 t = all_gather_dim(t, d, mesh.get_group(ax))
-        return _to_numpy(t) if keep else None
+        return out_of(t) if keep else None
 
     def leaf(v, spec):
         if isinstance(v, Mapping):
@@ -176,7 +197,8 @@ def gather_train_state(state: Mapping, cfg, plan, mesh) -> Optional[Dict]:
             return _joined(parts) if piped and keep else parts
         return whole(v, spec)
 
-    out = {"step": np.asarray(_to_numpy(state["step"]), np.int32)}
+    out = {"step": out_of(state["step"]) if keep_dtype else
+           np.asarray(_to_numpy(state["step"]), np.int32)}
     for e in ("params", "master", "mu", "nu"):
         out[e] = {n: leaf(v, specs[e][n]) for n, v in state[e].items()}
     if not piped:
@@ -191,49 +213,95 @@ def gather_train_state(state: Mapping, cfg, plan, mesh) -> Optional[Dict]:
         full[e] = {}
         for n, v in stages[0][e].items():
             full[e][n] = v if not n.startswith("layers/") else \
-                np.concatenate([stages[i][e][n] for i in sorted(stages)])
+                _cat([stages[i][e][n] for i in sorted(stages)])
     return full
+
+
+def _rank_part(full: Mapping, cfg, plan, mesh) -> Dict:
+    """This rank's part of a full train state (numpy arrays or CPU
+    tensors, split leaves or whole), as views where it can: its stage's
+    layers and params (the whole model's on a single-stage plan), each
+    leaf joined and split again by its stage's WO/OO, then cut by its
+    spec.  ``mesh`` None: the one device of a dp = tp = 1 plan."""
+    from repro_torch.lowering import plan_mesh, shard_tensor
+    from repro_torch.parallel.sharding import mesh_shape
+    from repro_torch.training.optimizer import split_k
+    if mesh is None:
+        low = _lowered(cfg, plan, plan_mesh(plan))
+        sizes = mesh_shape(low.mesh)
+        coords = {n: 0 for n in sizes}
+    else:
+        from repro_torch.launch.mesh import mesh_coords
+        low = _lowered(cfg, plan, mesh)
+        sizes, coords = mesh_shape(mesh), mesh_coords(mesh)
+    stage = coords.get("stage", 0)
+    specs = low.state_specs(stage)
+    ls = low.stages[stage]
+    lo, hi = ls.layers
+    metas, axes = low.stage_params(stage)
+    ratio = {"master": ls.stage.wo, "mu": ls.stage.oo, "nu": ls.stage.oo}
+
+    def mine(e, n, v):
+        if isinstance(v, Mapping):
+            rows = v["host"].shape[0] + v["dev"].shape[0]
+            shape = (rows,) + tuple(v["dev"].shape[1:])
+            if (lo, hi) == (0, rows) and v["host"].shape[0] == split_k(
+                    n, shape, axes, ratio.get(e, 0.0)):
+                return v            # already split as this stage splits it
+        v = _joined(v)
+        if n.startswith("layers/"):
+            v = v[lo:hi]
+        k = split_k(n, tuple(v.shape), axes, ratio.get(e, 0.0))
+        return {"host": v[:k], "dev": v[k:]} if k else v
+
+    def cut(v, spec):
+        if isinstance(v, Mapping):
+            return {k: cut(x, spec[k]) for k, x in v.items()}
+        return shard_tensor(v, spec, sizes, coords)
+
+    return {"step": full["step"], **{
+        e: {n: cut(mine(e, n, full[e][n]), specs[e][n]) for n in metas}
+        for e in ("params", "master", "mu", "nu")}}
 
 
 def shard_train_state(full: Mapping, cfg, plan, mesh, *,
                       param_dtype: torch.dtype = torch.bfloat16,
                       device: Device = "cpu") -> Dict:
-    """A full train state as numpy (``train_state_to_numpy``'s form, or a
-    pipelined plan's ``gather_train_state``) -> this rank's part of it, on
-    ``device``."""
-    from repro_torch.launch.mesh import mesh_coords
-    from repro_torch.lowering import shard_tensor
-    from repro_torch.parallel.sharding import mesh_shape
-    from repro_torch.training.optimizer import split_k
-    low = _lowered(cfg, plan, mesh)
-    sizes, coords = mesh_shape(mesh), mesh_coords(mesh)
-    stage = coords.get("stage", 0)
-    specs = low.state_specs(stage)
-    if len(low.stages) > 1:
-        # the stage's layers and params, its own host splits
-        ls = low.stages[stage]
-        lo, hi = ls.layers
-        metas, axes = low.stage_params(stage)
-        ratio = {"master": ls.stage.wo, "mu": ls.stage.oo,
-                 "nu": ls.stage.oo}
-
-        def mine(e, n, v):
-            v = np.asarray(_joined(v))
-            if n.startswith("layers/"):
-                v = v[lo:hi]
-            k = split_k(n, v.shape, axes, ratio.get(e, 0.0))
-            return {"host": v[:k], "dev": v[k:]} if k else v
-
-        full = {"step": full["step"], **{
-            e: {n: mine(e, n, full[e][n]) for n in metas}
-            for e in ("params", "master", "mu", "nu")}}
-
-    def cut(v, spec):
-        if isinstance(v, Mapping):
-            return {k: cut(x, spec[k]) for k, x in v.items()}
-        return shard_tensor(np.asarray(v), spec, sizes, coords)
-
-    part = {e: {n: cut(v, specs[e][n]) for n, v in full[e].items()}
-            for e in ("params", "master", "mu", "nu")}
-    return train_state_from_numpy({"step": full["step"], **part},
+    """A full train state (``train_state_to_numpy``'s form, a pipelined
+    plan's ``gather_train_state``, or a checkpoint's CPU tensors; split
+    leaves or whole, by any WO/OO) -> this rank's part of it, on
+    ``device``, split by its stage's WO/OO (``mesh`` None: one device)."""
+    return train_state_from_numpy(_rank_part(full, cfg, plan, mesh),
                                   param_dtype=param_dtype, device=device)
+
+
+def load_train_state(into: Dict, full: Mapping, cfg, plan, mesh) -> Dict:
+    """``shard_train_state`` written into the live state ``into`` in place
+    (``copy_``): its device tensors and pinned host parts stay, and no
+    second copy of the state is made on the device.  Returns ``into``."""
+    part = _rank_part(full, cfg, plan, mesh)
+
+    def put(dst, src, what):
+        if isinstance(dst, Mapping) != isinstance(src, Mapping):
+            raise ValueError(f"{what}: split differently from the live "
+                             "state")
+        if isinstance(dst, Mapping):
+            for k in dst:
+                put(dst[k], src[k], f"{what}/{k}")
+            return
+        src = src if isinstance(src, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(src))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{what}: shape {tuple(src.shape)} for a live "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)
+
+    with torch.no_grad():
+        for e in ("params", "master", "mu", "nu"):
+            if set(part[e]) != set(into[e]):
+                raise ValueError(f"{e}: the live state holds other params")
+            for n, v in into[e].items():
+                put(v, part[e][n], f"{e}/{n}")
+        into["step"].copy_(torch.as_tensor(np.asarray(part["step"],
+                                                      np.int32)))
+    return into

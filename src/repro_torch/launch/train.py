@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
         --smoke --steps 2 [--plan-json P] [--seq S] [--global-batch B] \
-        [--layers L] [--device cpu]
+        [--layers L] [--ckpt-dir D] [--ckpt-every N] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
         --tune --devices 16 [--space mist] [--memo-dir D] --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
@@ -40,12 +40,19 @@ at ``--seq``.  ``--calibration-out`` writes the profile (``auto``: the
 platform's default path).  It exits 0 iff every cell ran and the
 fitted error is no worse than the uncalibrated one; a failed cell (an
 OOM, a kernel build or launch error) fails the run and writes no
-profile.  ``TrainLoop`` with its checkpoints waits: the
-loop here is a plain step loop, and it prints each step's time, the
-losses in full, the kernels' launch counts and, on a card, the
-allocator's peak beside the plan's predicted bytes per device
-(``--save-params`` writes the losses and the final params, whole, to an
-``.npz``).
+profile.
+
+Training runs through ``training.loop.TrainLoop``, as the reference's
+launcher does: a checkpoint every ``--ckpt-every`` steps into
+``--ckpt-dir`` (the port's own default, ``$TMPDIR/repro_torch_ckpt``,
+never the reference's), written in the background by rank 0, restarts
+from the latest checkpoint on a failed step, a rollback to the host
+snapshot on a non-finite loss, and straggler counting.  It prints each
+step's time, the losses in full, the kernels' launch counts, the rollback
+snapshot's time and bytes with the loop's restarts, rollbacks and
+straggler events, and, on a card, the allocator's peak beside the plan's
+predicted bytes per device (``--save-params`` writes the losses and the
+final params, whole, to an ``.npz``).
 
 Multi-device plans (dp · tp > 1, or S > 1 pipeline stages) run one
 process per device: ``--nproc N`` spawns N ranks, or ``torchrun`` starts
@@ -71,6 +78,7 @@ import os
 import pathlib
 import socket
 import sys
+import tempfile
 import time
 from typing import Optional, Sequence
 
@@ -173,6 +181,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--save-params", default=None, metavar="PATH",
                     help="write the losses and the final params, whole, to "
                          "this .npz (rank 0)")
+    ap.add_argument("--ckpt-dir", default=str(pathlib.Path(
+        tempfile.gettempdir()) / "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -199,7 +210,9 @@ def _run(args, device: torch.device, distributed: bool) -> int:
     from repro_torch.configs.base import ShapeConfig, get_arch
     from repro_torch.core.plan import Plan, single_stage_plan
     from repro_torch.models.zoo import build_model
+    from repro_torch.training.checkpoint import StatePlacement
     from repro_torch.training.data import BatchSpec, SyntheticLM
+    from repro_torch.training.loop import LoopConfig, TrainLoop
     from repro_torch.training.step import init_train_state, make_train_step
 
     rank, world = 0, 1
@@ -306,28 +319,39 @@ def _run(args, device: torch.device, distributed: bool) -> int:
     tag = f" (stage {stage})" if S > 1 else ""
     data = SyntheticLM(BatchSpec(global_batch=gbs, seq_len=seq,
                                  vocab_size=cfg.vocab_size))
+
+    def batches(i):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in data.batch(i).items()}
+
+    loop = TrainLoop(step.fn, state, batches, ckpt_dir=args.ckpt_dir,
+                     cfg=LoopConfig(total_steps=args.steps,
+                                    ckpt_every=args.ckpt_every),
+                     place=StatePlacement(cfg, plan, mesh, device),
+                     meta={"arch": cfg.name, "plan": plan.to_json()})
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     counts0 = _launch_counts()
-    losses, step_ms = [], []
     t0 = time.perf_counter()
-    for i in range(args.steps):
-        t1 = time.perf_counter()
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in data.batch(i).items()}
-        state, metrics = step.fn(state, batch)
-        losses.append(float(metrics["loss"]))  # syncs the device
-        step_ms.append((time.perf_counter() - t1) * 1e3)
+    stats = loop.run()
     dt = time.perf_counter() - t0
+    state, losses = loop.state, stats.losses
     n = len(losses)
     counts = {k: v - counts0[k] for k, v in _launch_counts().items()}
     where = f"{device}" + (f", rank {rank} of {world}" if distributed
                            else "")
     if n:
-        say(f"# step ms{tag}: " + " ".join(f"{x:.1f}" for x in step_ms))
+        say(f"# step ms{tag}: " + " ".join(f"{x * 1e3:.1f}"
+                                           for x in stats.step_times))
         if rank == 0:
             print("# losses: " + " ".join(repr(x) for x in losses))
     say(f"# launches{tag}: {json.dumps(counts)}")
+    snap = stats.snapshot_times
+    say(f"# loop{tag}: rollback snapshot "
+        + (f"{snap[0]:.3f} s, {stats.snapshot_bytes} B"
+           if snap else "none")
+        + f"; restarts={stats.restarts} rollbacks={stats.rollbacks} "
+        f"straggler_events={stats.straggler_events}")
     if device.type == "cuda":
         from repro_torch.core.costmodel import estimate_plan
         est = estimate_plan(cfg, shape, plan)["mem_per_stage"][stage]

@@ -617,13 +617,17 @@ def segmented_layer_scan(body: Callable, carry, layers: Sequence[Params],
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy; logits (..., V) f32, labels int."""
+                 mask: Optional[torch.Tensor] = None,
+                 denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy; logits (..., V) f32, labels int.
+    ``denom``: the masked sum's divisor in place of the mask count."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll
     if mask is not None:
         mask = mask.float()
-        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        if denom is None:
+            denom = torch.clamp_min(torch.sum(mask), 1.0)
+        return torch.sum(nll * mask) / denom
     return torch.mean(nll)

@@ -224,11 +224,13 @@ def _chunk_nll_vocab_parallel(hh, w_out, ll, mm, par):
     return nll.sum(), mm.sum()
 
 
-def _parallel_xent(h, w_out, labels, mask, chunk, par, vocab_par):
+def _parallel_xent(h, w_out, labels, mask, chunk, par, vocab_par,
+                   denom=None):
     """``chunked_xent`` on one rank of a multi-device plan: vocab-parallel
     over the full sequence when ``w_out``'s vocab is split over ``model``,
     else the full head on this rank's part of the sequence (sequence
-    parallelism), the sums then added over tp."""
+    parallelism, the mask split as the labels are), the sums then added
+    over tp."""
     labels = labels.long()
     mask = mask.float() if mask is not None else \
         torch.ones(labels.shape, dtype=torch.float32, device=h.device)
@@ -253,21 +255,23 @@ def _parallel_xent(h, w_out, labels, mask, chunk, par, vocab_par):
     if par.sp and not vocab_par:
         tot = par.reduce_from_tp(tot)
         dist.all_reduce(cnt, group=par.tp_group)
-    return tot / torch.clamp_min(cnt, 1.0)
+    return tot / (torch.clamp_min(cnt, 1.0) if denom is None else denom)
 
 
 def chunked_xent(h: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None, chunk: int = 512
-                 ) -> torch.Tensor:
+                 mask: Optional[torch.Tensor] = None, chunk: int = 512,
+                 denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cross-entropy without materializing full (B, S, V) logits: a loop over
     sequence chunks, each checkpointed so that its logits are recomputed in
     the backward (the reference's ``jax.checkpoint`` scan body).  A sequence
-    the chunk does not divide takes the full logits, as in the reference."""
+    the chunk does not divide takes the full logits, as in the reference.
+    ``denom``: what the masked sum is divided by in place of this batch's
+    mask count (a data rank's part of a global mean)."""
     b_, s, _ = h.shape
     c = min(chunk, s)
     nc = s // c
     if nc * c != s:  # fall back for ragged smoke shapes
-        return softmax_xent((h @ w_out).float(), labels, mask)
+        return softmax_xent((h @ w_out).float(), labels, mask, denom)
     labels = labels.long()
     mask = mask.float() if mask is not None else \
         torch.ones(labels.shape, dtype=torch.float32, device=h.device)
@@ -279,7 +283,7 @@ def chunked_xent(h: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor,
                           mask[:, sl], use_reentrant=False,
                           preserve_rng_state=False)
         tot, cnt = tot + t, cnt + n
-    return tot / torch.clamp_min(cnt, 1.0)
+    return tot / (torch.clamp_min(cnt, 1.0) if denom is None else denom)
 
 
 AUX_COEF = 0.01
@@ -289,17 +293,19 @@ def head_loss(params: Params, h: torch.Tensor,
               batch: Dict[str, torch.Tensor], cfg: ArchConfig,
               ec: ExecConfig) -> torch.Tensor:
     """The mean next-token loss of the final-normed hidden states ``h``
-    against ``batch["labels"]`` (and ``"loss_mask"``): ``chunked_xent``
-    through the head, vocab- or sequence-parallel under ``ec.par``."""
+    against ``batch["labels"]`` (and ``"loss_mask"``, with
+    ``"loss_denom"`` on a data rank: ``training.step.data_micros``):
+    ``chunked_xent`` through the head, vocab- or sequence-parallel under
+    ``ec.par``."""
     head = "embed/w" if cfg.tie_embeddings else "lm_head/w"
     w_out = unembed_matrix(in_use({head: params[head]}, ec), cfg)
     par = ec.par
     vocab_par = w_out.shape[1] != cfg.vocab_size
+    mask, denom = batch.get("loss_mask"), batch.get("loss_denom")
     if par is None or not (vocab_par or par.sp):
-        return chunked_xent(h, w_out, batch["labels"],
-                            batch.get("loss_mask"))
-    return _parallel_xent(h, w_out, batch["labels"],
-                          batch.get("loss_mask"), 512, par, vocab_par)
+        return chunked_xent(h, w_out, batch["labels"], mask, denom=denom)
+    return _parallel_xent(h, w_out, batch["labels"], mask, 512, par,
+                          vocab_par, denom)
 
 
 def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,

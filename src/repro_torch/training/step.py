@@ -178,20 +178,25 @@ def rank_plan(model: Model, plan: Plan, mesh) -> RankPlan:
 
 def data_micros(batch, G: int, par: Parallel):
     """This data rank's rows of each of the G micro-batches of the global
-    ``batch``."""
+    ``batch``.  With a ``loss_mask`` and dp > 1, each micro-batch also
+    carries ``loss_denom``: max(its global mask count, 1) / dp, so that
+    the data ranks' losses, averaged over dp, and their gradients, summed
+    and divided by dp, are the global micro-batch's masked mean, as the
+    reference takes it (every rank holds the whole batch, so the count
+    needs no communication)."""
     b, dp = batch["tokens"].shape[0], par.dp
     if b % (G * dp):
         raise ValueError(f"batch {b} does not split into {G} "
                          f"micro-batches over {dp} data ranks")
-    if "loss_mask" in batch and dp > 1:
-        raise NotImplementedError(
-            "a loss mask under data parallelism (the mean over dp "
-            "weights every data rank alike); ROADMAP.md, queue A: "
-            "sharding on torch")
     mbg = b // G
     lo = par.dp_rank * (mbg // dp)
-    return [{k: v[i * mbg + lo:i * mbg + lo + mbg // dp]
-             for k, v in batch.items()} for i in range(G)]
+    micros = [{k: v[i * mbg + lo:i * mbg + lo + mbg // dp]
+               for k, v in batch.items()} for i in range(G)]
+    if "loss_mask" in batch and dp > 1:
+        for i, micro in enumerate(micros):
+            count = batch["loss_mask"][i * mbg:(i + 1) * mbg].float().sum()
+            micro["loss_denom"] = torch.clamp_min(count, 1.0) / dp
+    return micros
 
 
 def reduce_sums(rp: RankPlan, sums) -> None:
@@ -246,7 +251,8 @@ def _sharded_train_step(model, plan, adam, ec, mesh) -> TrainStep:
     Params split over neither keep all-reduced sums.  Then the sums of
     ``_tp_partial`` params are all-reduced over ``model``, and all are
     divided by G · dp (the mean over the global batch).  The loss is the
-    micro-batches' mean, averaged over dp."""
+    micro-batches' mean, averaged over dp (under a loss mask each data
+    rank's part of the global masked mean, ``data_micros``)."""
     rp = rank_plan(model, plan, mesh)
     par = rp.par
     ec = ec.replace(par=par)
