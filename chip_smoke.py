@@ -158,8 +158,27 @@ P. Pipelined plans: granite-3-8b at full depth and width tuned for 16
    ``generate(gen=32)`` with exactly 9 flash, 2336 RMSNorm and 54 SSD
    launches, the reduced config card vs CPU, and the timings (SSD, flash
    at hd 80, RMSNorm at d 2560, the serve loop).
+H. Hybrid training.  (a) The SSD backward kernel against ``ssd_bwd_plain``
+   on the card (SSD_BWD_TOL) at zamba2's training shape (B 1, S 4096, H
+   80, P = N = 64, G 1, chunk 256, bf16, through the SSD autograd
+   Function), with a second call bit for bit, and at S < chunk, S =
+   chunk, ragged 64-row tiles, G = 2, f32, and dt and a x 50 (finite).
+   (b) The reduced zamba2 (CKPT over one of its two groups, AO over that
+   group, WO = OO = 0.5, SSD chunk 16): loss and every gradient on the
+   card against the CPU under the CPU tests' rule, and one train step's
+   loss and grad norm.  (c) Full-width zamba2-2.7b, all 54 layers, on one
+   card: micro-batch 1 x 4096, G 2, CKPT 54 (9 groups), AO 6 (1 group),
+   WO = OO = 0, Adam at T_LR, H_STEPS steps on one batch; the loss finite
+   and falling, the six launch counts exact per step (``_hybrid_launches``:
+   145 / 73 RMSNorm, 18 / 9 flash and 108 / 54 SSD per micro-batch); the
+   step time, the allocator's peak beside the memory report's predicted
+   and lowered bytes.  (d) Timings: the SSD backward at the training shape
+   (call, device and cold-L2 times, its bound; no library call computes
+   it), the flash backward at hd 80 beside SDPA's backward, the RMSNorm
+   backward at 4096 x 2560 beside ``F.rms_norm``'s.
 6. With ``--profile`` only: a ``torch.profiler`` window over one prefill
-   and over three decode steps of each model, and over one train step --
+   and over three decode steps of each model, and over one train step of
+   each trained model (granite in phase T, zamba2 in phase H) --
    device busy time, idle share and the kernels that take the most device
    time -- written as one JSON line each (the Chrome traces go to
    ``build/profile/``).
@@ -303,6 +322,18 @@ R_BATCH, R_HEADS, R_KV = 4, N_HEADS // D2_DEVICES, N_KV // D2_DEVICES
 # heads and 8 / 8 kv heads
 P_DEVICES, P_GBS, P_TP = 16, 32, 8
 P_BATCH, P_HEADS, P_KV = 2, N_HEADS // P_TP, N_KV // P_TP
+# phase H: hybrid training.  zamba2-2.7b at its published widths and full
+# depth (2.541 B params: 5.1 GB of bf16 params, 30.5 GB of f32 master, mu
+# and nu and 10.2 GB of f32 gradient sums before activations, so the depth
+# is not cut), micro-batch 1 x 4096, G 2, CKPT over all 54 layers (9
+# groups), AO 6 layers (1 group), WO = OO = 0, Adam at T_LR, H_STEPS steps
+# on one batch
+H_SEQ, H_MICRO, H_ACCUM, H_CKPT, H_AO_LAYERS, H_STEPS = 4096, 1, 2, 54, 6, 4
+# the SSD backward kernel against ssd_bwd_plain on the same inputs (both
+# sum in f32, in other orders): per tensor, max |got - want| <= tol * max
+# |want|, by the tensor's dtype -- dx, dB and dC are rounded once to bf16
+# (2^-8 of a value), ddt and da stay f32 (docs/port.md)
+SSD_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-4}
 
 
 def log(msg: str) -> None:
@@ -681,8 +712,11 @@ def _backward_kernels_vs_plain():
         (2, 256, 333, 8, 8, 80, False),
         (R_BATCH, T_SEQ, T_SEQ, R_HEADS, R_KV, HEAD_DIM, True),  # tp-4 rank
         (P_BATCH, T_SEQ, T_SEQ, P_HEADS, P_KV, HEAD_DIM, True),  # tp-8 stage
+        # zamba2's shared block in training (phase H)
+        (H_MICRO, H_SEQ, H_SEQ, Z_HEADS, Z_HEADS, Z_HEAD_DIM, True),
     ]
-    rank_cases = {len(cases) - 2: "tp4", len(cases) - 1: "tp8"}
+    rank_cases = {len(cases) - 3: "tp4", len(cases) - 2: "tp8",
+                  len(cases) - 1: f"hd{Z_HEAD_DIM}"}
     def check(what, got, want):
         res = [flash_bwd_close(g, w) for g, w in zip(got, want)]
         log(f"# flash bwd {what}: dq/dk/dv max err "
@@ -819,6 +853,8 @@ def _backward_kernels_vs_plain():
         if rows == T_MICRO * T_SEQ and d == D_MODEL:
             errs["rmsnorm_bwd"] = err_x
             train = (x, scale, dy), got, want
+        if rows == H_MICRO * H_SEQ and d == Z_D_MODEL and xdt == bf16:
+            errs[f"rmsnorm_bwd@d{Z_D_MODEL}"] = err_x
     # the training shape again, right after another shape (other grid, other
     # route): it agrees with its plain version, and bit for bit with the
     # first call (the dscale partials add in a fixed order)
@@ -875,7 +911,7 @@ def _counters():
     return {"flash_attention_fwd": (FA, "LAUNCHES"),
             "flash_attention_bwd": (FA, "BWD_LAUNCHES"),
             "rmsnorm": (RN, "LAUNCHES"), "rmsnorm_bwd": (RN, "BWD_LAUNCHES"),
-            "ssd_scan": (SS, "LAUNCHES")}
+            "ssd_scan": (SS, "LAUNCHES"), "ssd_scan_bwd": (SS, "BWD_LAUNCHES")}
 
 
 def _reset_counts():
@@ -984,7 +1020,7 @@ def phase_full_width_serve(arch, dims, want_launches, f32_truth=False):
 def _granite_launches(cfg):
     return {"flash_attention_fwd": cfg.num_layers, "flash_attention_bwd": 0,
             "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "rmsnorm_bwd": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def _zamba2_launches(cfg):
@@ -994,7 +1030,7 @@ def _zamba2_launches(cfg):
     # layer and the final norm (73 at full width)
     return {"flash_attention_fwd": groups, "flash_attention_bwd": 0,
             "rmsnorm": (2 * groups + cfg.num_layers + 1) * GEN,
-            "rmsnorm_bwd": 0, "ssd_scan": cfg.num_layers}
+            "rmsnorm_bwd": 0, "ssd_scan": cfg.num_layers, "ssd_scan_bwd": 0}
 
 
 def _teacher_forced(cfg, params, toks, plen, dev, dtype=torch.bfloat16):
@@ -1314,13 +1350,15 @@ def _time_flash_bwd(launches, err, shape=(T_MICRO, T_SEQ, N_HEADS, N_KV,
         shape=f"B{b} S{s} H{h} KV{kv} hd{hd} causal bf16")
 
 
-def _time_rmsnorm_bwd(launches, err):
-    """The RMSNorm backward entry at the training shape (one micro-batch's
-    4096 rows of 4096), with the backward of ``F.rms_norm`` through
-    ``torch.autograd.grad`` as the library yardstick."""
+def _time_rmsnorm_bwd(launches, err, d=D_MODEL,
+                      model="granite-3-8b (training)"):
+    """The RMSNorm backward entry at a training shape (one micro-batch's
+    4096 rows of ``d``, granite's 4096 by default), with the backward of
+    ``F.rms_norm`` through ``torch.autograd.grad`` as the library
+    yardstick."""
     from repro_torch.kernels import rmsnorm as RN
 
-    rows, d = T_MICRO * T_SEQ, D_MODEL
+    rows = T_MICRO * T_SEQ
     g = torch.Generator(DEVICE).manual_seed(95)
     x = torch.randn((rows, d), generator=g, device=DEVICE).to(torch.bfloat16)
     dy = torch.randn((rows, d), generator=g, device=DEVICE).to(torch.bfloat16)
@@ -1352,8 +1390,7 @@ def _time_rmsnorm_bwd(launches, err):
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=lib_ms, device_ms=dev,
         library_device_ms=lib_dev, cold_ms=cold, library_cold_ms=lib_cold,
-        parts_us=parts, model="granite-3-8b (training)",
-        shape=f"{rows}x{d} bf16")
+        parts_us=parts, model=model, shape=f"{rows}x{d} bf16")
 
 
 # ---------------------------------------------------------------------------
@@ -1371,24 +1408,34 @@ def _train_launches(layers, ckpt, accum):
     return {"flash_attention_fwd": accum * (layers + ckpt),
             "flash_attention_bwd": accum * layers,
             "rmsnorm": accum * (2 * layers + 1 + 2 * ckpt),
-            "rmsnorm_bwd": accum * (2 * layers + 1), "ssd_scan": 0}
+            "rmsnorm_bwd": accum * (2 * layers + 1), "ssd_scan": 0,
+            "ssd_scan_bwd": 0}
+
+
+def _grads_as_accurate(got, want, truth, what):
+    """``got`` finite, and its error against the f32 gradient ``truth`` at
+    most ACCURACY_ROOM times ``want``'s (the CPU bf16 run's), in max and in
+    mean; returns the max ratio."""
+    e, e0 = (got - truth).abs(), (want - truth).abs()
+    if not (bool(torch.isfinite(got).all())
+            and float(e.max()) <= ACCURACY_ROOM * float(e0.max())
+            and float(e.mean()) <= ACCURACY_ROOM * float(e0.mean())):
+        raise AssertionError(
+            f"{what}: card gradient less accurate than the CPU's (vs f32 max "
+            f"{float(e.max()):.3e} / {float(e0.max()):.3e}, mean "
+            f"{float(e.mean()):.3e} / {float(e0.mean()):.3e})")
+    return float(e.max() / e0.max())
 
 
 def _grads_close(got, want, truth, what):
     """The CPU parity tests' bf16 rule (tests/test_torch_train.py): mean
-    difference within 3e-2 of the mean magnitude, and the error against
-    the f32 gradient at most ACCURACY_ROOM times the CPU bf16 run's."""
+    difference within 3e-2 of the mean magnitude, and
+    ``_grads_as_accurate``."""
     diff = float((got - want).abs().mean())
-    e, e0 = (got - truth).abs(), (want - truth).abs()
-    ok = (bool(torch.isfinite(got).all())
-          and diff <= 3e-2 * float(want.abs().mean())
-          and float(e.max()) <= ACCURACY_ROOM * float(e0.max())
-          and float(e.mean()) <= ACCURACY_ROOM * float(e0.mean()))
-    if not ok:
+    if diff > 3e-2 * float(want.abs().mean()):
         raise AssertionError(f"{what}: card gradient off the CPU's (mean "
-                             f"diff {diff:.3e}; vs f32 {float(e.max()):.3e}"
-                             f" / {float(e0.max()):.3e})")
-    return float(e.max() / e0.max())
+                             f"diff {diff:.3e})")
+    return _grads_as_accurate(got, want, truth, what)
 
 
 def _train_reduced_vs_cpu():
@@ -3181,6 +3228,328 @@ def phase_multi_device(plan):
     return per_step
 
 
+# ---------------------------------------------------------------------------
+# phase H: hybrid training
+# ---------------------------------------------------------------------------
+
+
+def ssd_bwd_close(got, want):
+    """[(name, ok, max err, max |want|)] of dx, ddt, da, dB, dC under
+    SSD_BWD_TOL (each tensor's own dtype)."""
+    out = []
+    for name, g, w in zip(("dx", "ddt", "da", "dB", "dC"), got, want):
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        out.append((name, bool(torch.isfinite(g).all())
+                    and err <= SSD_BWD_TOL[w.dtype] * scale, err, scale))
+    return out
+
+
+def _ssd_bwd_grads(x, dt, a, bb, cc, dy, q, calls=1):
+    """The kernels' gradients of y through the SSD autograd Function (the
+    forward kernel keeps its states, the backward kernel reads them),
+    ``calls`` times from one forward."""
+    from repro_torch.kernels.ssd_scan import SSDScan
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, bb, cc)]
+    y, _ = SSDScan.apply(*leaves, q, "kernel")
+    out = [torch.autograd.grad(y, leaves, dy, retain_graph=i < calls - 1)
+           for i in range(calls)]
+    sync()
+    return out
+
+
+def _ssd_bwd_vs_plain():
+    """Phase H (a): the SSD backward kernel against ``ssd_bwd_plain`` on the
+    card at zamba2's training shape and the forward's edge cases (S <
+    chunk, S = chunk, ragged tiles, G > 1, f32); two calls at the training
+    shape bit for bit; a large |dt a| finite.  Returns the training shape's
+    largest error."""
+    from repro_torch.kernels import ssd_scan as SS
+
+    bf16 = torch.bfloat16
+    cases = [  # (B, S, H, P, N, G, chunk, dtype, dt and a scale)
+        (H_MICRO, H_SEQ, SSD_HEADS, SSD_P, SSD_N, SSD_G, SSD_CHUNK, bf16,
+         1.0),                                          # zamba2 training
+        (BATCH, 64, 16, 16, 16, 1, SSD_CHUNK, bf16, 1.0),   # S < chunk
+        (BATCH, 256, SSD_HEADS, 64, 64, 1, 256, bf16, 1.0),  # S = chunk
+        (2, 40, 4, 32, 16, 1, SSD_CHUNK, bf16, 1.0),    # ragged 64-row tile
+        (2, 192, 4, 32, 16, 2, 96, bf16, 1.0),          # ragged, 2 chunks
+        (2, 512, 8, 64, 64, 2, 256, bf16, 1.0),         # G = 2 groups
+        (2, 192, 4, 32, 16, 2, 96, torch.float32, 1.0),  # f32
+        (1, 512, 8, 64, 64, 1, 256, bf16, 50.0),        # large |dt a|
+    ]
+    err = None
+    for i, (b, s, h, p, n, g, q, dtype, big) in enumerate(cases):
+        x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, g, dtype, seed=120 + i)
+        dt, a = dt * big, a * big
+        dy = torch.randn((b, s, h, p), generator=torch.Generator(
+            DEVICE).manual_seed(140 + i), device=DEVICE).to(dtype)
+        runs = _ssd_bwd_grads(x, dt, a, bb, cc, dy, q,
+                              calls=2 if i == 0 else 1)
+        want = SS.ssd_bwd_plain(x, dt, a, bb, cc, dy, q)
+        sync()
+        res = ssd_bwd_close(runs[0], want)
+        log(f"# ssd bwd B{b} S{s} H{h} P{p} N{n} G{g} chunk {q} {dtype}"
+            f"{f' dt, a x {big:g}' if big != 1 else ''}: max err (max |ref|) "
+            + ", ".join(f"{nm} {e:.3e} ({m:.3g})" for nm, _, e, m in res))
+        if not all(ok for _, ok, _, _ in res):
+            raise AssertionError("ssd backward kernel disagrees with its "
+                                 f"plain version (case {i})")
+        if i == 0:
+            err = max(e for _, _, e, _ in res)
+            same = all(torch.equal(u, v) for u, v in zip(*runs))
+            log(f"# ssd bwd training shape, second call bitwise equal: "
+                f"{same}")
+            if not same:
+                raise AssertionError("ssd backward kernel: two calls differ")
+    return err
+
+
+def _hybrid_launches(cfg, ckpt_layers, accum):
+    """Launches per train step of the hybrid, from the code: per micro-batch
+    each group runs its shared block (two norms, one flash attention) and
+    ``per`` Mamba layers (a norm and an SSD scan each), then the final
+    norm; a remat'd group (CKPT counted in groups) runs its forward again
+    in the backward, to its last Mamba layer's saved tensors, so its norms,
+    its attention and its SSD scans rerun; each forward of the saved graph
+    has one backward."""
+    per = cfg.shared_attn_every
+    ng, cg = cfg.num_layers // per, -(-ckpt_layers // per)
+    return {"flash_attention_fwd": accum * (ng + cg),
+            "flash_attention_bwd": accum * ng,
+            "rmsnorm": accum * (2 * ng + cfg.num_layers + 1
+                                + cg * (2 + per)),
+            "rmsnorm_bwd": accum * (2 * ng + cfg.num_layers + 1),
+            "ssd_scan": accum * (cfg.num_layers + cg * per),
+            "ssd_scan_bwd": accum * cfg.num_layers}
+
+
+def _hybrid_reduced_vs_cpu():
+    """Phase H (b): the reduced zamba2 (8 layers, 2 groups), CKPT over one
+    of its groups, AO over that group, WO = OO = 0.5, SSD chunk 16 (4
+    chunks of 64 tokens): one micro-batch's loss and every gradient with
+    the kernels on the card against the plain versions on the CPU (same
+    bf16 weights), then one train step of the plan on each: the losses
+    compared, the grad norms finite.  The gradients are held by
+    ``_grads_as_accurate`` alone: this hybrid's bf16 gradients sit 25-47%
+    (mean) from its f32 ones, and two bf16 routes on the CPU (the SSD plain
+    version and the chunked algebra) differ by 7-9% of the mean magnitude,
+    so granite's 3e-2 mean-difference share cannot hold (as for zamba2's
+    logits).  The grad norm carries the same noise (card 73.20 against the
+    CPU's 76.82 on an H100 80GB HBM3 at 700 W; the f32 gradients' norm sits
+    4.5% from the bf16 ones' on the CPU), and the per-tensor rule already
+    holds what it sums."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.plan import KernelConfig, single_stage_plan
+    from repro_torch.lowering import train_exec_cfg
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training.data import BatchSpec, SyntheticLM
+    from repro_torch.training.optimizer import init_state
+    from repro_torch.training.step import make_train_step
+
+    cfg = get_arch("zamba2-2.7b").reduced()
+    plan = single_stage_plan(cfg.num_layers, dp=1, tp=1, micro_batch=2,
+                             grad_accum=1, ckpt_layers=3, ao=1 / 3, wo=0.5,
+                             oo=0.5, attn_impl="pallas", use_pallas=True,
+                             kernel=KernelConfig(ssd_chunk=16))
+    ec = train_exec_cfg(plan)
+    assert (ec.ckpt_layers, ec.offload_layers, ec.ssd_chunk) == (3, 1, 16)
+    params, axes = build_model(cfg, "cpu").init(
+        torch.Generator().manual_seed(0))
+    batch = SyntheticLM(BatchSpec(global_batch=2, seq_len=64,
+                                  vocab_size=cfg.vocab_size), seed=1).batch(0)
+
+    def loss_and_grads(dev, dtype):
+        p = {n: t.to(dev, dtype).requires_grad_(True)
+             for n, t in params.items()}
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss = build_model(cfg, dev).loss_fn(
+            p, b, ec.replace(compute_dtype=dtype))
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return float(loss.detach()), {n: g.float().cpu()
+                                      for n, g in zip(p, grads)}
+
+    card_loss, card = loss_and_grads(DEVICE, torch.bfloat16)
+    cpu_loss, cpu = loss_and_grads("cpu", torch.bfloat16)
+    _, truth = loss_and_grads("cpu", torch.float32)
+    ratio = max(_grads_as_accurate(card[n], cpu[n], truth[n], n)
+                for n in card)
+
+    def one_step(dev):
+        state = init_state({n: t.to(dev, copy=True)
+                            for n, t in params.items()}, axes, plan.stages[0])
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _, m = make_train_step(build_model(cfg, dev), plan).fn(state, b)
+        return float(m["loss"]), float(m["grad_norm"])
+
+    card_step, cpu_step = one_step(DEVICE), one_step("cpu")
+    log(f"# hybrid training, reduced zamba2 card kernels vs CPU plain: loss "
+        f"{card_loss:.5f} vs {cpu_loss:.5f}; every gradient within the CPU "
+        f"rule (largest error vs f32 at {ratio:.2f}x the CPU bf16 run's); "
+        f"one step at WO = OO = 0.5, (loss, grad norm) {card_step} vs "
+        f"{cpu_step}")
+    if abs(card_loss - cpu_loss) > REDUCED_LOSS_RTOL * abs(cpu_loss) or \
+            abs(card_step[0] - cpu_step[0]) > \
+            REDUCED_LOSS_RTOL * abs(cpu_step[0]) or \
+            not all(math.isfinite(x) for x in card_step + cpu_step):
+        raise AssertionError(f"reduced hybrid: card {card_loss} "
+                             f"{card_step} vs CPU {cpu_loss} {cpu_step}")
+
+
+def phase_hybrid_train(profile=False):
+    """Phase H (c): zamba2-2.7b trained at full width and depth on one card
+    (module docstring); returns the launch counts of one step."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.plan import single_stage_plan
+    from repro_torch.lowering import memory_consistency
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training.data import BatchSpec, SyntheticLM
+    from repro_torch.training.optimizer import AdamConfig
+    from repro_torch.training.step import init_train_state, make_train_step
+
+    cfg = get_arch("zamba2-2.7b")
+    dims = dict(num_layers=Z_LAYERS, d_model=Z_D_MODEL, num_heads=Z_HEADS,
+                head_dim=Z_HEAD_DIM, ssm_state=SSD_N, ssm_head_dim=SSD_P,
+                ssm_groups=SSD_G, shared_attn_every=Z_LAYERS // Z_GROUPS,
+                vocab_size=32000, tie_embeddings=False)
+    assert {k: getattr(cfg, k) for k in dims} == dims
+    model = build_model(cfg, DEVICE)
+    plan = single_stage_plan(Z_LAYERS, dp=1, tp=1, micro_batch=H_MICRO,
+                             grad_accum=H_ACCUM, zero=0, ckpt_layers=H_CKPT,
+                             ao=H_AO_LAYERS / H_CKPT, attn_impl="pallas",
+                             use_pallas=True, remat_policy="full")
+    step = make_train_step(model, plan, AdamConfig(lr=T_LR))
+    ec = step.exec_cfg
+    assert (ec.ckpt_layers, ec.offload_layers) == (H_CKPT, H_AO_LAYERS)
+    want = _hybrid_launches(cfg, ec.ckpt_layers, H_ACCUM)
+    data = SyntheticLM(BatchSpec(global_batch=H_MICRO * H_ACCUM,
+                                 seq_len=H_SEQ, vocab_size=cfg.vocab_size))
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in data.batch(0).items()}
+    t0 = time.perf_counter()
+    state = init_train_state(model, plan,
+                             torch.Generator(DEVICE).manual_seed(0))
+    sync()
+    n_params = sum(p.numel() for p in state["params"].values())
+    log(f"# training zamba2-2.7b at full width, {Z_LAYERS} layers: "
+        f"{n_params / 1e9:.3f} B params; ckpt {ec.ckpt_layers} layers "
+        f"({-(-ec.ckpt_layers // cfg.shared_attn_every)} groups, offload "
+        f"{ec.offload_layers}), "
+        f"grad_accum {H_ACCUM} x {H_MICRO} x {H_SEQ}; state initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the main path, counted step by step
+    losses, gnorms, times = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(H_STEPS):
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, m = step.fn(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = _read_counts()
+        if launches != want:
+            raise AssertionError(f"hybrid train step launch counts "
+                                 f"{launches} != {want}")
+    peak = torch.cuda.max_memory_allocated()
+    mc = memory_consistency(cfg, ShapeConfig("h", H_SEQ, H_MICRO * H_ACCUM,
+                                             "train"), plan)
+    if profile:
+        report = _device_window(lambda: step.fn(state, batch),
+                                ROOT / "build" / "profile" / "train_hybrid" /
+                                "trace_step.json")
+        log(json.dumps({"profile": {"train_step": report},
+                        "model": "zamba2-2.7b (training)"}))
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(times[1:])
+    tokens = H_MICRO * H_ACCUM * H_SEQ
+    log(json.dumps({"train_hybrid": dict(
+        model="zamba2-2.7b", layers=Z_LAYERS, tokens_per_step=tokens,
+        step_ms=step_ms, step_ms_all=times,
+        tokens_per_s=tokens / (step_ms / 1e3), n_params=n_params,
+        max_memory_allocated=peak,
+        memory_report_predicted_bytes=mc["predicted_bytes"],
+        memory_report_lowered_bytes=mc["lowered_bytes"], lr=T_LR,
+        losses=losses, grad_norms=gnorms, launches_per_step=launches,
+        smi=smi_line())}))
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError("hybrid training: non-finite loss or grad norm")
+    if not (losses[1] < losses[0] and losses[-1] < losses[0]):
+        raise AssertionError(f"hybrid training: the loss does not fall: "
+                             f"{losses}")
+    return launches
+
+
+def ssd_bwd_bound(b, s, h, p, n, g, q, esize):
+    """(bound_ms, bound_by, arithmetic) for one SSD backward.  Operations:
+    per (batch, head) and chunk, five products over the causal pairs (C
+    B^T and dy x^T, then dx, dB and dC from them: 3 of width N, 2 of width
+    P), and the Q x N x P state products this call's chunks need (the
+    chunk's part of dH_in and C's carried-state term for every chunk but
+    the first, dx's and dB's leaving-state terms for every chunk but the
+    last), 2 flop per MAC at the bf16 tensor-core rate (f32 rate for f32).
+    Bytes: x, dy, B/C (once per group), dt, a and the forward's f32 states
+    read once; dx, dB, dC, ddt and da written once."""
+    nc, pairs = s // q, q * (q + 1) // 2
+    flops = b * h * (nc * 2 * pairs * (3 * n + 2 * p)
+                     + (nc - 1) * 4 * 2 * q * n * p)
+    nbytes = (3 * b * s * h * p + 4 * b * s * g * n) * esize \
+        + 4 * (2 * b * s * h + 2 * h + (nc - 1) * b * h * n * p)
+    peak, rate = (PEAK_BF16_FLOPS, "989 TFLOP/s bf16") if esize == 2 \
+        else (PEAK_F32_FLOPS, "67 TFLOP/s f32")
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    how = (f"{flops / 1e9:.2f} GFLOP / {rate} = {t_ops * 1e6:.1f} us "
+           f"(at 67 TFLOP/s f32: {flops / PEAK_F32_FLOPS * 1e6:.1f} us); "
+           f"{nbytes / 1e6:.1f} MB / 3.35 TB/s = {t_bytes * 1e6:.1f} us")
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes", how
+
+
+def _time_ssd_bwd(launches, err):
+    """Phase H (d): the SSD backward entry at zamba2's training shape, x/B/C
+    laid out as the model gives them.  No single PyTorch call computes the
+    SSD scan's gradient, so there is no library yardstick."""
+    from repro_torch.kernels import ssd_scan as SS
+
+    b, s, h, p, n, g, q = (H_MICRO, H_SEQ, SSD_HEADS, SSD_P, SSD_N, SSD_G,
+                           SSD_CHUNK)
+    x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, g, torch.bfloat16,
+                                   seed=99)
+    dy = torch.randn((b, s, h, p), generator=torch.Generator(
+        DEVICE).manual_seed(98), device=DEVICE).to(torch.bfloat16)
+    _, _, states = SS._launch(x, dt, a, bb, cc, q)
+    kernel = lambda: SS._launch_bwd(  # noqa: E731
+        x, dt, a, bb, cc, dy, states, q)
+    ms = time_ms(kernel, reps=10)
+    dev = time_ms(kernel, reps=10, device_only=True)
+    cold = time_ms(kernel, reps=10, cold=True, device_only=True)
+    plain = time_ms(lambda: SS.ssd_bwd_plain(x, dt, a, bb, cc, dy, q),
+                    reps=3, warmup=1)
+    parts = kernel_split_us(kernel, reps=3)
+    log("# ssd bwd, device us per call by kernel (torch.profiler): "
+        + ", ".join(f"{name} {us:.1f}" for name, us in parts.items()))
+    bound, by, how = ssd_bwd_bound(b, s, h, p, n, g, q, 2)
+    log(f"# ssd bwd: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 "
+        f"{cold:.4f}), plain {plain:.4f} ms; bound: {how} -> "
+        f"{bound * 1e3:.1f} us ({by}), {bound / cold:.1%} of it cold; "
+        f"{SS.bwd_smem_bytes(q, p, n)} B of shared memory a block")
+    return dict(
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        replaces="none: the gradient of src/repro/kernels/ssd_scan.py:20, "
+                 "which the reference takes only through its jnp "
+                 "src/repro/models/ssm.py:57",
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, library_ms=None, device_ms=dev,
+        library_device_ms=None, cold_ms=cold, library_cold_ms=None,
+        parts_us=parts, model="zamba2-2.7b (training)",
+        shape=f"B{b} S{s} H{h} P{p} N{n} G{g} chunk {q} bf16")
+
+
 def _time_serve(arch, model, params, prompts, plan, peak):
     """The serve loop: prefill, decode per step, whole generate()."""
     from repro_torch.launch.serve import generate
@@ -3271,6 +3640,7 @@ _KERNEL_GROUPS = (
     ("flash (port)", ("flash_fwd", "flash_bwd", "fa_bwd")),
     ("rmsnorm (port)", ("rmsnorm",)),
     ("ssd (port)", ("ssd_scan",)),
+    ("ssd bwd (port)", ("ssd_bwd",)),
     ("gemm (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "Kernel2")),
 )
 
@@ -3420,6 +3790,27 @@ def main() -> int:
     _time_serve("zamba2-2.7b", model, params, prompts, plan, peak)
     if profile:
         phase_profile("zamba2-2.7b", model, params, prompts, plan)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # hybrid training: the SSD backward kernel, the reduced config card vs
+    # CPU, full-width zamba2-2.7b on one card, the new shapes' timings
+    t_h = time.perf_counter()
+    ssd_bwd_err = _ssd_bwd_vs_plain()
+    _hybrid_reduced_vs_cpu()
+    hybrid_launches = phase_hybrid_train(profile)
+    kernels += [
+        _time_ssd_bwd(hybrid_launches["ssd_scan_bwd"], ssd_bwd_err),
+        _time_flash_bwd(hybrid_launches["flash_attention_bwd"],
+                        errs[f"flash_attention_bwd@hd{Z_HEAD_DIM}"],
+                        (H_MICRO, H_SEQ, Z_HEADS, Z_HEADS, Z_HEAD_DIM),
+                        "zamba2-2.7b (training)"),
+        _time_rmsnorm_bwd(hybrid_launches["rmsnorm_bwd"],
+                          errs[f"rmsnorm_bwd@d{Z_D_MODEL}"], Z_D_MODEL,
+                          "zamba2-2.7b (training)")]
+    log(f"# phase H: {time.perf_counter() - t_h:.1f} s")
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi_line())

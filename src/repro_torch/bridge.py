@@ -245,7 +245,10 @@ def _rank_part(full: Mapping, cfg, plan, mesh) -> Dict:
         if isinstance(v, Mapping):
             rows = v["host"].shape[0] + v["dev"].shape[0]
             shape = (rows,) + tuple(v["dev"].shape[1:])
-            if (lo, hi) == (0, rows) and v["host"].shape[0] == split_k(
+            # whole for this stage: not cut by layers (the hybrid's stacks
+            # lead with groups), or all of them
+            whole = not n.startswith("layers/") or (lo, hi) == (0, rows)
+            if whole and v["host"].shape[0] == split_k(
                     n, shape, axes, ratio.get(e, 0.0)):
                 return v            # already split as this stage splits it
         v = _joined(v)

@@ -92,7 +92,9 @@
 // kernel: a bf16 tensor core cannot hold f32 x to 2e-4 (x would need its
 // own hi/lo split on top of every other), and f32 inputs are not on the
 // model's path.  One block owns one (batch, head) and walks its chunks in
-// order, with the f32 state in shared memory; query and key rows go in
+// order, with the f32 state in shared memory, which it also writes to the
+// same scratch of states as the bf16 route when given one (the backward,
+// csrc/ssd_scan_bwd.cu, reads the state entering each chunk); query and key rows go in
 // 64-row tiles (only tiles on or below the diagonal), each thread of the
 // 16 x 16 block owning a 4 x 4 register tile of every product.
 
@@ -113,7 +115,7 @@ struct SsdArgs {
   const void* c;
   void* y;
   float* hT;
-  float* states;  // bf16 route: the chain's (B, H, nc - 1, N, P) f32
+  float* states;  // the chain's (nc - 1, B, H, N, P) f32 (f32: optional)
   int* sync;      // bf16 route: ticket counter, then (nc - 1) x B x H flags
   int B, S, H, G, P, N, Q;
   long long x_sb, x_ss, x_sh;
@@ -822,13 +824,24 @@ ssd_scan_f32_kernel(const SsdArgs args) {
           hacc[i][j] = fmaf(bw[i], xv[j], hacc[i][j]);
     }
     const float dec = expf(cum_last);
+    // the state leaving every chunk but the last also goes to the scratch
+    // the backward reads, (nc - 1, B, H, N, P) as the bf16 route writes it
+    float* h_out =
+        args.states && c0 + Q < S
+            ? args.states + ((c0 / Q) * static_cast<long long>(args.B * H) +
+                             blockIdx.x) * N * P
+            : nullptr;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int n = ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int p = tx + 16 * j;
-        if (n < N && p < P) sH[n * P + p] = sH[n * P + p] * dec + hacc[i][j];
+        if (n < N && p < P) {
+          const float v = sH[n * P + p] * dec + hacc[i][j];
+          sH[n * P + p] = v;
+          if (h_out) h_out[n * P + p] = v;
+        }
       }
     }
   }
@@ -928,9 +941,12 @@ int launch_tc(const SsdArgs& args, cudaStream_t stream) {
 // f32 with strides; a (H,) f32.  y (B, S, H, P) in x's dtype and hT
 // (B, H, P, N) f32 are contiguous.  S % Q == 0, P and N <= 64.
 // bf16 runs the tensor-core kernel: P and N multiples of 16, x/b/c bases and
-// strides 16-byte aligned, `states` an f32 scratch of (B, H, S/Q - 1, N, P)
+// strides 16-byte aligned, `states` an f32 scratch of (S/Q - 1, B, H, N, P)
 // and `sync` 1 + (S/Q - 1) B H int32 zeros.  f32 runs the CUDA-core kernel
-// (a bf16 tensor core cannot hold f32 x to 2e-4) and ignores both.
+// (a bf16 tensor core cannot hold f32 x to 2e-4), ignores `sync` and writes
+// the same states when `states` is not null.  The states are chunk-major:
+// the state leaving chunk c (entering c + 1) of item (b, h) starts at
+// ((c B + b) H + h) N P.
 // Returns cudaGetLastError() after the launch.
 extern "C" int mist_ssd_scan(
     const void* x, const void* dt, const void* a, const void* b,

@@ -14,10 +14,10 @@ their plain versions on CPU tensors.  ``kernel_impl="plain"`` keeps every
 kernel op on its plain version on the card too: a test hook, not a
 fallback.
 
-Flash attention and RMSNorm go through their autograd Functions
-(``FlashAttention``, ``RMSNorm``), so the same call serves prefill (under
-``torch.inference_mode``, the forward kernel alone) and training (the
-backward kernel too).
+Flash attention, RMSNorm and the SSD scan go through their autograd
+Functions (``FlashAttention``, ``RMSNorm``, ``SSDScan``), so the same call
+serves prefill (under ``torch.inference_mode``, the forward kernel alone)
+and training (the backward kernel too).
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import FlashAttention, fit_block
 from repro_torch.kernels.rmsnorm import RMSNorm
-from repro_torch.kernels.ssd_scan import ssd_scan as ssd_scan_kernel
+from repro_torch.kernels.ssd_scan import SSDScan
 
 DEFAULT_BLOCK = 512
 _fit_block = fit_block
@@ -85,10 +85,11 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              bb: torch.Tensor, cc: torch.Tensor, *, chunk: int = 256,
              return_state: bool = False, kernel_impl: str = "kernel"
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The SSD chunk scan (the kernel wrapper ``ssd_scan.ssd_scan``).
+    """The SSD chunk scan through its autograd Function (``SSDScan``: the
+    forward and backward kernels on CUDA, the plain versions on the CPU).
     Returns ``(y, hT)`` with ``return_state``, else ``(y, None)`` as the
     reference does; the reference's TPU kernel has no final state, so its
     serving handoff recomputes it in jnp, while this kernel always writes
-    it."""
-    y, hT = ssd_scan_kernel(xh, dt, a, bb, cc, chunk=chunk, impl=kernel_impl)
+    it.  hT carries no gradient."""
+    y, hT = SSDScan.apply(xh, dt, a, bb, cc, chunk, kernel_impl)
     return y, hT if return_state else None

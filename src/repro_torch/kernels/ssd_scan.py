@@ -1,5 +1,5 @@
-"""Mamba2 SSD chunk scan: the Hopper kernels, their wrapper and the plain
-version (the port of ``repro/kernels/ssd_scan.py``).
+"""Mamba2 SSD chunk scan: the Hopper kernels, their wrappers, their autograd
+Function and the plain versions (the port of ``repro/kernels/ssd_scan.py``).
 
 The kernels (``csrc/ssd_scan.cu``) replace the Pallas TPU kernel
 ``_ssd_kernel``.  They take x ``(B, S, H, P)`` and B/C ``(B, S, G, N)`` in
@@ -11,19 +11,33 @@ dtype and, unlike the TPU kernel, the final state hT ``(B, H, P, N)`` f32.
 
 bf16 inputs (the model's) run the tensor-core kernel: one block per
 (batch, head, chunk) item, the state handed from chunk to chunk through an
-f32 scratch ``(B, H, nc - 1, N, P)`` and a flag per item, items taken in
-chunk-major order from a ticket counter.  The wrapper allocates the scratch
-with ``torch.empty`` and the counter and flags with one ``torch.zeros`` per
-call.  It takes P and N in ``TC_DIMS``, any chunk whose rows fit shared
-memory, and x/B/C whose bases and strides are 16-byte aligned; anything else
-raises before a launch.  f32 inputs run a CUDA-core kernel (one block per
-(batch, head) walking its chunks).
+f32 scratch and a flag per item, items taken in chunk-major order from a
+ticket counter.  The wrapper allocates the scratch (chunk-major, ``(nc - 1,
+B, H, N, P)``: the state entering every chunk but the first) with
+``torch.empty`` and the counter and flags with one ``torch.zeros`` per call.
+It takes P and N in ``TC_DIMS``, any chunk whose rows fit shared memory, and
+x/B/C whose bases and strides are 16-byte aligned; anything else raises
+before a launch.  f32 inputs run a CUDA-core kernel (one block per
+(batch, head) walking its chunks), which writes the same scratch of
+entering states.
 
-The plain version is the per-chunk f32 algebra of ``_ssd_kernel`` looped
-over the chunks, returning ``(y, hT)``.  ``ssd_scan`` runs a kernel for a
-CUDA tensor and the plain version for a CPU tensor; ``impl="plain"`` forces
-the plain version on either device (a test hook).  A CUDA tensor never
-falls back: a wrong dtype, an unsupported shape or a failed launch raises.
+The backward (``csrc/ssd_scan_bwd.cu``) replaces no TPU kernel: the
+reference differentiates only its jnp ``ssd_chunked`` (its Pallas route has
+no VJP).  It takes dy and the forward's entering states and returns dx in
+x's dtype, dB and dC ``(B, S, G, N)`` in their own dtype (summed over the
+heads of each group in a fixed order), ddt ``(B, S, H)`` and da ``(H,)`` in
+f32; two calls give the same bits.  ``SSDScan`` is the autograd Function
+over the two; on a CUDA tensor the forward wrapper refuses inputs that
+require grad unless the call comes through it (a kernel result has no
+``grad_fn``, so every gradient upstream would be lost without an error).
+
+The plain versions are the per-chunk f32 algebra of ``_ssd_kernel`` looped
+over the chunks, returning ``(y, hT)`` (``ssd_plain``), and its gradient,
+the same chunks walked back to front (``ssd_bwd_plain``).  ``ssd_scan``
+runs a kernel for a CUDA tensor and the plain version for a CPU tensor;
+``impl="plain"`` forces the plain version on either device (a test hook).
+A CUDA tensor never falls back: a wrong dtype, an unsupported shape or a
+failed launch raises.
 """
 from __future__ import annotations
 
@@ -33,8 +47,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-# launches of the CUDA kernel in this process (the wrapper's count)
+# launches of the CUDA kernels in this process (the wrappers' counts)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 # the kernels' limits: P and N up to 64, and shared memory within the
 # 227 KB a block may have
@@ -65,10 +80,34 @@ def smem_bytes(q: int, p: int, n: int, dtype=torch.bfloat16) -> int:
                 + n * p + 3 * q)
 
 
+# the backward kernel (csrc/ssd_scan_bwd.cu): threads a block (16 x 16),
+# rows of its square tiles, and padding after each shared row of x, dy, B
+# and C, in elements (bf16, f32)
+BWD_THREADS = 256
+BWD_TILE = 64
+BWD_PAD = {torch.bfloat16: 2, torch.float32: 1}
+
+
+def bwd_smem_bytes(q: int, p: int, n: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one backward block (``bwd_smem_bytes`` in
+    the source): x, dy, B and C of the chunk in their own dtype (rows
+    padded to whole 64-row tiles), nine f32 vectors over the rows, two
+    64 x 65 f32 tiles, two 16 x 64 f32 partial-sum tiles, the entering
+    state and its gradient (N x P+1 f32 each), and the block's scratch."""
+    qp = -(-q // BWD_TILE) * BWD_TILE
+    pad = BWD_PAD[dtype]
+    esize = torch.finfo(dtype).bits // 8
+    return (esize * 2 * qp * (p + pad + n + pad)
+            + 4 * (9 * qp + 2 * BWD_TILE * (BWD_TILE + 1)
+                   + 2 * 16 * BWD_TILE + 2 * n * (p + 1) + 16))
+
+
 def state_scratch_shape(b: int, h: int, nc: int, p: int, n: int):
-    """The bf16 kernel's chain: the f32 state leaving every chunk but the
-    last, ``(B, H, nc - 1, N, P)``."""
-    return (b, h, nc - 1, n, p)
+    """The forward kernels' chain: the f32 state leaving every chunk but the
+    last (entering every chunk but the first), chunk-major, ``(nc - 1, B,
+    H, N, P)``; the backward reads it, and hands dH along the chunks
+    through a scratch of the same shape."""
+    return (nc - 1, b, h, n, p)
 
 
 def sync_words(b: int, h: int, nc: int) -> int:
@@ -129,6 +168,96 @@ def ssd_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, hstate.transpose(-1, -2)
 
 
+def ssd_bwd_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  bb: torch.Tensor, cc: torch.Tensor, dy: torch.Tensor,
+                  chunk: int) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_plain``'s y, in f32, batched over (B, H) and
+    looped over the chunks back to front: ``(dx, ddt, da, dbb, dcc)`` with
+    dx in x's dtype, dbb/dcc ``(B, S, G, N)`` in their own dtype (summed
+    over the heads of each group), ddt ``(B, S, H)`` and da ``(H,)`` f32.
+
+    Per chunk, with cum the in-chunk cumsum of dt a, L_ts = exp(cum_t -
+    cum_s) for s <= t (masked BEFORE the exp), G = C B^T, dS = dy x^T,
+    H_in the state entering the chunk and dH the gradient of the state
+    leaving it:
+      dx_s  = sum_t G L dt_s dy_t + e_s dt_s (B_s dH)
+                (e_s = exp(cum_Q - cum_s))
+      dB_s  = sum_t dS L dt_s C_t + e_s dt_s (dH x_s)
+      dC_t  = sum_s dS L dt_s B_s + exp(cum_t) (H_in dy_t)
+      ddt_s = sum_t dS G L + e_s B_s.(dH x_s) + a dda_s
+      dH_in = exp(cum_Q) dH + sum_t exp(cum_t) C_t dy_t^T
+    where dda is the reverse cumsum of the gradient of cum, and da sums
+    dt dda over every (batch, position)."""
+    bsz, s, h, p = xh.shape
+    g = bb.shape[2]
+    q = chunk_len(chunk, s)
+    dev = xh.device
+    x = xh.float().permute(0, 2, 1, 3)                       # (B,H,S,P)
+    dyf = dy.float().permute(0, 2, 1, 3)
+    dtf = dt.float().permute(0, 2, 1)                        # (B,H,S)
+    bf = repeat_groups(bb, h).float().permute(0, 2, 1, 3)   # (B,H,S,N)
+    cf = repeat_groups(cc, h).float().permute(0, 2, 1, 3)
+    n = bf.shape[-1]
+    af = a.float()[None, :, None]
+    da_all = dtf * af
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
+    neg_inf = torch.full((), float("-inf"), dtype=torch.float32, device=dev)
+    chunks = [slice(c0, c0 + q) for c0 in range(0, s, q)]
+    # the forward's states: the one entering each chunk, (B,H,N,P)
+    hstate = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=dev)
+    entering = []
+    for sl in chunks:
+        entering.append(hstate)
+        cum = torch.cumsum(da_all[:, :, sl], dim=-1)
+        w = torch.exp(cum[..., -1:] - cum) * dtf[:, :, sl]
+        hstate = hstate * torch.exp(cum[..., -1])[..., None, None] + \
+            (bf[:, :, sl] * w[..., None]).transpose(-1, -2) @ x[:, :, sl]
+    dx, dbf, dcf = torch.empty_like(x), torch.empty_like(bf), \
+        torch.empty_like(cf)
+    ddt = torch.empty_like(dtf)
+    da = torch.zeros((bsz, h), dtype=torch.float32, device=dev)
+    dstate = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=dev)
+    for sl, h_in in zip(reversed(chunks), reversed(entering)):
+        xc, dyc, dtc = x[:, :, sl], dyf[:, :, sl], dtf[:, :, sl]
+        bc, ccc = bf[:, :, sl], cf[:, :, sl]
+        cum = torch.cumsum(da_all[:, :, sl], dim=-1)         # (B,H,Q)
+        rel = cum[..., :, None] - cum[..., None, :]          # (B,H,Qt,Qs)
+        lmat = torch.exp(torch.where(tri, rel, neg_inf))
+        gmat = ccc @ bc.transpose(-1, -2)                    # C_t . B_s
+        dsm = dyc @ xc.transpose(-1, -2)                     # dy_t . x_s
+        smat = gmat * lmat * dtc[..., None, :]               # the scores
+        wmat = dsm * lmat * dtc[..., None, :]
+        e_out = torch.exp(cum[..., -1:] - cum)               # (B,H,Q)
+        e_in = torch.exp(cum)
+        xdh = xc @ dstate.transpose(-1, -2)                  # (B,H,Q,N)
+        dci = e_in[..., None] * (dyc @ h_in.transpose(-1, -2))
+        dx[:, :, sl] = smat.transpose(-1, -2) @ dyc + \
+            (e_out * dtc)[..., None] * (bc @ dstate)
+        dbf[:, :, sl] = wmat.transpose(-1, -2) @ ccc + \
+            (e_out * dtc)[..., None] * xdh
+        dcf[:, :, sl] = wmat @ bc + dci
+        v = (bc * xdh).sum(-1)                               # B_s . dH x_s
+        u = e_out * dtc * v
+        # M_tt would add to both sums and cancel: left out of both
+        m = (dsm * smat).tril(-1)
+        dcum = m.sum(-1) - m.sum(-2) + (ccc * dci).sum(-1) - u
+        dcum[..., -1] += u.sum(-1) + torch.exp(cum[..., -1]) * \
+            (h_in * dstate).sum((-1, -2))
+        dda = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+        ddt[:, :, sl] = (dsm * gmat * lmat).sum(-2) + e_out * v + af * dda
+        da += (dtc * dda).sum(-1)
+        dstate = dstate * torch.exp(cum[..., -1])[..., None, None] + \
+            (ccc * e_in[..., None]).transpose(-1, -2) @ dyc
+
+    def per_group(t):                                        # (B,S,G,N)
+        t = t.permute(0, 2, 1, 3)
+        return t.reshape(bsz, s, g, h // g, n).sum(3)
+
+    return (dx.permute(0, 2, 1, 3).to(xh.dtype), ddt.permute(0, 2, 1),
+            da.sum(0), per_group(dbf).to(bb.dtype),
+            per_group(dcf).to(cc.dtype))
+
+
 def _check_cuda_inputs(xh, dt, a, bb, cc):
     for name, t in (("dt", dt), ("a", a), ("bb", bb), ("cc", cc)):
         if t.device != xh.device:
@@ -178,6 +307,9 @@ def _check_tc_route(xh, bb, cc, q):
 
 
 def _launch(xh, dt, a, bb, cc, q):
+    """The forward kernel: ``(y, hT, states)``, ``states`` the f32 scratch
+    of the state entering every chunk but the first
+    (``state_scratch_shape``), which the backward reads."""
     global LAUNCHES
     _check_cuda_inputs(xh, dt, a, bb, cc)
     bsz, s, h, p = xh.shape
@@ -192,28 +324,95 @@ def _launch(xh, dt, a, bb, cc, q):
     a = a.contiguous()
     y = torch.empty((bsz, s, h, p), dtype=xh.dtype, device=xh.device)
     hT = torch.empty((bsz, h, p, n), dtype=torch.float32, device=xh.device)
+    states = torch.empty(state_scratch_shape(bsz, h, nc, p, n),
+                         dtype=torch.float32, device=xh.device)
     if xh.numel() == 0:
-        return y, hT.zero_()
-    states = sync = None
-    if xh.dtype == torch.bfloat16:
-        states = torch.empty(state_scratch_shape(bsz, h, nc, p, n),
-                             dtype=torch.float32, device=xh.device)
-        sync = torch.zeros(sync_words(bsz, h, nc), dtype=torch.int32,
-                           device=xh.device)
+        return y, hT.zero_(), states
+    sync = torch.zeros(sync_words(bsz, h, nc), dtype=torch.int32,
+                       device=xh.device)
     lib = _build.load_library()
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream(xh.device).cuda_stream
         err = lib.mist_ssd_scan(
             xh.data_ptr(), dt.data_ptr(), a.data_ptr(), bb.data_ptr(),
-            cc.data_ptr(), y.data_ptr(), hT.data_ptr(),
-            states.data_ptr() if states is not None else None,
-            sync.data_ptr() if sync is not None else None,
-            bsz, s, h, g, p, n, q, _DTYPE_CODES[xh.dtype],
+            cc.data_ptr(), y.data_ptr(), hT.data_ptr(), states.data_ptr(),
+            sync.data_ptr(), bsz, s, h, g, p, n, q, _DTYPE_CODES[xh.dtype],
             *xh.stride()[:3], *dt.stride(), *bb.stride()[:3],
             *cc.stride()[:3], stream)
     _build.check(err, "ssd scan kernel")
     LAUNCHES += 1
-    return y, hT
+    return y, hT, states
+
+
+def _launch_bwd(xh, dt, a, bb, cc, dy, states, q):
+    """The backward kernel: ``(dx, ddt, da, dbb, dcc)`` from dy and the
+    forward's ``states``.  Outputs and scratch are allocated here: the
+    per-head f32 parts of dB and dC ``(2, B, S, H, N)``, da's per-chunk
+    parts, the chain of dH ``state_scratch_shape`` and the ticket counter
+    with its flags."""
+    global BWD_LAUNCHES
+    _check_cuda_inputs(xh, dt, a, bb, cc)
+    bsz, s, h, p = xh.shape
+    g, n = bb.shape[2], bb.shape[3]
+    nc = s // q
+    if dy.shape != xh.shape or dy.dtype != xh.dtype or \
+            dy.device != xh.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} "
+                         f"for y {tuple(xh.shape)} {xh.dtype}")
+    want = state_scratch_shape(bsz, h, nc, p, n)
+    if tuple(states.shape) != want or states.dtype != torch.float32 or \
+            not states.is_contiguous():
+        raise ValueError(f"states {tuple(states.shape)} {states.dtype}: the "
+                         f"forward's contiguous f32 {want}")
+    if bwd_smem_bytes(q, p, n, xh.dtype) > SMEM_LIMIT:
+        raise ValueError(f"chunk {q} at P {p}, N {n} ({xh.dtype}) needs "
+                         f"{bwd_smem_bytes(q, p, n, xh.dtype)} B of shared "
+                         f"memory in the SSD backward; a block may have "
+                         f"{SMEM_LIMIT}")
+    a, dy = a.contiguous(), dy.contiguous()
+    dev = xh.device
+    dx = torch.empty((bsz, s, h, p), dtype=xh.dtype, device=dev)
+    ddt = torch.empty((bsz, s, h), dtype=torch.float32, device=dev)
+    da = torch.empty((h,), dtype=torch.float32, device=dev)
+    dbb = torch.empty((bsz, s, g, n), dtype=bb.dtype, device=dev)
+    dcc = torch.empty((bsz, s, g, n), dtype=cc.dtype, device=dev)
+    if xh.numel() == 0:
+        return dx, ddt.zero_(), da.zero_(), dbb.zero_(), dcc.zero_()
+    parts = torch.empty((2, bsz, s, h, n), dtype=torch.float32, device=dev)
+    da_parts = torch.empty((bsz, h, nc), dtype=torch.float32, device=dev)
+    dstates = torch.empty(want, dtype=torch.float32, device=dev)
+    sync = torch.zeros(sync_words(bsz, h, nc), dtype=torch.int32,
+                       device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mist_ssd_scan_bwd(
+            xh.data_ptr(), dt.data_ptr(), a.data_ptr(), bb.data_ptr(),
+            cc.data_ptr(), dy.data_ptr(), states.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), da.data_ptr(), dbb.data_ptr(), dcc.data_ptr(),
+            parts.data_ptr(), da_parts.data_ptr(), dstates.data_ptr(),
+            sync.data_ptr(), bsz, s, h, g, p, n, q, _DTYPE_CODES[xh.dtype],
+            *xh.stride()[:3], *dt.stride(), *bb.stride()[:3],
+            *cc.stride()[:3], stream)
+    _build.check(err, "ssd scan backward kernel")
+    BWD_LAUNCHES += 1
+    return dx, ddt, da, dbb, dcc
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernels (a CUDA tensor)."""
+    return t.device.type == "cuda"
+
+
+def _route(xh: torch.Tensor, impl: str) -> str:
+    """"plain" or "kernel" for ``impl`` and the inputs' device."""
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"impl {impl!r}: 'kernel' or 'plain'")
+    if impl == "kernel" and _on_card(xh):
+        return "kernel"
+    if impl == "plain" or xh.device.type == "cpu":
+        return "plain"
+    raise ValueError(f"no kernel for device {xh.device}")
 
 
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -223,13 +422,49 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dividing H -> (y (B,S,H,P) in xh's dtype, hT (B,H,P,N) f32).
 
     ``impl="kernel"``: the Hopper kernel for CUDA tensors, the plain version
-    for CPU tensors.  ``impl="plain"``: the plain version.
+    for CPU tensors.  ``impl="plain"``: the plain version.  The kernel's
+    result has no gradient: with autograd on, inputs that require grad
+    must come through ``SSDScan`` (``ops.ssd_scan``), and raise here.
     """
     q = chunk_len(chunk, xh.shape[1])
-    if impl == "plain" or (impl == "kernel" and xh.device.type == "cpu"):
+    if _route(xh, impl) == "plain":
         return ssd_plain(xh, dt, a, bb, cc, q)
-    if impl != "kernel":
-        raise ValueError(f"impl {impl!r}: 'kernel' or 'plain'")
-    if xh.device.type != "cuda":
-        raise ValueError(f"no kernel for device {xh.device}")
-    return _launch(xh, dt, a, bb, cc, q)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xh, dt, a, bb, cc)):
+        raise RuntimeError(
+            "ssd_scan: inputs that require grad reach the SSD kernel outside "
+            "its autograd Function, whose result would carry no gradient; "
+            "call SSDScan.apply (kernels.ops.ssd_scan)")
+    y, hT, _ = _launch(xh, dt, a, bb, cc, q)
+    return y, hT
+
+
+class SSDScan(torch.autograd.Function):
+    """(y, hT) = ssd_scan(xh, dt, a, bb, cc) with the gradient of y from
+    the SSD backward kernel (the plain ``ssd_bwd_plain`` where the forward
+    took the plain version).  The kernel's forward keeps its scratch of
+    entering states for the backward; hT is not differentiated (training
+    drops it)."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, a, bb, cc, chunk: int, impl: str):
+        q = chunk_len(chunk, xh.shape[1])
+        ctx.route, ctx.q = _route(xh, impl), q
+        if ctx.route == "plain":
+            y, hT = ssd_plain(xh, dt, a, bb, cc, q)
+            states = None
+        else:
+            y, hT, states = _launch(xh, dt, a, bb, cc, q)
+        ctx.save_for_backward(xh, dt, a, bb, cc, states)
+        ctx.mark_non_differentiable(hT)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, _dhT):
+        xh, dt, a, bb, cc, states = ctx.saved_tensors
+        if ctx.route == "plain":
+            grads = ssd_bwd_plain(xh, dt, a, bb, cc, dy, ctx.q)
+        else:
+            grads = _launch_bwd(xh, dt, a, bb, cc, dy, states, ctx.q)
+        dx, ddt, da, dbb, dcc = grads
+        return dx, ddt, da, dbb, dcc, None, None

@@ -15,10 +15,12 @@
 
 Runs ``build_model`` -> ``init_train_state`` -> ``make_train_step`` and
 takes ``--steps`` steps over ``SyntheticLM`` batches, on ``cuda`` unless
-``--device cpu`` is given.  ``--smoke`` trains the reduced config (seq 128,
-global batch 8, as the reference's smoke run); ``--layers`` cuts the depth
-of the config (a full-width config whose optimizer state does not fit one
-card).  With no ``--plan-json`` the plan is the reference's smoke plan:
+``--device cpu`` is given.  Dense decoders train on any plan; the hybrid
+(``--arch zamba2-2.7b``) on one device (a written or ``--plan-json``
+plan; multi-device hybrid plans raise).  ``--smoke`` trains the reduced
+config (seq 128, global batch 8, as the reference's smoke run);
+``--layers`` cuts the depth of the config (a full-width config whose
+optimizer state does not fit one card).  With no ``--plan-json`` the plan is the reference's smoke plan:
 remat on half the layers and ``grad_accum`` 2 at dp = tp = 1, with the
 port's flash-attention kernel.
 
@@ -140,9 +142,11 @@ def spawn(nproc: int, argv: Sequence[str]) -> int:
 def _launch_counts():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_scan as SS
     return {"flash_attention_fwd": FA.LAUNCHES,
             "flash_attention_bwd": FA.BWD_LAUNCHES,
-            "rmsnorm": RN.LAUNCHES, "rmsnorm_bwd": RN.BWD_LAUNCHES}
+            "rmsnorm": RN.LAUNCHES, "rmsnorm_bwd": RN.BWD_LAUNCHES,
+            "ssd_scan": SS.LAUNCHES, "ssd_scan_bwd": SS.BWD_LAUNCHES}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -261,6 +265,11 @@ def _run(args, device: torch.device, distributed: bool) -> int:
                 say(rep.plan.to_json())
                 say(memory_line(tcfg, shape, rep.plan,
                                 serve=args.space == "serve"))
+                if tcfg.family != "dense":
+                    say(f"# note: the tuner's arch_stats give {tcfg.name} no "
+                        "layer parameters (the reference's prefixes miss its "
+                        "stacks; ROADMAP.md, section C): its memory and time "
+                        "terms, and so this plan, are not trusted")
                 tuned = [rep.plan.to_json()]
         if distributed:
             dist.broadcast_object_list(tuned, src=0)

@@ -40,8 +40,10 @@ the params are no autograd leaves.  Each use of a param -- layer l's slice
 of a stacked weight, the final norm, the embedding's lookup and, tied, its
 head -- enters the graph through a sink whose backward adds that use's
 gradient in f32 into the param's accumulator (``sums[name][l]`` for a
-layer) and hands nothing back, so no whole bf16 gradient of a stacked
-weight is ever made.  Under ZeRO 2 the sink reduce-scatters the gradient
+layer, ``sums[name][g, l]`` for a layer of the hybrid's Mamba stack; a
+param used more than once, as the hybrid's shared block is, adds each
+use's gradient into the same sum) and hands nothing back, so no whole
+bf16 gradient of a stacked weight is ever made.  Under ZeRO 2 the sink reduce-scatters the gradient
 over ``data`` before it adds it; under ZeRO 3 it also all-gathers the
 weight over ``data`` in the forward (per layer, inside the layer's body,
 so a remat'd layer gathers again in the backward).
@@ -325,27 +327,32 @@ class GradSink:
         dev = next(iter(sums.values())).device
         self.anchor = torch.zeros((), device=dev, requires_grad=True)
 
-    def take(self, name: str, w: torch.Tensor, layer: Optional[int] = None
-             ) -> torch.Tensor:
-        """``w`` (the param ``name``, or its slice ``layer``) entering the
-        graph."""
+    def take(self, name: str, w: torch.Tensor,
+             layer: Union[int, Tuple[int, ...], None] = None) -> torch.Tensor:
+        """``w`` (the param ``name``, or its slice ``layer``: an index into
+        its one leading stacked dim, or a tuple of indices into as many,
+        as the hybrid's ``(groups, per)`` Mamba stack takes ``(g, l)``)
+        entering the graph.  A param used several times (the hybrid's
+        shared block, once per group) is taken once per use, and each use's
+        gradient adds into the same sum."""
         acc, lead = self.sums[name], 0
         if layer is not None:
-            acc, lead = acc[layer], 1
+            idx = layer if isinstance(layer, tuple) else (layer,)
+            acc, lead = acc[idx], len(idx)
         d = self.scatter.get(name)
         return _Sink.apply(self.anchor, w, acc,
                            None if d is None else d - lead, self.group,
                            name in self.gather)
 
     def params(self, params: Params, prefix: str = "",
-               layer: Optional[int] = None) -> Params:
+               layer: Union[int, Tuple[int, ...], None] = None) -> Params:
         """``take`` of each of ``params``, named ``prefix + name``."""
         return {n: self.take(prefix + n, w, layer)
                 for n, w in params.items()}
 
 
 def in_use(params: Params, ec: ExecConfig, prefix: str = "",
-           layer: Optional[int] = None) -> Params:
+           layer: Union[int, Tuple[int, ...], None] = None) -> Params:
     """``params`` as the graph uses them: through the train step's sink
     when there is one (``GradSink.params``), else as they are."""
     if ec.sink is None:

@@ -3,14 +3,22 @@ attention+MLP block applied at the start of every group, fed by a
 per-group projection of concat(hidden, original embedding) (the port of
 ``repro/models/hybrid.py``).  [arXiv:2411.15242]
 
-Serving only: the layer loops are plain Python loops over views of the
-``(groups, per)`` stacked Mamba params; the loss and the remat-segmented
-scan wait for the training slice.
+Training and the cache-less prefill (``run_hybrid_layers``,
+``hybrid_loss``) run the groups through ``segmented_layer_scan``, each
+group the shared block and then its Mamba layers, with the plan's CKPT and
+AO counted in groups as the reference counts them: ``ceil(min(ckpt, L) /
+per)`` groups rematerialize, ``ceil(min(offload, L) / per)`` of them also
+offload their inputs.  A train step's ``GradSink`` takes each use of a
+param inside the group body: the group's in-proj ``(g,)``, each Mamba
+layer's slices ``(g, l)``, and the shared block once per group, whose
+gradients add into one f32 sum.  The serving paths with caches loop over
+views of the ``(groups, per)`` stacked Mamba params.  One device only: the
+multi-device hybrid (TP/DP/ZeRO, pipelines) is not ported.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -18,8 +26,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (Axes, ExecConfig, ParamBuilder, Params,
-                                       StackedBuilder, layer, subtree)
-from repro_torch.models.decoder import _fresh_attn_cache, _logits, embed_tokens
+                                       StackedBuilder, in_use, layer,
+                                       segmented_layer_scan, subtree,
+                                       unbind_layers)
+from repro_torch.models.decoder import (_fresh_attn_cache, _logits,
+                                        embed_tokens, final_norm, head_loss)
 
 
 def group_shape(cfg: ArchConfig) -> Tuple[int, int]:
@@ -81,9 +92,9 @@ def _mamba_layer(lp: Params, h: torch.Tensor, cfg: ArchConfig,
 
 
 def _forward(params: Params, x: torch.Tensor, cfg: ArchConfig,
-             ec: ExecConfig, return_cache: bool):
-    """Every group (shared block, then its Mamba layers), then the final
-    norm.  Returns (h, caches or None)."""
+             ec: ExecConfig):
+    """The prefill that fills the caches: every group (shared block, then
+    its Mamba layers), then the final norm.  Returns (h, caches)."""
     ng, per = group_shape(cfg)
     shared = subtree(params, "shared")
     mamba = subtree(params, "mamba")
@@ -91,16 +102,14 @@ def _forward(params: Params, x: torch.Tensor, cfg: ArchConfig,
     h, attn_c, mamba_c = x, [], []
     for gi in range(ng):
         h, ac = _shared_block(shared, gin[gi], h, x, cfg, ec,
-                              return_cache=return_cache)
+                              return_cache=True)
         attn_c.append(ac)
         group = layer(mamba, gi)
         for li in range(per):
             h, mc = _mamba_layer(layer(group, li), h, cfg, ec,
-                                 return_state=return_cache)
+                                 return_state=True)
             mamba_c.append(mc)
     h = L.norm(subtree(params, "final_norm"), h, cfg, impl=ec.kernel_impl)
-    if not return_cache:
-        return h, None
     caches = {
         "attn": {key: torch.stack([c[key] for c in attn_c])
                  for key in ("k", "v", "pos")},
@@ -110,10 +119,65 @@ def _forward(params: Params, x: torch.Tensor, cfg: ArchConfig,
     return h, caches
 
 
+def _groups(params: Params, ng: int, per: int, ec: ExecConfig
+            ) -> List[Params]:
+    """Each group's stacked params as the layer loop takes them: its
+    in-proj and its ``(per, ...)`` Mamba stack (``mamba/...``).  Views when
+    a sink takes them (inside the group body); unbound once per loss when
+    the params are the caller's autograd leaves (``unbind_layers``)."""
+    mamba = subtree(params, "mamba")
+    gin = params["groups/in_proj"]
+    if ec.sink is None:
+        ins, stacks = gin.unbind(0), unbind_layers(mamba, ng)
+    else:
+        ins, stacks = [gin[g] for g in range(ng)], \
+            [layer(mamba, g) for g in range(ng)]
+    return [{"in_proj": ins[g], **{f"mamba/{k}": v
+                                   for k, v in stacks[g].items()}}
+            for g in range(ng)]
+
+
 def run_hybrid_layers(params: Params, x: torch.Tensor, cfg: ArchConfig,
                       ec: ExecConfig) -> torch.Tensor:
-    """Prefill forward over all groups, then the final norm."""
-    return _forward(params, x, cfg, ec, return_cache=False)[0]
+    """Train/prefill forward over all groups (remat- and offload-segmented
+    at group level), then the final norm."""
+    ng, per = group_shape(cfg)
+    shared = subtree(params, "shared")
+    x0 = x
+    # remat segmentation quantized to groups: ckpt_layers -> groups
+    ec_g = ec.replace(
+        ckpt_layers=-(-min(ec.ckpt_layers, cfg.num_layers) // per),
+        offload_layers=-(-min(ec.offload_layers, cfg.num_layers) // per))
+
+    def group_body(carry, gp):
+        h, gi = carry
+        gin = in_use({"groups/in_proj": gp["in_proj"]}, ec, layer=gi)
+        h, _ = _shared_block(in_use(shared, ec, "shared/"),
+                             gin["groups/in_proj"], h, x0, cfg, ec)
+        stack = {k[len("mamba/"):]: v for k, v in gp.items()
+                 if k.startswith("mamba/")}
+        lps = unbind_layers(stack, per) if ec.sink is None else \
+            [layer(stack, li) for li in range(per)]
+        for li, lp in enumerate(lps):
+            h, _ = _mamba_layer(in_use(lp, ec, "mamba/", (gi, li)), h, cfg,
+                                ec)
+        return h, gi + 1
+
+    h, _ = segmented_layer_scan(group_body, (x, 0),
+                                _groups(params, ng, per, ec), ng, ec_g)
+    return final_norm(params, h, cfg, ec)
+
+
+def hybrid_loss(params: Params, batch: Dict[str, torch.Tensor],
+                cfg: ArchConfig, ec: ExecConfig) -> torch.Tensor:
+    """Mean next-token loss of a batch ``{"tokens", "labels"[,
+    "loss_mask"]}`` (B, S): ``chunked_xent`` through the untied
+    ``lm_head/w`` (``decoder.head_loss``, which also takes a data rank's
+    ``loss_denom``)."""
+    x = embed_tokens(in_use({"embed/w": params["embed/w"]}, ec),
+                     batch["tokens"], cfg, ec)
+    h = run_hybrid_layers(params, x, cfg, ec)
+    return head_loss(params, h, batch, cfg, ec)
 
 
 def hybrid_prefill(params: Params, batch: Dict[str, torch.Tensor],
@@ -126,7 +190,7 @@ def hybrid_prefill(params: Params, batch: Dict[str, torch.Tensor],
     if not return_cache:
         h = run_hybrid_layers(params, x, cfg, ec)
         return _logits(params, h[:, -1:], cfg)
-    h, caches = _forward(params, x, cfg, ec, return_cache=True)
+    h, caches = _forward(params, x, cfg, ec)
     return _logits(params, h[:, -1:], cfg), caches
 
 

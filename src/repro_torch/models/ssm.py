@@ -8,7 +8,10 @@ when ``use_pallas`` is set and no entering state ``h0`` is given.  The
 reference's TPU kernel returns no final state, so its prefill with
 ``return_state`` (the serving handoff) takes the plain route; the port's
 kernel writes the final state, so it serves that prefill too
-(docs/port.md).  The depthwise conv, the gated norm and the decode
+(docs/port.md).  Training differentiates either route: the chunked algebra
+by autograd, as the reference trains, and the kernel through its autograd
+Function with the SSD backward kernel (the reference's Pallas route has no
+gradient, so it trains only through the algebra).  The depthwise conv, the gated norm and the decode
 recurrence stay plain torch, as they are jnp in the reference.
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Model registry (the port of ``repro/models/zoo.py``): the uniform
 init / loss / prefill / decode / caches interface over the ported families
--- dense decoders and the Zamba2 hybrid (whose loss waits for hybrid
-training)."""
+-- dense decoders and the Zamba2 hybrid, each trained and served on one
+device (multi-device plans train dense decoders only)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -15,11 +15,12 @@ from repro_torch.models import decoder as DEC
 from repro_torch.models import hybrid as HY
 from repro_torch.models.common import ExecConfig, Params, resolve_device
 
-# family -> (init, prefill, decode, init_caches), one signature each
+# family -> (init, loss, prefill, decode, init_caches), one signature each
 _FAMILIES = {
-    "dense": (DEC.init_lm, DEC.lm_prefill, DEC.lm_decode, DEC.init_lm_caches),
-    "hybrid": (HY.init_hybrid, HY.hybrid_prefill, HY.hybrid_decode,
-               HY.init_hybrid_caches),
+    "dense": (DEC.init_lm, DEC.lm_loss, DEC.lm_prefill, DEC.lm_decode,
+              DEC.init_lm_caches),
+    "hybrid": (HY.init_hybrid, HY.hybrid_loss, HY.hybrid_prefill,
+               HY.hybrid_decode, HY.init_hybrid_caches),
 }
 
 
@@ -44,26 +45,27 @@ class Model:
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
                 ec: ExecConfig) -> torch.Tensor:
         """The training loss (a scalar tensor) of ``batch`` ``{"tokens",
-        "labels"[, "loss_mask"]}``."""
-        if self.cfg.family != "dense":
+        "labels"[, "loss_mask"]}``.  The hybrid's runs on one device:
+        ``ec.par`` (a rank of a multi-device plan) raises."""
+        if self.cfg.family != "dense" and ec.par is not None:
             raise NotImplementedError(
-                f"{self.cfg.name}: the {self.cfg.family} loss is not ported "
-                "yet; hybrid training needs an SSD backward kernel "
-                "(ROADMAP.md, queue A: hybrid training)")
-        return DEC.lm_loss(params, batch, self.cfg, ec)
+                f"{self.cfg.name}: multi-device training of the "
+                f"{self.cfg.family} family (TP/DP/ZeRO, pipelines) is not "
+                "ported (ROADMAP.md, queue A: hybrid training)")
+        return _FAMILIES[self.cfg.family][1](params, batch, self.cfg, ec)
 
     def prefill_fn(self, params: Params, batch: Dict[str, torch.Tensor],
                    ec: ExecConfig, return_cache: bool = False):
-        return _FAMILIES[self.cfg.family][1](params, batch, self.cfg, ec,
+        return _FAMILIES[self.cfg.family][2](params, batch, self.cfg, ec,
                                              return_cache)
 
     def decode_fn(self, params: Params, tokens: torch.Tensor, caches: Dict,
                   ec: ExecConfig):
-        return _FAMILIES[self.cfg.family][2](params, tokens, caches,
+        return _FAMILIES[self.cfg.family][3](params, tokens, caches,
                                              self.cfg, ec)
 
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        return _FAMILIES[self.cfg.family][3](self.cfg, batch, max_len, dtype,
+        return _FAMILIES[self.cfg.family][4](self.cfg, batch, max_len, dtype,
                                              self.device)
 
 
@@ -78,7 +80,7 @@ def build_model(arch: Union[str, ArchConfig],
     if cfg.family not in _FAMILIES or cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "serves dense decoders and the Zamba2 hybrid (ROADMAP.md, "
+            "runs dense decoders and the Zamba2 hybrid (ROADMAP.md, "
             "queue A: MoE and remaining families)")
     return Model(cfg=cfg, device=dev)
 

@@ -132,8 +132,9 @@ def _lowered(model: Model, plan: Plan, mesh):
     if model.cfg.family != "dense":
         raise NotImplementedError(
             f"{model.cfg.name}: multi-device training of the "
-            f"{model.cfg.family} family is not ported (ROADMAP.md, queue A: "
-            "hybrid training)")
+            f"{model.cfg.family} family (TP/DP/ZeRO, pipelines) is not "
+            "ported; it trains on one device (ROADMAP.md, queue A: hybrid "
+            "training)")
     low = lower_plan(model.cfg, None, plan, mesh)
     return low, mesh_shape(mesh), mesh_coords(mesh)
 

@@ -1022,7 +1022,7 @@ def test_ssd_wrapper_mirrors_the_kernels_sizes():
     assert SS.smem_bytes(256, 64, 64) == 2 * (256 * 72 * 2 + 2 * 64 * 72) \
         + 4 * (3 * 256 + 8 + 4) == 95280
     assert SS.smem_bytes(40, 32, 16) == SS.smem_bytes(48, 32, 16)  # padded
-    assert SS.state_scratch_shape(4, 80, 4, 64, 64) == (4, 80, 3, 64, 64)
+    assert SS.state_scratch_shape(4, 80, 4, 64, 64) == (3, 4, 80, 64, 64)
     assert 4 * np.prod(SS.state_scratch_shape(4, 80, 4, 64, 64)) \
         == 15_728_640
     assert SS.sync_words(4, 80, 4) == 1 + 4 * 80 * 3

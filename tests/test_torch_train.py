@@ -558,12 +558,6 @@ def test_init_train_state_splits_by_the_stage(monkeypatch):
     assert state["params"]["embed/w"].dtype == torch.bfloat16
 
 
-def test_hybrid_loss_waits_for_its_slice():
-    model = build_model(get_arch("zamba2-2.7b").reduced(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss_fn({}, {}, ExecConfig())
-
-
 # -- launcher -----------------------------------------------------------------
 
 
