@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA H100 (sm_90).
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --ssd-bwd-phases   # phase 1, then only where an SSD
+                                             # backward block's time goes
 
 Drives the port (``src/repro_torch``) only; imports nothing of JAX or of
 the JAX package.  Phases, in order; any failure raises and the script exits
@@ -162,7 +164,8 @@ H. Hybrid training.  (a) The SSD backward kernel against ``ssd_bwd_plain``
    on the card (SSD_BWD_TOL) at zamba2's training shape (B 1, S 4096, H
    80, P = N = 64, G 1, chunk 256, bf16, through the SSD autograd
    Function), with a second call bit for bit, and at S < chunk, S =
-   chunk, ragged 64-row tiles, G = 2, f32, and dt and a x 50 (finite).
+   chunk, ragged 16-row blocks (chunks 40 and 96), G = 2, f32, and dt and a
+   x 50 (finite), all on the tensor-core kernel but the f32 case.
    (b) The reduced zamba2 (CKPT over one of its two groups, AO over that
    group, WO = OO = 0.5, SSD chunk 16): loss and every gradient on the
    card against the CPU under the CPU tests' rule, and one train step's
@@ -174,7 +177,8 @@ H. Hybrid training.  (a) The SSD backward kernel against ``ssd_bwd_plain``
    step time, the allocator's peak beside the memory report's predicted
    and lowered bytes.  (d) Timings: the SSD backward at the training shape
    (call, device and cold-L2 times, its bound; no library call computes
-   it), the flash backward at hd 80 beside SDPA's backward, the RMSNorm
+   it; its kernels' ptxas registers and spills, shared memory, clusters
+   resident, f32 parts of dB / dC, device time by kernel), the flash backward at hd 80 beside SDPA's backward, the RMSNorm
    backward at 4096 x 2560 beside ``F.rms_norm``'s.
 6. With ``--profile`` only: a ``torch.profiler`` window over one prefill
    and over three decode steps of each model, and over one train step of
@@ -469,10 +473,11 @@ def ptxas_report(build_log: str, kernel: str):
     output (empty when the library was already built)."""
     out, cur = [], None
     for line in build_log.splitlines():
-        m = re.search(rf"Compiling entry function '\S*?\d{kernel}I(\S+)'",
-                      line)
+        m = re.search(rf"Compiling entry function "
+                      rf"'\S*?\d{kernel}(?:I(\S+)|E\S*)'", line)
         if m:
-            cur = [kernel, template_args(m.group(1)), None, None, None]
+            cur = [kernel, template_args(m.group(1) or ""), None, None,
+                   None]
             continue
         if cur is None:
             continue
@@ -3272,7 +3277,7 @@ def _ssd_bwd_vs_plain():
          1.0),                                          # zamba2 training
         (BATCH, 64, 16, 16, 16, 1, SSD_CHUNK, bf16, 1.0),   # S < chunk
         (BATCH, 256, SSD_HEADS, 64, 64, 1, 256, bf16, 1.0),  # S = chunk
-        (2, 40, 4, 32, 16, 1, SSD_CHUNK, bf16, 1.0),    # ragged 64-row tile
+        (2, 40, 4, 32, 16, 1, SSD_CHUNK, bf16, 1.0),    # ragged 16-row block
         (2, 192, 4, 32, 16, 2, 96, bf16, 1.0),          # ragged, 2 chunks
         (2, 512, 8, 64, 64, 2, 256, bf16, 1.0),         # G = 2 groups
         (2, 192, 4, 32, 16, 2, 96, torch.float32, 1.0),  # f32
@@ -3511,12 +3516,35 @@ def ssd_bwd_bound(b, s, h, p, n, g, q, esize):
 
 def _time_ssd_bwd(launches, err):
     """Phase H (d): the SSD backward entry at zamba2's training shape, x/B/C
-    laid out as the model gives them.  No single PyTorch call computes the
-    SSD scan's gradient, so there is no library yardstick."""
+    laid out as the model gives them; its kernels' ptxas registers and
+    spills (when this process built the library), shared memory, how many
+    of its clusters the card holds at once, its f32 parts of dB and dC
+    (written by the main kernel and read by the second), and the device
+    time split by kernel.  No single PyTorch call computes the SSD scan's
+    gradient, so there is no library yardstick."""
+    import ctypes
+
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as SS
 
     b, s, h, p, n, g, q = (H_MICRO, H_SEQ, SSD_HEADS, SSD_P, SSD_N, SSD_G,
                            SSD_CHUNK)
+    for kernel in ("ssd_bwd_tc_kernel", "ssd_bwd_f32_kernel"):
+        for fn, args, regs, stores, loads in ptxas_report(_build.BUILD_LOG,
+                                                          kernel):
+            if args in ("", f"{p}, {n}"):
+                log(f"# ptxas {fn}<{args}>: {regs} registers, {stores} "
+                    f"bytes spill stores, {loads} bytes spill loads")
+    clusters = ctypes.c_int(0)
+    _build.check(_build.load_library().mist_ssd_scan_bwd_occupancy(
+        b, s, h, g, p, n, q, ctypes.byref(clusters)), "ssd bwd occupancy")
+    cl = SS.bwd_cluster(h, g)
+    parts_mb = 4 * math.prod(SS.bwd_parts_shape(b, s, h, g, n)) / 1e6
+    log(f"# ssd bwd: {SS.bwd_smem_bytes(q, p, n)} B of shared memory a "
+        f"block ({SS.BWD_TC_WARPS} warps), clusters of {cl} heads, "
+        f"{clusters.value} clusters ({clusters.value * cl} blocks) resident "
+        f"at once; f32 dB / dC parts {parts_mb:.1f} MB written and read "
+        f"({2 * parts_mb:.1f} MB of traffic)")
     x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, g, torch.bfloat16,
                                    seed=99)
     dy = torch.randn((b, s, h, p), generator=torch.Generator(
@@ -3535,8 +3563,7 @@ def _time_ssd_bwd(launches, err):
     bound, by, how = ssd_bwd_bound(b, s, h, p, n, g, q, 2)
     log(f"# ssd bwd: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 "
         f"{cold:.4f}), plain {plain:.4f} ms; bound: {how} -> "
-        f"{bound * 1e3:.1f} us ({by}), {bound / cold:.1%} of it cold; "
-        f"{SS.bwd_smem_bytes(q, p, n)} B of shared memory a block")
+        f"{bound * 1e3:.1f} us ({by}), {bound / cold:.1%} of it cold")
     return dict(
         name="ssd_scan_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -3548,6 +3575,108 @@ def _time_ssd_bwd(launches, err):
         library_device_ms=None, cold_ms=cold, library_cold_ms=None,
         parts_us=parts, model="zamba2-2.7b (training)",
         shape=f"B{b} S{s} H{h} P{p} N{n} G{g} chunk {q} bf16")
+
+
+# where an SSD backward block's time goes (``--ssd-bwd-phases``): a stamp
+# goes in before the first line of each step of csrc/ssd_scan_bwd.cu's
+# bf16 kernel; a step is named by the stamp that ends it
+_SSD_BWD_STAMPS = (
+    ("start", "  const int nc = S / Q, BH = args.B * H, HC = H / CL, BHC"),
+    ("ticket", "  const int grp = h / (H / args.G);"),
+    ("loads", "  // 2. cum = inclusive"),
+    ("cumsum", "  // 3. this chunk's part of dH_in"),
+    ("own part", "  // the chain: wait for dH"),
+    ("chain wait", "  const float dec = expf(cum_last);"),
+    ("publish", "  // warp w owns rows [16 w"),
+    ("pass B", "  // 5. pass A: the block as queries"),
+    ("pass A", "  // 6. this head's f32 dB"),
+    ("staging", "  cluster.sync();  // every block's staging is written"),
+    ("barrier", "  // 7. dcum, its reverse cumsum"),
+    ("scan", "  cluster.sync();  // no block leaves"),
+)
+
+
+def ssd_bwd_phases():
+    """``--ssd-bwd-phases``: at zamba2's training shape, the mean time of
+    each step of an SSD backward block (thread 0's view: warp 0 runs the
+    scan at the end while the other warps sum the cluster's dB and dC),
+    from a copy of the source with a ``%globaltimer`` stamp before each
+    step, built beside the library (``build/ssd_bwd_phases/``)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as SS
+
+    src = (_build.CSRC / "ssd_scan_bwd.cu").read_text()
+    a = src.index("ssd_bwd_tc_kernel(const BwdArgs args) {")
+    z = src.index("// f32 route: the port's first backward kernel")
+    body = src[a:z].replace(
+        "  const int bh = b * H + h;\n",
+        "  const int bh = b * H + h;\n  const int pid = ticket * CL + rank;\n"
+        "  if (tid == 0) g_phases[pid][0] = t_start;\n", 1)
+    for k, (_, line) in enumerate(_SSD_BWD_STAMPS):
+        if body.count(line) != 1:
+            raise RuntimeError(f"ssd bwd phases: {line.strip()!r} is not "
+                               f"one line of the kernel")
+        stamp = ("  const unsigned long long t_start = stamp_now();\n"
+                 if k == 0 else
+                 f"  if (tid == 0) g_phases[pid][{k}] = stamp_now();\n")
+        body = body.replace(line, stamp + line)
+    head = ("__device__ unsigned long long g_phases[65536][16];\n"
+            "__device__ __forceinline__ unsigned long long stamp_now() {\n"
+            "  unsigned long long t;\n"
+            "  asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t));\n"
+            "  return t;\n}\n")
+    src = src[:a] + body + src[z:]
+    src = src.replace("namespace cg = cooperative_groups;\n",
+                      "namespace cg = cooperative_groups;\n" + head, 1)
+    src += ("\nextern \"C\" int mist_ssd_bwd_phases(void* dst, int n) {\n"
+            "  return (int)cudaMemcpyFromSymbol(dst, g_phases, "
+            "(size_t)n * 16 * 8);\n}\n")
+    out = ROOT / "build" / "ssd_bwd_phases"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "ssd_scan_bwd.cu").write_text(src)
+    nvcc = _build.find_nvcc()
+    objs = []
+    for f in (_build.CSRC / "common.cu", _build.CSRC / "ssd_scan.cu",
+              out / "ssd_scan_bwd.cu"):
+        objs.append(out / f"{f.stem}.o")
+        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-c", str(f), "-o",
+                        str(objs[-1])], check=True, capture_output=True)
+    subprocess.run([nvcc, *_build.ARCH_FLAGS, "-shared", "-o",
+                    str(out / "lib.so"), *map(str, objs)], check=True)
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    p_, i_, ll_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mist_ssd_scan.argtypes = [p_] * 9 + [i_] * 8 + [ll_] * 12 + [p_]
+    lib.mist_ssd_scan_bwd.argtypes = [p_] * 16 + [i_] * 8 + [ll_] * 12 + [p_]
+    lib.mist_error_string.argtypes = [i_]
+    lib.mist_error_string.restype = ctypes.c_char_p
+    lib.mist_ssd_bwd_phases.argtypes = [p_, i_]
+    built, _build._lib = _build._lib, lib
+    try:
+        b, s, h, p, n, g, q = (H_MICRO, H_SEQ, SSD_HEADS, SSD_P, SSD_N,
+                               SSD_G, SSD_CHUNK)
+        x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, g, torch.bfloat16,
+                                       seed=99)
+        dy = torch.randn((b, s, h, p), generator=torch.Generator(
+            DEVICE).manual_seed(98), device=DEVICE).to(torch.bfloat16)
+        _, _, states = SS._launch(x, dt, a, bb, cc, q)
+        for _ in range(2):
+            SS._launch_bwd(x, dt, a, bb, cc, dy, states, q)
+        sync()
+        items = b * h * (s // q)
+        t = torch.zeros((items, 16), dtype=torch.int64)
+        _build.check(lib.mist_ssd_bwd_phases(t.data_ptr(), items),
+                     "ssd bwd phases")
+    finally:
+        _build._lib = built
+    t = t[:, :len(_SSD_BWD_STAMPS)].double() / 1e3  # us
+    steps = t[:, 1:] - t[:, :-1]
+    log(f"# ssd bwd phases, us a block (mean of {items}): " + ", ".join(
+        f"{nm} {float(steps[:, k].mean()):.2f}"
+        for k, (nm, _) in enumerate(_SSD_BWD_STAMPS[1:])) +
+        f"; to its last barrier {float((t[:, -1] - t[:, 0]).mean()):.2f}, "
+        f"kernel span {float(t[:, -1].max() - t[:, 0].min()):.1f}")
 
 
 def _time_serve(arch, model, params, prompts, plan, peak):
@@ -3687,6 +3816,9 @@ def main() -> int:
     profile = "--profile" in sys.argv[1:]
     t_start = time.perf_counter()
     phase_device_and_build()
+    if "--ssd-bwd-phases" in sys.argv[1:]:
+        ssd_bwd_phases()
+        return 0
     errs = phase_kernels_vs_plain()
 
     # granite-3-8b

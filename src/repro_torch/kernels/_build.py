@@ -132,6 +132,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mist_ssd_scan.restype = i
     lib.mist_ssd_scan_bwd.argtypes = [p] * 16 + [i] * 8 + [ll] * 12 + [p]
     lib.mist_ssd_scan_bwd.restype = i
+    lib.mist_ssd_scan_bwd_occupancy.argtypes = [i] * 7 + [p]
+    lib.mist_ssd_scan_bwd_occupancy.restype = i
     lib.mist_error_string.argtypes = [i]
     lib.mist_error_string.restype = ctypes.c_char_p
 

@@ -26,10 +26,17 @@ reference differentiates only its jnp ``ssd_chunked`` (its Pallas route has
 no VJP).  It takes dy and the forward's entering states and returns dx in
 x's dtype, dB and dC ``(B, S, G, N)`` in their own dtype (summed over the
 heads of each group in a fixed order), ddt ``(B, S, H)`` and da ``(H,)`` in
-f32; two calls give the same bits.  ``SSDScan`` is the autograd Function
-over the two; on a CUDA tensor the forward wrapper refuses inputs that
-require grad unless the call comes through it (a kernel result has no
-``grad_fn``, so every gradient upstream would be lost without an error).
+f32; two calls give the same bits.  bf16 inputs run its tensor-core kernel:
+one block of 16 warps per (batch, head, chunk) item, clusters of up to 8
+heads of a group at one (batch, chunk) that sum their dB and dC through
+distributed shared memory, one f32 part per cluster left for a second
+kernel (``bwd_parts_shape``); it takes P and N in ``TC_DIMS``, chunks up to
+``BWD_MAX_CHUNK`` and 16-byte aligned x/B/C/dy, and anything else raises
+before a launch.  f32 inputs run the CUDA-core kernel, one part per head.
+``SSDScan`` is the autograd Function over the two; on a CUDA tensor the
+forward wrapper refuses inputs that require grad unless the call comes
+through it (a kernel result has no ``grad_fn``, so every gradient upstream
+would be lost without an error).
 
 The plain versions are the per-chunk f32 algebra of ``_ssd_kernel`` looped
 over the chunks, returning ``(y, hT)`` (``ssd_plain``), and its gradient,
@@ -80,26 +87,58 @@ def smem_bytes(q: int, p: int, n: int, dtype=torch.bfloat16) -> int:
                 + n * p + 3 * q)
 
 
-# the backward kernel (csrc/ssd_scan_bwd.cu): threads a block (16 x 16),
-# rows of its square tiles, and padding after each shared row of x, dy, B
-# and C, in elements (bf16, f32)
+# the backward kernels (csrc/ssd_scan_bwd.cu).  bf16 (tensor cores): warps
+# a block, one 16-row block each (so the longest chunk), bf16 padding after
+# each shared row, f32 padding after each staged dB / dC row, and the most
+# heads a cluster.  f32 (CUDA cores): threads a block (16 x 16) and rows of
+# its square tiles; one f32 of padding after each shared row.
+BWD_TC_WARPS = 16
+BWD_MAX_CHUNK = BWD_TC_WARPS * ROW_BLOCK
+BWD_STAGE_PAD = 4
+BWD_MAX_CLUSTER = 8
 BWD_THREADS = 256
 BWD_TILE = 64
-BWD_PAD = {torch.bfloat16: 2, torch.float32: 1}
 
 
 def bwd_smem_bytes(q: int, p: int, n: int, dtype=torch.bfloat16) -> int:
-    """Dynamic shared memory of one backward block (``bwd_smem_bytes`` in
-    the source): x, dy, B and C of the chunk in their own dtype (rows
-    padded to whole 64-row tiles), nine f32 vectors over the rows, two
-    64 x 65 f32 tiles, two 16 x 64 f32 partial-sum tiles, the entering
-    state and its gradient (N x P+1 f32 each), and the block's scratch."""
+    """Dynamic shared memory of one backward block (``tc_smem_bytes`` /
+    ``f32_smem_bytes`` in the source).  bf16: x, dy (Qp x P+8) and B, C
+    (Qp x N+8) of the chunk padded to whole 16-row blocks -- a region the
+    f32 dB / dC staging (2 x Qp x N+4) reuses after both passes -- dH and
+    H_in as bf16 hi and lo (4 x N x P+8), nine f32 vectors over the rows,
+    the warps' sums, two scalars and the ticket.  f32: x, dy, B and C (rows
+    padded to whole 64-row tiles, one f32 after each row), nine f32
+    vectors, two 64 x 65 tiles, two 16 x 64 partial-sum tiles, the entering
+    state and its gradient (N x P+1 each), and the block's scratch."""
+    if dtype == torch.bfloat16:
+        qp = -(-q // ROW_BLOCK) * ROW_BLOCK
+        region = max(2 * qp * (2 * (p + SMEM_PAD) + 2 * (n + SMEM_PAD)),
+                     4 * 2 * qp * (n + BWD_STAGE_PAD))
+        return region + 2 * 4 * n * (p + SMEM_PAD) + \
+            4 * (9 * qp + BWD_TC_WARPS + 4)
     qp = -(-q // BWD_TILE) * BWD_TILE
-    pad = BWD_PAD[dtype]
-    esize = torch.finfo(dtype).bits // 8
-    return (esize * 2 * qp * (p + pad + n + pad)
-            + 4 * (9 * qp + 2 * BWD_TILE * (BWD_TILE + 1)
-                   + 2 * 16 * BWD_TILE + 2 * n * (p + 1) + 16))
+    return 4 * (2 * qp * (p + 1 + n + 1) + 9 * qp
+                + 2 * BWD_TILE * (BWD_TILE + 1) + 2 * 16 * BWD_TILE
+                + 2 * n * (p + 1) + 16)
+
+
+def bwd_cluster(h: int, g: int, dtype=torch.bfloat16) -> int:
+    """Heads a cluster of the backward takes (``tc_cluster``): bf16, the
+    most heads of one group up to ``BWD_MAX_CLUSTER``, a power of 2; f32,
+    one."""
+    if dtype != torch.bfloat16:
+        return 1
+    cl = BWD_MAX_CLUSTER
+    while (h // g) % cl:
+        cl //= 2
+    return cl
+
+
+def bwd_parts_shape(b: int, s: int, h: int, g: int, n: int,
+                    dtype=torch.bfloat16):
+    """The backward's f32 parts of dB and dC that its second kernel sums:
+    one per cluster of heads, ``(2, B, S, H / cluster, N)``."""
+    return (2, b, s, h // bwd_cluster(h, g, dtype), n)
 
 
 def state_scratch_shape(b: int, h: int, nc: int, p: int, n: int):
@@ -286,16 +325,17 @@ def _check_cuda_inputs(xh, dt, a, bb, cc):
                          f"{MAX_HEAD_DIM}")
 
 
-def _check_tc_route(xh, bb, cc, q):
-    """The bf16 kernel's limits: P and N in TC_DIMS, the chunk's rows within
-    shared memory, and 16-byte aligned bases and strides (cp.async)."""
+def _check_tc_route(xh, bb, cc, q, smem=smem_bytes):
+    """A bf16 kernel's limits: P and N in TC_DIMS, the chunk's rows within
+    shared memory (``smem``: the forward's or the backward's bytes), and
+    16-byte aligned bases and strides (cp.async)."""
     p, n = xh.shape[3], bb.shape[3]
     if p not in TC_DIMS or n not in TC_DIMS:
         raise ValueError(f"head_dim {p} / state {n}: the bf16 kernel takes "
                          f"{TC_DIMS}")
-    if smem_bytes(q, p, n) > SMEM_LIMIT:
+    if smem(q, p, n) > SMEM_LIMIT:
         raise ValueError(f"chunk {q} at P {p}, N {n} needs "
-                         f"{smem_bytes(q, p, n)} B of shared memory; a "
+                         f"{smem(q, p, n)} B of shared memory; a "
                          f"block may have {SMEM_LIMIT}")
     for name, t in (("xh", xh), ("bb", bb), ("cc", cc)):
         used = [t.stride(d) for d in range(3) if t.shape[d] > 1]
@@ -344,12 +384,23 @@ def _launch(xh, dt, a, bb, cc, q):
     return y, hT, states
 
 
+def _check_bwd_tc_route(xh, bb, cc, q):
+    """The bf16 backward kernel's limits: P and N in TC_DIMS, chunks of up
+    to BWD_MAX_CHUNK rows (one 16-row block a warp), and 16-byte aligned
+    bases and strides (cp.async)."""
+    if q > BWD_MAX_CHUNK:
+        raise ValueError(f"chunk {q}: the bf16 SSD backward takes chunks of "
+                         f"up to {BWD_MAX_CHUNK} rows (one 16-row block to "
+                         f"each of its {BWD_TC_WARPS} warps)")
+    _check_tc_route(xh, bb, cc, q, bwd_smem_bytes)
+
+
 def _launch_bwd(xh, dt, a, bb, cc, dy, states, q):
     """The backward kernel: ``(dx, ddt, da, dbb, dcc)`` from dy and the
-    forward's ``states``.  Outputs and scratch are allocated here: the
-    per-head f32 parts of dB and dC ``(2, B, S, H, N)``, da's per-chunk
-    parts, the chain of dH ``state_scratch_shape`` and the ticket counter
-    with its flags."""
+    forward's ``states``.  Outputs and scratch are allocated here: the f32
+    parts of dB and dC (``bwd_parts_shape``: one per cluster of heads in
+    bf16, per head in f32), da's per-chunk parts, the chain of dH
+    ``state_scratch_shape`` and the ticket counter with its flags."""
     global BWD_LAUNCHES
     _check_cuda_inputs(xh, dt, a, bb, cc)
     bsz, s, h, p = xh.shape
@@ -364,12 +415,16 @@ def _launch_bwd(xh, dt, a, bb, cc, dy, states, q):
             not states.is_contiguous():
         raise ValueError(f"states {tuple(states.shape)} {states.dtype}: the "
                          f"forward's contiguous f32 {want}")
-    if bwd_smem_bytes(q, p, n, xh.dtype) > SMEM_LIMIT:
+    if xh.dtype == torch.bfloat16:
+        _check_bwd_tc_route(xh, bb, cc, q)
+    elif bwd_smem_bytes(q, p, n, xh.dtype) > SMEM_LIMIT:
         raise ValueError(f"chunk {q} at P {p}, N {n} ({xh.dtype}) needs "
                          f"{bwd_smem_bytes(q, p, n, xh.dtype)} B of shared "
                          f"memory in the SSD backward; a block may have "
                          f"{SMEM_LIMIT}")
     a, dy = a.contiguous(), dy.contiguous()
+    if dy.data_ptr() % 16:  # cp.async reads dy's rows 16 bytes at a time
+        dy = dy.clone()
     dev = xh.device
     dx = torch.empty((bsz, s, h, p), dtype=xh.dtype, device=dev)
     ddt = torch.empty((bsz, s, h), dtype=torch.float32, device=dev)
@@ -378,7 +433,8 @@ def _launch_bwd(xh, dt, a, bb, cc, dy, states, q):
     dcc = torch.empty((bsz, s, g, n), dtype=cc.dtype, device=dev)
     if xh.numel() == 0:
         return dx, ddt.zero_(), da.zero_(), dbb.zero_(), dcc.zero_()
-    parts = torch.empty((2, bsz, s, h, n), dtype=torch.float32, device=dev)
+    parts = torch.empty(bwd_parts_shape(bsz, s, h, g, n, xh.dtype),
+                        dtype=torch.float32, device=dev)
     da_parts = torch.empty((bsz, h, nc), dtype=torch.float32, device=dev)
     dstates = torch.empty(want, dtype=torch.float32, device=dev)
     sync = torch.zeros(sync_words(bsz, h, nc), dtype=torch.int32,

@@ -29,6 +29,7 @@ Tolerances (docs/port.md):
   tolerance (elsewhere the sign of g, and so Adam's first update, may go
   either way: within 2 lr); mu and nu within 1e-4 of their largest value.
 """
+import math
 import re
 
 import jax
@@ -265,23 +266,101 @@ def test_cuda_wrapper_refuses_grad_inputs_outside_the_function(monkeypatch):
 
 
 def test_backward_wrapper_mirrors_the_kernel_and_raises_before_launch():
-    """The wrapper's backward constants are the source's, its shared memory
-    fits zamba2's chunk 256 at P = N = 64 in bf16 (and f32 up to chunk 128),
-    and a shape that does not fit raises before the library loads (the
-    autouse fixture fails the test if it does)."""
+    """The wrapper's backward constants are the source's; its shared memory
+    fits zamba2's chunk 256 at P = N = 64 in bf16 (one block of 16 warps
+    an SM) and every bf16 shape the kernel takes, and f32 up to chunk 128;
+    the parts scratch holds one f32 dB / dC row per cluster of heads, as
+    the kernel writes and its second kernel reads it (1/8 of the per-head
+    traffic at zamba2's training shape); and a shape that does not fit
+    raises before the library loads (the autouse fixture fails the test if
+    it does)."""
     src = (_build.CSRC / "ssd_scan_bwd.cu").read_text()
-    for name, want in (("THREADS", SS.BWD_THREADS), ("TILE", SS.BWD_TILE)):
+    for name, want in (("THREADS", SS.BWD_THREADS), ("TILE", SS.BWD_TILE),
+                       ("TC_WARPS", SS.BWD_TC_WARPS),
+                       ("ROW_BLOCK", SS.ROW_BLOCK),
+                       ("SMEM_PAD", SS.SMEM_PAD),
+                       ("STAGE_PAD", SS.BWD_STAGE_PAD),
+                       ("MAX_CLUSTER", SS.BWD_MAX_CLUSTER),
+                       ("TC_THREADS", 32 * SS.BWD_TC_WARPS)):
         found = re.findall(rf"constexpr int {name} = (\d+);", src)
         assert [int(v) for v in found] == [want], name
-    assert SS.bwd_smem_bytes(256, 64, 64) == 219200 <= SS.SMEM_LIMIT
+    assert "constexpr int MAX_ROWS = TC_WARPS * ROW_BLOCK;" in src
+    assert SS.BWD_MAX_CHUNK == 256
+    # x, dy, B, C (147,456 B; the f32 dB / dC staging reuses it), dH and
+    # H_in as hi + lo, nine vectors and the block's words
+    assert SS.bwd_smem_bytes(256, 64, 64) == 147456 + 36864 + 4 * (
+        9 * 256 + 16 + 4) == 193616 <= SS.SMEM_LIMIT
+    assert 2 * SS.bwd_smem_bytes(256, 64, 64) > SS.SMEM_LIMIT
+    for q in (16, 40, 96, 256):
+        for p in SS.TC_DIMS:
+            for n in SS.TC_DIMS:
+                assert SS.bwd_smem_bytes(q, p, n) <= SS.SMEM_LIMIT
     assert SS.bwd_smem_bytes(128, 64, 64, torch.float32) <= SS.SMEM_LIMIT
     assert SS.bwd_smem_bytes(256, 64, 64, torch.float32) > SS.SMEM_LIMIT
+    # clusters: the most heads of a group up to 8, a power of 2; f32 one
+    assert [SS.bwd_cluster(h, g) for h, g in
+            ((80, 1), (8, 2), (4, 1), (6, 3), (12, 1), (2, 2))] == \
+        [8, 4, 4, 2, 4, 1]
+    assert SS.bwd_cluster(80, 1, torch.float32) == 1
+    assert SS.bwd_parts_shape(1, 4096, 80, 1, 64) == (2, 1, 4096, 10, 64)
+    assert SS.bwd_parts_shape(1, 4096, 80, 1, 64, torch.float32) == \
+        (2, 1, 4096, 80, 64)
+    parts_bytes = 4 * math.prod(SS.bwd_parts_shape(1, 4096, 80, 1, 64))
+    per_head = 4 * math.prod(SS.bwd_parts_shape(1, 4096, 80, 1, 64,
+                                                torch.float32))
+    assert 2 * parts_bytes == 41_943_040 == 2 * per_head // 8
+    # the kernels' indexing of the parts, replayed: rank r of the cluster
+    # of heads hc writes rows [r Qp / CL, (r + 1) Qp / CL) of (which, b,
+    # c0 + row, hc) once; the reduce sums a group's H / (G CL) parts
+    assert "part_row = static_cast<long long>(HC) * N" in src
+    assert "const int HC = args.H / args.CL, rep = HC / args.G;" in src
+    for bsz, s, h, g, n, q in ((2, 192, 8, 2, 16, 96), (1, 40, 6, 3, 32, 40),
+                               (1, 512, 80, 1, 16, 256)):
+        cl, hcn = SS.bwd_cluster(h, g), h // SS.bwd_cluster(h, g)
+        qp = -(-q // SS.ROW_BLOCK) * SS.ROW_BLOCK
+        shape = SS.bwd_parts_shape(bsz, s, h, g, n)
+        hits = torch.zeros(shape, dtype=torch.int32).reshape(-1)
+        for which in range(2):
+            for b in range(bsz):
+                for c0 in range(0, s, q):
+                    for hc in range(hcn):
+                        for rank in range(cl):
+                            rows = range(rank * qp // cl,
+                                         (rank + 1) * qp // cl)
+                            for row in (r for r in rows if r < q):
+                                off = (((which * bsz + b) * s + c0 + row)
+                                       * hcn + hc) * n
+                                hits[off:off + n] += 1
+        assert bool((hits == 1).all()), (bsz, s, h, g, n, q)
+        parts = torch.randn(shape)
+        flat = parts.reshape(-1)
+        rep = hcn // g
+        for which, b, row, grp in ((1, bsz - 1, s - 1, g - 1), (0, 0, 0, 0)):
+            src_off = ((which * bsz + b) * s + row) * hcn * n + grp * rep * n
+            got = sum(flat[src_off + r * n:src_off + r * n + n]
+                      for r in range(rep))
+            assert torch.allclose(got, parts[which, b, row, grp * rep:
+                                             (grp + 1) * rep].sum(0))
     x = torch.zeros(1, 512, 2, 64)
     bc = torch.zeros(1, 512, 1, 64)
+    states = torch.zeros(SS.state_scratch_shape(1, 2, 2, 64, 64))
     with pytest.raises(ValueError, match="shared"):
         SS._launch_bwd(x, torch.zeros(1, 512, 2), torch.zeros(2), bc, bc, x,
-                       torch.zeros(SS.state_scratch_shape(1, 2, 2, 64, 64)),
-                       256)
+                       states, 256)
+    xb, bcb = x.to(torch.bfloat16), bc.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="chunks of up to 256"):
+        SS._launch_bwd(xb, torch.zeros(1, 512, 2), torch.zeros(2), bcb, bcb,
+                       xb, torch.zeros(SS.state_scratch_shape(1, 2, 1, 64,
+                                                              64)), 512)
+    wide = torch.zeros(1, 512, 1, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16 bytes"):
+        SS._launch_bwd(xb, torch.zeros(1, 512, 2), torch.zeros(2), wide,
+                       bcb, xb, states, 256)
+    with pytest.raises(ValueError, match="bf16 kernel takes"):
+        x40 = torch.zeros(1, 512, 2, 40, dtype=torch.bfloat16)
+        SS._launch_bwd(x40, torch.zeros(1, 512, 2), torch.zeros(2), bcb,
+                       bcb, x40, torch.zeros(SS.state_scratch_shape(
+                           1, 2, 2, 40, 64)), 256)
 
 
 # -- hybrid_loss ---------------------------------------------------------------

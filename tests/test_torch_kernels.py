@@ -808,6 +808,163 @@ def test_ssd_scores_need_the_hi_lo_split():
     assert worst(False) > 1.0 > 2 * worst(True)
 
 
+# -- the bf16 SSD backward kernel's plan, on the CPU ---------------------------
+
+# chip_smoke.py's rule for the SSD backward kernel against ssd_bwd_plain:
+# per tensor, max |got - want| <= tol * max |want| by the tensor's dtype
+SSD_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-4}
+# the kernel's splits of f32 operands into bf16 hi + lo: W for dC, dH for
+# dH x_s, H_in, C exp(cum); the scores, W for dB and dH in B_s dH are
+# rounded once
+SSD_BWD_SPLITS = ("w", "dh", "h_in", "c_exp")
+
+
+def _product(a, b, split):
+    """a @ b as the tensor cores form it: ``split`` names the f32 operand
+    ("a" or "b") that is split into bf16 hi + lo (two exact products summed
+    in f32) or "a1" / "b1" rounded once to bf16; the other is bf16 already."""
+    if split in ("a1", "b1"):
+        return (_bf16(a) @ b) if split == "a1" else (a @ _bf16(b))
+    hi, lo = _split(a if split == "a" else b)
+    return hi @ b + lo @ b if split == "a" else a @ hi + a @ lo
+
+
+def _ssd_bwd_kernel_rounding(xh, dt, a, bb, cc, dy, q,
+                             splits=SSD_BWD_SPLITS):
+    """The bf16 backward kernel's arithmetic with its rounding points: G and
+    dS exact, the scores rounded once to bf16 for dx, W = dS L dt split
+    into hi + lo for dC and rounded once for dB, dH split for dH x_s
+    (rounded once for B_s dH), H_in split for dy H_in^T (rows scaled by
+    exp(cum_t) after), C exp(cum) split for dH_in's own part; a split left
+    out of ``splits`` is rounded once.  Products exact and summed in f32.  dB and dC: each
+    head's f32 part, summed over a cluster of ``bwd_cluster`` heads in rank
+    order, then the group's cluster parts in order, rounded once.
+    -> (dx, ddt, da, dbb, dcc) as ``ssd_bwd_plain`` returns them."""
+    sp = {k: ("a" if k in splits else "a1") for k in SSD_BWD_SPLITS}
+    bsz, s, h, p = xh.shape
+    g, n = bb.shape[2], bb.shape[3]
+    cl = SS.bwd_cluster(h, g)
+    x = xh.float().permute(0, 2, 1, 3)
+    dyf = dy.float().permute(0, 2, 1, 3)
+    dtf = dt.permute(0, 2, 1)
+    bf = SS.repeat_groups(bb, h).float().permute(0, 2, 1, 3)
+    cf = SS.repeat_groups(cc, h).float().permute(0, 2, 1, 3)
+    af = a[None, :, None]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    chunks = [slice(c0, c0 + q) for c0 in range(0, s, q)]
+    state, entering = torch.zeros((bsz, h, n, p)), []
+    for sl in chunks:
+        entering.append(state)
+        cum = torch.cumsum(dtf[:, :, sl] * af, -1)
+        w = torch.exp(cum[..., -1:] - cum) * dtf[:, :, sl]
+        state = state * torch.exp(cum[..., -1])[..., None, None] + \
+            (bf[:, :, sl] * w[..., None]).transpose(-1, -2) @ x[:, :, sl]
+    dx, dbf, dcf = torch.empty_like(x), torch.empty_like(bf), \
+        torch.empty_like(cf)
+    ddt, da = torch.empty_like(dtf), torch.zeros((bsz, h))
+    dstate = torch.zeros((bsz, h, n, p))
+    flip = {"a": "b", "a1": "b1"}
+    for sl, h_in in zip(reversed(chunks), reversed(entering)):
+        xc, dyc, dtc = x[:, :, sl], dyf[:, :, sl], dtf[:, :, sl]
+        bc, ccc = bf[:, :, sl], cf[:, :, sl]
+        cum = torch.cumsum(dtc * af, -1)
+        lmat = torch.exp(torch.where(
+            tri, cum[..., :, None] - cum[..., None, :],
+            torch.tensor(float("-inf"))))
+        gmat, dsm = ccc @ bc.transpose(-1, -2), dyc @ xc.transpose(-1, -2)
+        smat = gmat * lmat * dtc[..., None, :]
+        wmat = dsm * lmat * dtc[..., None, :]
+        e_out, e_in = torch.exp(cum[..., -1:] - cum), torch.exp(cum)
+        ed = (e_out * dtc)[..., None]
+        own = _product((ccc * e_in[..., None]).transpose(-1, -2), dyc,
+                       sp["c_exp"])
+        car = e_in[..., None] * _product(dyc, h_in.transpose(-1, -2),
+                                         flip[sp["h_in"]])
+        xdh = _product(xc, dstate.transpose(-1, -2), flip[sp["dh"]])
+        dx[:, :, sl] = _product(smat.transpose(-1, -2), dyc, "a1") + \
+            ed * _product(bc, dstate, "b1")
+        dbf[:, :, sl] = _product(wmat.transpose(-1, -2), ccc, "a1") + \
+            ed * xdh
+        dcf[:, :, sl] = _product(wmat, bc, sp["w"]) + car
+        v = (bc * xdh).sum(-1)
+        m = (dsm * smat).tril(-1)
+        dcum = m.sum(-1) - m.sum(-2) + (ccc * car).sum(-1) - ed[..., 0] * v
+        dcum[..., -1] += (ed[..., 0] * v).sum(-1) + \
+            torch.exp(cum[..., -1]) * (h_in * dstate).sum((-1, -2))
+        dda = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+        ddt[:, :, sl] = (dsm * gmat * lmat).sum(-2) + e_out * v + af * dda
+        da += (dtc * dda).sum(-1)
+        dstate = dstate * torch.exp(cum[..., -1])[..., None, None] + own
+
+    def per_group(t):  # (B, H, S, N) -> (B, S, G, N), in the kernels' order
+        heads = t.permute(0, 2, 1, 3).reshape(bsz, s, g, h // g // cl, cl, n)
+        parts = heads[:, :, :, :, 0]
+        for r in range(1, cl):
+            parts = parts + heads[:, :, :, :, r]
+        out = parts[:, :, :, 0]
+        for k in range(1, parts.shape[3]):
+            out = out + parts[:, :, :, k]
+        return out
+
+    return (dx.permute(0, 2, 1, 3).to(xh.dtype), ddt.permute(0, 2, 1),
+            da.sum(0), per_group(dbf).to(bb.dtype),
+            per_group(dcf).to(cc.dtype))
+
+
+def _ssd_bwd_worst(got, want):
+    """{name: max |got - want| / (SSD_BWD_TOL * max |want|)} per output."""
+    return {name: float((u.float() - w.float()).abs().max())
+            / (SSD_BWD_TOL[w.dtype] * float(w.float().abs().max()))
+            for name, u, w in zip(("dx", "ddt", "da", "dB", "dC"), got, want)}
+
+
+@pytest.fixture(scope="module")
+def ssd_bwd_case():
+    """P = N = 64, chunk 256, S 1024 (dH handed on three times), H 4, G 1,
+    dy ~ N(0, 1) in bf16: the inputs and ``ssd_bwd_plain``'s gradient."""
+    xh, dt, a, bb, cc = _serving_like_ssd_inputs(6, 1, 1024, 4, 64, 64)
+    rng = np.random.default_rng(16)
+    dy = torch.from_numpy(rng.standard_normal(xh.shape, dtype=np.float32)
+                          ).to(torch.bfloat16)
+    args = (xh, dt, a, bb, cc, dy, 256)
+    return args, SS.ssd_bwd_plain(*args)
+
+
+def test_ssd_bwd_kernel_rounding_plan_holds_the_tolerances(ssd_bwd_case):
+    """The bf16 backward kernel's rounding points and its cluster-then-group
+    dB / dC sums, rehearsed against ``ssd_bwd_plain`` (f32 throughout):
+    every output within SSD_BWD_TOL of its largest value (dx and dB, whose
+    scores and W are rounded once, at ~0.6 of it; the rest at a quarter or
+    less)."""
+    args, want = ssd_bwd_case
+    worst = _ssd_bwd_worst(_ssd_bwd_kernel_rounding(*args), want)
+    assert max(worst["dx"], worst["dB"]) < 1.0, worst
+    assert max(v for k, v in worst.items() if k not in ("dx", "dB")) < 0.25, \
+        worst
+
+
+@pytest.mark.parametrize("split,outputs", [
+    ("dh", ("ddt",)), ("h_in", ("ddt",)), ("c_exp", ("ddt",)),
+    ("w", ("dC",))])
+def test_ssd_bwd_kernel_needs_each_split(ssd_bwd_case, split, outputs):
+    """Why the kernel splits each f32 operand it splits.  Rounded once, dH
+    (in dH x_s, which feeds u), H_in (y_inter) or C exp(cum) (dH_in, carried
+    to every earlier chunk) puts ddt past its 2e-4; W rounded once for dC
+    keeps dC inside its 1e-2, but at over half of it and 3x the split's
+    error (0.7 of it at 80 heads)."""
+    args, want = ssd_bwd_case
+    kept = _ssd_bwd_worst(_ssd_bwd_kernel_rounding(*args), want)
+    dropped = _ssd_bwd_worst(_ssd_bwd_kernel_rounding(
+        *args, splits=tuple(x for x in SSD_BWD_SPLITS if x != split)), want)
+    for name in outputs:
+        if split == "w":
+            assert 1.0 > dropped[name] > max(0.5, 3 * kept[name]), \
+                (name, dropped, kept)
+        else:
+            assert dropped[name] > 1.0 > 10 * kept[name], (name, dropped,
+                                                            kept)
+
+
 # -- the flash backward kernel's plan, on the CPU ------------------------------
 
 LOG2E = 1.4426950408889634
