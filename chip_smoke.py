@@ -89,8 +89,9 @@ L. The training loop (``training/loop.py``) and its checkpointer on the
    (four: also S 2 x dp 2 -> dp 4 ZeRO 2), one step each, the loss within
    1e-2 of one card's; with one, ``multi_card: not run (1 visible)``.
    Then the launcher's first step taken apart in a fresh process at phase
-   T's config: CUDA context, state init with its pinned host parts, a
-   pinned allocation of those bytes, the rollback snapshot, the kernel
+   T's plan, its depth cut to phase L's 2 layers: CUDA context, state init
+   with its pinned host parts, a pinned allocation of those bytes, the
+   rollback snapshot, the kernel
    library's load, cuBLAS's first GEMM, the import of ``torch._dynamo``
    (which ``torch.utils.checkpoint``'s first call makes), and four steps
    (the last after ``empty_cache``).
@@ -119,9 +120,10 @@ C. Calibration: ``launch.train.main --calibrate`` for granite-3-8b at the
    loss), its measured step beside ``estimate_plan`` with and without
    the profile, its predicted memory equal to its lowered report's (and
    the allocator's peak beside both).
-D. Multi-device plans.  D1: phase U's tuned plan through the launcher on
-   one device and with ``--nproc 1`` (a spawned rank of a world of one,
-   NCCL, every collective running on groups of one): the three losses and
+D. Multi-device plans.  D1: phase U's tuned plan, its depth cut from 8
+   to 2 layers, through the launcher on one device and with ``--nproc 1``
+   (a spawned rank of a world of one, NCCL, every collective running on
+   groups of one): the three losses and
    every param after three steps bit for bit, exact launch counts per
    step.  D2: granite-3-8b at full depth and width tuned by the launcher
    for four H100s (``--tune --devices 4``, seq 4096, global batch 8) and
@@ -146,11 +148,12 @@ D. Multi-device plans.  D1: phase U's tuned plan through the launcher on
 P. Pipelined plans: granite-3-8b at full depth and width tuned for 16
    H100s (seq 4096, global batch 32); the tuner picks one stage there, so
    the ``uniform`` space at S = 2 gives the plan (20 + 20 layers, tp 8
-   with SP, micro-batch 2, G 16), and both plans are printed.  The first
-   stage's rank 0 and the last stage's first rank, each through the
-   launcher (``--plan-json``) in a child process under the ``fake`` group
-   (sends, receives and collectives move nothing): exact launch counts per
-   step (that stage's layers, the final norm on the last), the allocator's
+   with SP, micro-batch 2, G 16), and both plans are printed.  Each
+   stage's depth is then cut to 4 layers (the stage's plan otherwise as
+   tuned), and the first stage's rank 0 and the last stage's first rank,
+   each through the launcher (``--plan-json``) in a child process under
+   the ``fake`` group (sends, receives and collectives move nothing):
+   exact launch counts per step (that stage's layers, the final norm on the last), the allocator's
    peak beside the stage's predicted bytes, one rank's compute per step.
    Phase 2 holds the flash kernels at the stage rank's shape (B 2, S 4096,
    H 4, KV 1, hd 128), and the kernels line adds that shape.
@@ -165,7 +168,9 @@ H. Hybrid training.  (a) The SSD backward kernel against ``ssd_bwd_plain``
    80, P = N = 64, G 1, chunk 256, bf16, through the SSD autograd
    Function), with a second call bit for bit, and at S < chunk, S =
    chunk, ragged 16-row blocks (chunks 40 and 96), G = 2, f32, and dt and a
-   x 50 (finite), all on the tensor-core kernel but the f32 case.
+   x 50 (finite), all on the tensor-core kernel but the f32 case; and at
+   the heads of a rank of a tp-4 and a tp-8 plan (B 2, S 4096, H 20 and
+   10: clusters of 4 and 2 heads), each with a second call bit for bit.
    (b) The reduced zamba2 (CKPT over one of its two groups, AO over that
    group, WO = OO = 0.5, SSD chunk 16): loss and every gradient on the
    card against the CPU under the CPU tests' rule, and one train step's
@@ -180,6 +185,22 @@ H. Hybrid training.  (a) The SSD backward kernel against ``ssd_bwd_plain``
    it; its kernels' ptxas registers and spills, shared memory, clusters
    resident, f32 parts of dB / dC, device time by kernel), the flash backward at hd 80 beside SDPA's backward, the RMSNorm
    backward at 4096 x 2560 beside ``F.rms_norm``'s.
+Z. A rank of a multi-device zamba2 plan: zamba2-2.7b at full width and
+   depth, tp 4 with sequence parallelism, micro-batch 2 x 4096, G 2, CKPT
+   54, trained as rank 0 of 4 through the launcher (``--plan-json``) in a
+   child process under the ``fake`` group, as D2 runs granite's rank: its
+   Mamba mixers run 20 of the 80 SSD heads (the fused ``in_proj``'s
+   products gathered over tp, docs/port.md), its shared block 8 of the 32
+   attention heads.  Exact launch counts per step (phase H's rule for the
+   same G and CKPT), the state term of the rank's peak split equal to the
+   memory report's state bytes, the allocator's peak beside the memory
+   report's peak with their ratio (not gated), one rank's compute per
+   step.  Phase 2 holds the SSD forward (H 20), flash (H = KV = 8, hd 80)
+   and RMSNorm (2048 x 2560) at the rank's shapes against their plain
+   versions, phase H (a) the SSD backward, and the kernels line adds the
+   SSD forward and backward and flash forward and backward there.  With
+   two or more cards, ``_multi_card`` also runs the reduced zamba2 at dp 2
+   ZeRO 3 and tp 2 with SP through NCCL against one card.
 6. With ``--profile`` only: a ``torch.profiler`` window over one prefill
    and over three decode steps of each model, and over one train step of
    each trained model (granite in phase T, zamba2 in phase H) --
@@ -315,6 +336,9 @@ C_STEPS, C_WARMUP = 4, 2
 # batch 8): its flash attention sees micro-batch 4, 32 / 4 query heads and
 # 8 / 4 kv heads
 D_STEPS = 3
+# D1 runs phase U's tuned plan with its depth cut from 8 to D1_LAYERS layers
+# (the bitwise check does not need the depth; the cut pays for phase Z)
+D1_LAYERS = 2
 D2_DEVICES, D2_GBS = 4, 8
 # D2's allocator peak over its predicted bytes per device, at most (read
 # 0.958 on an H100 80GB HBM3 at 700 W, PERF.md)
@@ -326,6 +350,9 @@ R_BATCH, R_HEADS, R_KV = 4, N_HEADS // D2_DEVICES, N_KV // D2_DEVICES
 # heads and 8 / 8 kv heads
 P_DEVICES, P_GBS, P_TP = 16, 32, 8
 P_BATCH, P_HEADS, P_KV = 2, N_HEADS // P_TP, N_KV // P_TP
+# ... each stage's depth cut to P_STAGE_LAYERS when its ranks run (the plan
+# is tuned at full depth; the cut pays for phase Z's time)
+P_STAGE_LAYERS = 4
 # phase H: hybrid training.  zamba2-2.7b at its published widths and full
 # depth (2.541 B params: 5.1 GB of bf16 params, 30.5 GB of f32 master, mu
 # and nu and 10.2 GB of f32 gradient sums before activations, so the depth
@@ -333,6 +360,12 @@ P_BATCH, P_HEADS, P_KV = 2, N_HEADS // P_TP, N_KV // P_TP
 # groups), AO 6 layers (1 group), WO = OO = 0, Adam at T_LR, H_STEPS steps
 # on one batch
 H_SEQ, H_MICRO, H_ACCUM, H_CKPT, H_AO_LAYERS, H_STEPS = 4096, 1, 2, 54, 6, 4
+# phase Z: a rank of a multi-device zamba2 plan.  zamba2-2.7b at full width
+# and depth, tp 4 with SP, micro-batch 2 x 4096, G 2, CKPT 54, rank 0 of 4
+# under the fake group: its SSD runs 80 / 4 = 20 heads (clusters of 4 in the
+# backward), its flash 32 / 4 = 8 heads, its norms 2 x 4096 / 4 rows
+Z_TP, Z_MICRO = 4, 2
+ZR_SSD_HEADS, ZR_HEADS = SSD_HEADS // Z_TP, Z_HEADS // Z_TP
 # the SSD backward kernel against ssd_bwd_plain on the same inputs (both
 # sum in f32, in other orders): per tensor, max |got - want| <= tol * max
 # |want|, by the tensor's dtype -- dx, dB and dC are rounded once to bf16
@@ -556,8 +589,11 @@ def phase_kernels_vs_plain():
         (R_BATCH, T_SEQ, T_SEQ, R_HEADS, R_KV, HEAD_DIM, True),
         # a pipeline stage's rank of the tp-8 plan (phase P)
         (P_BATCH, T_SEQ, T_SEQ, P_HEADS, P_KV, HEAD_DIM, True),
+        # a rank of zamba2's tp-4 plan (phase Z)
+        (Z_MICRO, H_SEQ, H_SEQ, ZR_HEADS, ZR_HEADS, Z_HEAD_DIM, True),
     ]
-    rank_cases = {len(cases) - 2: "tp4", len(cases) - 1: "tp8"}
+    rank_cases = {len(cases) - 3: "tp4", len(cases) - 2: "tp8",
+                  len(cases) - 1: "zamba2_tp4"}
     for i, (b, sq, sk, h, kv, hd, causal) in enumerate(cases):
         q, k, v = _qkv(b, sq, sk, h, kv, hd, seed=10 + i)
         o, lse = FA.flash_attention(q, k, v, causal=causal)
@@ -582,6 +618,7 @@ def phase_kernels_vs_plain():
         (BATCH, D_MODEL, None, None, True),
         (BATCH * PROMPT_LEN, Z_D_MODEL, None, None, True),
         (BATCH, Z_D_MODEL, None, None, True),
+        (Z_MICRO * H_SEQ // Z_TP, Z_D_MODEL, None, None, True),  # Z's rank
         (1, D_MODEL, None, None, True),          # one row
         (1, Z_D_MODEL, None, None, True),
         (33, 8192, None, None, True),            # generic kernel widths
@@ -631,6 +668,9 @@ def phase_kernels_vs_plain():
         (2, 40, 4, 32, 16, 1, SSD_CHUNK, bf16),         # ragged 16-row tile
         (2, 1024, 16, 64, 64, 1, 512, bf16),            # chunk 512
         (2, 288, 4, 48, 48, 1, 96, bf16),               # P = N = 48
+        # a rank of zamba2's tp-4 plan (phase Z): its 20 heads, x/B/C views
+        # of its conv output (rows of 20 * 64 + 2 * 64)
+        (Z_MICRO, H_SEQ, ZR_SSD_HEADS, SSD_P, SSD_N, SSD_G, SSD_CHUNK, bf16),
     ]
     for i, (b, s, h, p, n, g, chunk, dtype) in enumerate(ssd_cases):
         x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, g, dtype, seed=40 + i)
@@ -649,6 +689,8 @@ def phase_kernels_vs_plain():
         if not (ok_y and ok_h):
             raise AssertionError("ssd scan kernel disagrees with its plain "
                                  f"version (case {i})")
+        if i == len(ssd_cases) - 1:
+            errs["ssd_scan@zamba2_tp4"] = err_y
         if i == 0:
             errs["ssd_scan"] = err_y
             # the ticket order of the bf16 kernel's items must not change
@@ -719,9 +761,12 @@ def _backward_kernels_vs_plain():
         (P_BATCH, T_SEQ, T_SEQ, P_HEADS, P_KV, HEAD_DIM, True),  # tp-8 stage
         # zamba2's shared block in training (phase H)
         (H_MICRO, H_SEQ, H_SEQ, Z_HEADS, Z_HEADS, Z_HEAD_DIM, True),
+        # ... and on a rank of its tp-4 plan (phase Z)
+        (Z_MICRO, H_SEQ, H_SEQ, ZR_HEADS, ZR_HEADS, Z_HEAD_DIM, True),
     ]
-    rank_cases = {len(cases) - 3: "tp4", len(cases) - 2: "tp8",
-                  len(cases) - 1: f"hd{Z_HEAD_DIM}"}
+    rank_cases = {len(cases) - 4: "tp4", len(cases) - 3: "tp8",
+                  len(cases) - 2: f"hd{Z_HEAD_DIM}",
+                  len(cases) - 1: "zamba2_tp4"}
     def check(what, got, want):
         res = [flash_bwd_close(g, w) for g, w in zip(got, want)]
         log(f"# flash bwd {what}: dq/dk/dv max err "
@@ -809,6 +854,7 @@ def _backward_kernels_vs_plain():
     rn_cases = [  # (rows, d, x dtype, scale dtype)
         (T_MICRO * T_SEQ, D_MODEL, bf16, bf16),   # the training shape
         (BATCH * PROMPT_LEN, Z_D_MODEL, bf16, bf16),
+        (Z_MICRO * H_SEQ // Z_TP, Z_D_MODEL, bf16, bf16),  # phase Z's rank
         (33, 8192, bf16, bf16),                   # generic kernel widths
         (5, 1001, bf16, bf16),
         (300, D_MODEL, f32, f32),
@@ -1216,14 +1262,14 @@ def _time_rmsnorm(model_name, d, launches, err):
     return entry
 
 
-def _time_ssd(launches, err):
-    """The SSD entry at zamba2's prefill shape, inputs laid out as the model
-    gives them.  No single PyTorch call computes the SSD scan, so there is
-    no library yardstick."""
+def _time_ssd(launches, err, shape=(BATCH, PROMPT_LEN, SSD_HEADS),
+              model="zamba2-2.7b"):
+    """The SSD entry at one (B, S, H) of zamba2's (its prefill shape by
+    default), inputs laid out as the model gives them.  No single PyTorch
+    call computes the SSD scan, so there is no library yardstick."""
     from repro_torch.kernels import ssd_scan as SS
 
-    b, s, h, p, n, g, q = (BATCH, PROMPT_LEN, SSD_HEADS, SSD_P, SSD_N,
-                           SSD_G, SSD_CHUNK)
+    (b, s, h), p, n, g, q = shape, SSD_P, SSD_N, SSD_G, SSD_CHUNK
     x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, g, torch.bfloat16,
                                    seed=98)
     kernel = lambda: SS.ssd_scan(x, dt, a, bb, cc, chunk=q)  # noqa: E731
@@ -1234,14 +1280,16 @@ def _time_ssd(launches, err):
                                         impl="plain"), reps=5)
     bound, by, how = ssd_bound(b, s, h, p, n, g, q, 2)
     states = 4 * math.prod(SS.state_scratch_shape(b, h, s // q, p, n))
-    log(f"# ssd: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 {cold:.4f}), "
+    log(f"# ssd B{b} H{h}: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 "
+        f"{cold:.4f}), "
         f"plain {plain:.4f} ms; bound: {how} -> {bound * 1e3:.1f} us ({by}), "
         f"{bound / cold:.1%} of it cold; beyond the bound's bytes the chain "
         f"writes and reads {states / 1e6:.1f} MB "
         f"of f32 states; {SS.smem_bytes(q, p, n)} B of shared memory a block")
-    k512 = lambda: SS.ssd_scan(x, dt, a, bb, cc, chunk=512)  # noqa: E731
-    log(f"# ssd at chunk 512 (one block per SM): cold L2 "
-        f"{time_ms(k512, cold=True, device_only=True):.4f} ms")
+    if shape == (BATCH, PROMPT_LEN, SSD_HEADS):
+        k512 = lambda: SS.ssd_scan(x, dt, a, bb, cc, chunk=512)  # noqa: E731
+        log(f"# ssd at chunk 512 (one block per SM): cold L2 "
+            f"{time_ms(k512, cold=True, device_only=True):.4f} ms")
     return dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1249,8 +1297,7 @@ def _time_ssd(launches, err):
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=None, device_ms=dev,
         library_device_ms=None, cold_ms=cold, library_cold_ms=None,
-        model="zamba2-2.7b",
-        shape=f"B{b} S{s} H{h} P{p} N{n} G{g} chunk {q} bf16")
+        model=model, shape=f"B{b} S{s} H{h} P{p} N{n} G{g} chunk {q} bf16")
 
 
 def kernel_split_us(fn, reps: int = 10) -> dict:
@@ -2053,7 +2100,7 @@ def phase_loop():
         d=dict(resumed_at=at, loss=d_loss), e_packed=packed, seconds=secs,
         smi=smi_line())}))
     _loop_multi_card()
-    _first_step_split()
+    _first_step_split(L_LAYERS)
 
 
 # the elastic restore through NCCL, one process per rank (argv: src, the
@@ -2274,9 +2321,9 @@ print(json.dumps({"first_step_split": out}), flush=True)
 """
 
 
-def _first_step_split(layers=T_LAYERS):
-    """``_FIRST_STEP`` in a fresh process at phase T's config (8 layers):
-    what the launcher's first step pays once, split."""
+def _first_step_split(layers):
+    """``_FIRST_STEP`` in a fresh process at phase T's plan, its depth cut to
+    ``layers``: what the launcher's first step pays once, split."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-c", _FIRST_STEP, str(ROOT / "src"),
                         str(layers), str(T_SEQ)], capture_output=True,
@@ -2762,10 +2809,11 @@ def _per_step(counts, want_one_step, steps, what):
 
 
 def _d1_world_size_one(plan):
-    """The tuned one-card plan through the launcher twice: on one device,
-    and with ``--nproc 1`` (a spawned rank of a world of one, NCCL, every
-    collective on groups of one).  Losses and every param after D_STEPS
-    steps bit for bit; exact launch counts per step."""
+    """The tuned one-card plan, its depth cut to D1_LAYERS, through the
+    launcher twice: on one device, and with ``--nproc 1`` (a spawned rank
+    of a world of one, NCCL, every collective on groups of one).  Losses
+    and every param after D_STEPS steps bit for bit; exact launch counts
+    per step."""
     import contextlib
     import io
 
@@ -2777,8 +2825,12 @@ def _d1_world_size_one(plan):
     build = ROOT / "build"
     build.mkdir(parents=True, exist_ok=True)
     plan_json = build / "d1_plan.json"
+    plan = plan.replace(stages=tuple(
+        st.replace(layers=D1_LAYERS,
+                   ckpt_layers=min(st.ckpt_layers, D1_LAYERS))
+        for st in plan.stages))
     plan_json.write_text(plan.to_json())
-    argv = ["--arch", "granite-3-8b", "--layers", str(T_LAYERS),
+    argv = ["--arch", "granite-3-8b", "--layers", str(D1_LAYERS),
             "--plan-json", str(plan_json), "--steps", str(D_STEPS),
             "--seq", str(T_SEQ), "--global-batch",
             str(plan.global_batch())]
@@ -2798,7 +2850,7 @@ def _d1_world_size_one(plan):
                                      str(ws1)])
     secs["nproc_1_process"] = time.perf_counter() - t0
     st = plan.stages[0]
-    rule = _train_launches(T_LAYERS, min(st.ckpt_layers, T_LAYERS),
+    rule = _train_launches(D1_LAYERS, min(st.ckpt_layers, D1_LAYERS),
                            plan.grad_accum)
     res = {}
     for name, t in (("one_device", out.getvalue()), ("nproc_1", text)):
@@ -3019,48 +3071,62 @@ def _d2_rank0_of_four():
     return per_step
 
 
+def _two_card_cases(archs=(("granite-3-8b", 4), ("zamba2-2.7b", 8))):
+    """The reduced configs (granite: 4 layers; zamba2: 8 layers in 2
+    groups), each with remat on half its layers, at dp 2 ZeRO 3 and at tp
+    2 with sequence parallelism through NCCL (``--nproc 2``), their losses
+    held to the same plan at dp = tp = 1 on one card."""
+    from repro_torch.core.plan import single_stage_plan
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    for arch, layers in archs:
+        for name, dp, tp, zero in (("dp2_z3", 2, 1, 3), ("tp2_sp", 1, 2, 1)):
+            runs = {}
+            for world in (2, 1):
+                plan = single_stage_plan(
+                    layers, dp=dp if world == 2 else 1,
+                    tp=tp if world == 2 else 1,
+                    micro_batch=8 // (2 * (dp if world == 2 else 1)),
+                    grad_accum=2, zero=zero, ckpt_layers=layers // 2,
+                    attn_impl="pallas", use_pallas=True,
+                    sequence_parallel=True)
+                path = build / f"multi_{arch}_{name}_{world}.json"
+                path.write_text(plan.to_json())
+                args = ["--arch", arch, "--smoke", "--steps", str(D_STEPS),
+                        "--plan-json", str(path)]
+                if world == 2:
+                    args += ["--nproc", "2"]
+                runs[world] = _launcher_lines(_launcher_process(args))[1]
+            ok = all(abs(a - b) <= REDUCED_LOSS_RTOL * abs(b)
+                     for a, b in zip(runs[2], runs[1]))
+            log(json.dumps({"multi_card": dict(
+                arch=arch, case=name, losses_2_cards=runs[2],
+                losses_1_card=runs[1], ok=ok)}))
+            if not ok:
+                raise AssertionError(f"multi_card {arch} {name}: losses off "
+                                     "one card's")
+
+
 def _multi_card():
-    """With two or more cards visible: the reduced config at dp 2 ZeRO 3
-    and at tp 2 with sequence parallelism through NCCL (``--nproc 2``),
-    its losses held to the same plan at dp = tp = 1 on one card.  With
-    four or more, also D2's tuned plan on four cards (``--tune --devices 4
-    --nproc 4``): exact launch counts, finite losses, and the step time
-    with its communication beside the tuner's prediction."""
+    """With two or more cards visible: ``_two_card_cases``.  With four or
+    more, also the reduced granite's pipelines and D2's tuned plan on four
+    cards (``--tune --devices 4 --nproc 4``): exact launch counts, finite
+    losses, and the step time with its communication beside the tuner's
+    prediction."""
     n = torch.cuda.device_count()
     if n < 2:
         log(f"multi_card: not run ({n} visible)")
         return
-    from repro_torch.core.plan import single_stage_plan
+    _two_card_cases()
     build = ROOT / "build"
-    build.mkdir(parents=True, exist_ok=True)
     base = ["--arch", "granite-3-8b", "--smoke", "--steps", str(D_STEPS)]
-    for name, dp, tp, zero in (("dp2_z3", 2, 1, 3), ("tp2_sp", 1, 2, 1)):
-        runs = {}
-        for world in (2, 1):
-            plan = single_stage_plan(
-                4, dp=dp if world == 2 else 1, tp=tp if world == 2 else 1,
-                micro_batch=8 // (2 * (dp if world == 2 else 1)),
-                grad_accum=2, zero=zero, ckpt_layers=2, attn_impl="pallas",
-                use_pallas=True, sequence_parallel=True)
-            path = build / f"multi_{name}_{world}.json"
-            path.write_text(plan.to_json())
-            args = base + ["--plan-json", str(path)]
-            if world == 2:
-                args += ["--nproc", "2"]
-            runs[world] = _launcher_lines(_launcher_process(args))[1]
-        ok = all(abs(a - b) <= REDUCED_LOSS_RTOL * abs(b)
-                 for a, b in zip(runs[2], runs[1]))
-        log(json.dumps({"multi_card": dict(case=name, losses_2_cards=runs[2],
-                                           losses_1_card=runs[1], ok=ok)}))
-        if not ok:
-            raise AssertionError(f"multi_card {name}: losses off one card's")
     if n < D2_DEVICES:
         log(f"multi_card: the pipelines and D2 on {D2_DEVICES} cards not "
             f"run ({n} visible)")
         return
     # pipelined plans of the reduced config on four cards through NCCL (1F1B
     # hand-offs over NVLink), their losses held to one card's
-    from repro_torch.core.plan import Plan, StageConfig
+    from repro_torch.core.plan import Plan, StageConfig, single_stage_plan
     one = single_stage_plan(4, dp=1, tp=1, micro_batch=4, grad_accum=2,
                             zero=1, ckpt_layers=0, attn_impl="pallas",
                             use_pallas=True)
@@ -3185,6 +3251,11 @@ def phase_pipeline():
     build = ROOT / "build"
     build.mkdir(parents=True, exist_ok=True)
     path = build / "p_plan.json"
+    full_layers = [x.layers for x in plan.stages]
+    plan = plan.replace(stages=tuple(
+        x.replace(layers=P_STAGE_LAYERS,
+                  ckpt_layers=min(x.ckpt_layers, P_STAGE_LAYERS))
+        for x in plan.stages))
     path.write_text(plan.to_json())
     out = {}
     for s in (0, S - 1):
@@ -3192,9 +3263,9 @@ def phase_pipeline():
         t1 = time.perf_counter()
         text = _launcher_process(
             [str(plan.devices), str(rank), "--arch", "granite-3-8b",
-             "--plan-json", str(path), "--steps", str(D_STEPS), "--seq",
-             str(T_SEQ), "--global-batch", str(P_GBS)],
-            code=_FAKE_RANK.replace("HOOK", ""), timeout=900)
+             "--layers", str(P_STAGE_LAYERS * S), "--plan-json", str(path),
+             "--steps", str(D_STEPS), "--seq", str(T_SEQ), "--global-batch",
+             str(P_GBS)], code=_FAKE_RANK.replace("HOOK", ""), timeout=900)
         ms, counts, peak, pred = _stage_lines(text, s)
         sc = plan.stages[s]
         rule = _stage_launches(sc.layers, min(sc.ckpt_layers, sc.layers),
@@ -3202,7 +3273,8 @@ def phase_pipeline():
         per_step = _per_step(counts, rule, D_STEPS, f"stage {s}'s rank")
         out[s] = per_step
         log(json.dumps({"p_stage_rank": dict(
-            model="granite-3-8b", layers=sc.layers, stage=s, stages=S,
+            model="granite-3-8b", layers=sc.layers,
+            tuned_layers=full_layers[s], stage=s, stages=S,
             rank=rank, world=plan.devices, seq=T_SEQ, global_batch=P_GBS,
             plan=json.loads(plan.to_json()), rank_flash_shape_B_S_H_KV=shape,
             launches_per_step=per_step, max_memory_allocated=peak,
@@ -3265,10 +3337,12 @@ def _ssd_bwd_grads(x, dt, a, bb, cc, dy, q, calls=1):
 
 def _ssd_bwd_vs_plain():
     """Phase H (a): the SSD backward kernel against ``ssd_bwd_plain`` on the
-    card at zamba2's training shape and the forward's edge cases (S <
-    chunk, S = chunk, ragged tiles, G > 1, f32); two calls at the training
-    shape bit for bit; a large |dt a| finite.  Returns the training shape's
-    largest error."""
+    card at zamba2's training shape, at the heads of a rank of its tp-4 and
+    tp-8 plans (H 20 and 10: clusters of 4 and 2 heads), and the forward's
+    edge cases (S < chunk, S = chunk, ragged tiles, G > 1, f32); two calls
+    at the training and the rank shapes bit for bit; a large |dt a|
+    finite.  Returns the largest error at the training shape and at phase
+    Z's rank shape."""
     from repro_torch.kernels import ssd_scan as SS
 
     bf16 = torch.bfloat16
@@ -3282,32 +3356,40 @@ def _ssd_bwd_vs_plain():
         (2, 512, 8, 64, 64, 2, 256, bf16, 1.0),         # G = 2 groups
         (2, 192, 4, 32, 16, 2, 96, torch.float32, 1.0),  # f32
         (1, 512, 8, 64, 64, 1, 256, bf16, 50.0),        # large |dt a|
+        # a rank of zamba2's tp-4 plan (phase Z) and of a tp-8 plan
+        (Z_MICRO, H_SEQ, ZR_SSD_HEADS, SSD_P, SSD_N, SSD_G, SSD_CHUNK, bf16,
+         1.0),
+        (Z_MICRO, H_SEQ, SSD_HEADS // 8, SSD_P, SSD_N, SSD_G, SSD_CHUNK,
+         bf16, 1.0),
     ]
-    err = None
+    twice = {0: "training shape", len(cases) - 2: "tp-4 rank",
+             len(cases) - 1: "tp-8 rank"}
+    errs = {}
     for i, (b, s, h, p, n, g, q, dtype, big) in enumerate(cases):
         x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, g, dtype, seed=120 + i)
         dt, a = dt * big, a * big
         dy = torch.randn((b, s, h, p), generator=torch.Generator(
             DEVICE).manual_seed(140 + i), device=DEVICE).to(dtype)
         runs = _ssd_bwd_grads(x, dt, a, bb, cc, dy, q,
-                              calls=2 if i == 0 else 1)
+                              calls=2 if i in twice else 1)
         want = SS.ssd_bwd_plain(x, dt, a, bb, cc, dy, q)
         sync()
         res = ssd_bwd_close(runs[0], want)
         log(f"# ssd bwd B{b} S{s} H{h} P{p} N{n} G{g} chunk {q} {dtype}"
-            f"{f' dt, a x {big:g}' if big != 1 else ''}: max err (max |ref|) "
+            f"{f' dt, a x {big:g}' if big != 1 else ''} (clusters of "
+            f"{SS.bwd_cluster(h, g)}): max err (max |ref|) "
             + ", ".join(f"{nm} {e:.3e} ({m:.3g})" for nm, _, e, m in res))
         if not all(ok for _, ok, _, _ in res):
             raise AssertionError("ssd backward kernel disagrees with its "
                                  f"plain version (case {i})")
-        if i == 0:
-            err = max(e for _, _, e, _ in res)
+        if i in twice:
+            errs[twice[i]] = max(e for _, _, e, _ in res)
             same = all(torch.equal(u, v) for u, v in zip(*runs))
-            log(f"# ssd bwd training shape, second call bitwise equal: "
-                f"{same}")
+            log(f"# ssd bwd {twice[i]}, second call bitwise equal: {same}")
             if not same:
-                raise AssertionError("ssd backward kernel: two calls differ")
-    return err
+                raise AssertionError(f"ssd backward kernel: two calls differ "
+                                     f"({twice[i]})")
+    return errs["training shape"], errs["tp-4 rank"]
 
 
 def _hybrid_launches(cfg, ckpt_layers, accum):
@@ -3489,6 +3571,70 @@ def phase_hybrid_train(profile=False):
     return launches
 
 
+def phase_zamba2_rank():
+    """Phase Z: zamba2-2.7b at full width and depth as rank 0 of a tp-4 plan
+    with sequence parallelism (micro-batch Z_MICRO x 4096, G 2, CKPT 54),
+    through the launcher (``--plan-json``) in a child process under the
+    ``fake`` group, as phase D2 runs granite's rank: its Mamba mixers run
+    20 of the 80 SSD heads, its shared block 8 of the 32 attention heads.
+    Exact launch counts per step (phase H's rule for the same G and CKPT),
+    the state term of the rank's peak split equal to the memory report's
+    state bytes, the allocator's peak beside the memory report's peak
+    (printed with the ratio, not gated), and the step time of one rank's
+    compute without communication.  Returns the launches per step."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.plan import single_stage_plan
+    from repro_torch.lowering import lower_plan, plan_mesh
+
+    cfg = get_arch("zamba2-2.7b")
+    plan = single_stage_plan(Z_LAYERS, dp=1, tp=Z_TP, micro_batch=Z_MICRO,
+                             grad_accum=H_ACCUM, zero=1, ckpt_layers=H_CKPT,
+                             attn_impl="pallas", use_pallas=True,
+                             remat_policy="full", sequence_parallel=True)
+    gbs = Z_MICRO * H_ACCUM
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    path = build / "z_plan.json"
+    path.write_text(plan.to_json())
+    t0 = time.perf_counter()
+    text = _launcher_process(
+        [str(Z_TP), "0", "--arch", "zamba2-2.7b", "--plan-json", str(path),
+         "--steps", str(D_STEPS), "--seq", str(H_SEQ), "--global-batch",
+         str(gbs)], code=_FAKE_RANK.replace("HOOK", _MEMORY_SPLIT),
+        timeout=900)
+    secs = time.perf_counter() - t0
+    ms, _, counts, peak, pred = _launcher_lines(text)
+    rule = _hybrid_launches(cfg, H_CKPT, H_ACCUM)
+    per_step = _per_step(counts, rule, D_STEPS, "rank 0 of zamba2's tp plan")
+    split = _split_terms(text, plan.grad_accum)
+    rep = lower_plan(cfg, ShapeConfig("z", H_SEQ, gbs, "train"), plan,
+                     plan_mesh(plan)).memory_report()
+    st = rep.stages[0]
+    state = split["weights_bf16"] + split["master_mu_nu"] \
+        + split["grad_sums_f32"]
+    log(json.dumps({"z_rank0_of_4": dict(
+        model="zamba2-2.7b", layers=Z_LAYERS, seq=H_SEQ, global_batch=gbs,
+        plan=json.loads(plan.to_json()),
+        rank_ssd_shape_B_S_H=(Z_MICRO, H_SEQ, ZR_SSD_HEADS),
+        rank_flash_shape_B_S_H_KV=(Z_MICRO, H_SEQ, ZR_HEADS, ZR_HEADS),
+        launches_per_step=per_step, max_memory_allocated=peak,
+        memory_report_peak_bytes=rep.peak_bytes,
+        allocator_over_memory_report=peak / rep.peak_bytes,
+        memory_report_terms=dict(state=st.state_bytes, act=st.act_bytes,
+                                 transient=st.transient_bytes,
+                                 logits=st.logits_bytes),
+        launcher_predicted_peak_bytes=pred, peak_split_by_term=split,
+        state_term_of_split=state,
+        step_ms_compute_of_one_rank_no_communication=ms,
+        median_step_ms_after_first=statistics.median(ms[1:]),
+        process_seconds=secs, smi=smi_line())}))
+    # the rank holds exactly the state the spec tables cut for it
+    if state != st.state_bytes:
+        raise AssertionError(f"zamba2's tp-4 rank holds {state} B of state; "
+                             f"the memory report charges {st.state_bytes}")
+    return per_step
+
+
 def ssd_bwd_bound(b, s, h, p, n, g, q, esize):
     """(bound_ms, bound_by, arithmetic) for one SSD backward.  Operations:
     per (batch, head) and chunk, five products over the causal pairs (C
@@ -3514,25 +3660,26 @@ def ssd_bwd_bound(b, s, h, p, n, g, q, esize):
         "operations" if t_ops >= t_bytes else "bytes", how
 
 
-def _time_ssd_bwd(launches, err):
-    """Phase H (d): the SSD backward entry at zamba2's training shape, x/B/C
-    laid out as the model gives them; its kernels' ptxas registers and
-    spills (when this process built the library), shared memory, how many
-    of its clusters the card holds at once, its f32 parts of dB and dC
-    (written by the main kernel and read by the second), and the device
-    time split by kernel.  No single PyTorch call computes the SSD scan's
-    gradient, so there is no library yardstick."""
+def _time_ssd_bwd(launches, err, shape=(H_MICRO, H_SEQ, SSD_HEADS),
+                  model="zamba2-2.7b (training)"):
+    """Phase H (d): the SSD backward entry at one (B, S, H) of zamba2's (its
+    training shape by default), x/B/C laid out as the model gives them;
+    its kernels' ptxas registers and spills (when this process built the
+    library), shared memory, how many of its clusters the card holds at
+    once, its f32 parts of dB and dC (written by the main kernel and read
+    by the second), and the device time split by kernel.  No single
+    PyTorch call computes the SSD scan's gradient, so there is no library
+    yardstick."""
     import ctypes
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import ssd_scan as SS
 
-    b, s, h, p, n, g, q = (H_MICRO, H_SEQ, SSD_HEADS, SSD_P, SSD_N, SSD_G,
-                           SSD_CHUNK)
+    (b, s, h), p, n, g, q = shape, SSD_P, SSD_N, SSD_G, SSD_CHUNK
     for kernel in ("ssd_bwd_tc_kernel", "ssd_bwd_f32_kernel"):
         for fn, args, regs, stores, loads in ptxas_report(_build.BUILD_LOG,
                                                           kernel):
-            if args in ("", f"{p}, {n}"):
+            if args in ("", f"{p}, {n}") and h == SSD_HEADS:
                 log(f"# ptxas {fn}<{args}>: {regs} registers, {stores} "
                     f"bytes spill stores, {loads} bytes spill loads")
     clusters = ctypes.c_int(0)
@@ -3540,8 +3687,8 @@ def _time_ssd_bwd(launches, err):
         b, s, h, g, p, n, q, ctypes.byref(clusters)), "ssd bwd occupancy")
     cl = SS.bwd_cluster(h, g)
     parts_mb = 4 * math.prod(SS.bwd_parts_shape(b, s, h, g, n)) / 1e6
-    log(f"# ssd bwd: {SS.bwd_smem_bytes(q, p, n)} B of shared memory a "
-        f"block ({SS.BWD_TC_WARPS} warps), clusters of {cl} heads, "
+    log(f"# ssd bwd B{b} H{h}: {SS.bwd_smem_bytes(q, p, n)} B of shared "
+        f"memory a block ({SS.BWD_TC_WARPS} warps), clusters of {cl} heads, "
         f"{clusters.value} clusters ({clusters.value * cl} blocks) resident "
         f"at once; f32 dB / dC parts {parts_mb:.1f} MB written and read "
         f"({2 * parts_mb:.1f} MB of traffic)")
@@ -3561,8 +3708,8 @@ def _time_ssd_bwd(launches, err):
     log("# ssd bwd, device us per call by kernel (torch.profiler): "
         + ", ".join(f"{name} {us:.1f}" for name, us in parts.items()))
     bound, by, how = ssd_bwd_bound(b, s, h, p, n, g, q, 2)
-    log(f"# ssd bwd: kernel {ms:.4f} ms (device {dev:.4f}, cold L2 "
-        f"{cold:.4f}), plain {plain:.4f} ms; bound: {how} -> "
+    log(f"# ssd bwd B{b} H{h}: kernel {ms:.4f} ms (device {dev:.4f}, cold "
+        f"L2 {cold:.4f}), plain {plain:.4f} ms; bound: {how} -> "
         f"{bound * 1e3:.1f} us ({by}), {bound / cold:.1%} of it cold")
     return dict(
         name="ssd_scan_bwd", route="cuda",
@@ -3573,7 +3720,7 @@ def _time_ssd_bwd(launches, err):
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=None, device_ms=dev,
         library_device_ms=None, cold_ms=cold, library_cold_ms=None,
-        parts_us=parts, model="zamba2-2.7b (training)",
+        parts_us=parts, model=model,
         shape=f"B{b} S{s} H{h} P{p} N{n} G{g} chunk {q} bf16")
 
 
@@ -3815,11 +3962,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv[1:]
     t_start = time.perf_counter()
+
+    def mark(what):     # where the script's time goes, phase by phase
+        log(f"# {what} done at {time.perf_counter() - t_start:.1f} s")
+
     phase_device_and_build()
     if "--ssd-bwd-phases" in sys.argv[1:]:
         ssd_bwd_phases()
         return 0
     errs = phase_kernels_vs_plain()
+    mark("phases 1-2")
 
     # granite-3-8b
     model, params, prompts, plan, launches, peak = phase_full_width_serve(
@@ -3827,6 +3979,7 @@ def main() -> int:
                              num_heads=N_HEADS, num_kv_heads=N_KV,
                              head_dim=HEAD_DIM), _granite_launches)
     phase_reduced_vs_cpu("granite-3-8b")
+    mark("phase 3")
     kernels = [
         _time_flash("granite-3-8b", BATCH, PROMPT_LEN, N_HEADS, N_KV,
                     HEAD_DIM, launches["flash_attention_fwd"],
@@ -3845,6 +3998,7 @@ def main() -> int:
 
     # training granite-3-8b (8 layers)
     train_launches = phase_train(profile)
+    mark("phase T")
     kernels += [
         _time_flash_bwd(train_launches["flash_attention_bwd"],
                         errs["flash_attention_bwd"]),
@@ -3856,18 +4010,21 @@ def main() -> int:
 
     # the training loop: checkpoints, restart, rollback, resume
     phase_loop()
+    mark("phase L")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     # tune then execute (the tuner for one H100, its plan on the card)
     tuned = phase_tune_then_execute()
+    mark("phase U")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     # calibrate on the card, re-tune with the profile, execute
     phase_calibrate()
+    mark("phase C")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3875,6 +4032,7 @@ def main() -> int:
     # multi-device plans: world size 1 through NCCL, rank 0 of the tuned
     # tp-4 plan, and more than one card where there is
     rank_launches = phase_multi_device(tuned)
+    mark("phase D")
     kernels += [
         _time_flash("granite-3-8b (tp-4 rank, training)", R_BATCH, T_SEQ,
                     R_HEADS, R_KV, HEAD_DIM,
@@ -3890,6 +4048,7 @@ def main() -> int:
 
     # pipelined plans: two stage ranks of granite's plan for 16 H100s
     stage_launches = phase_pipeline()
+    mark("phase P")
     kernels += [
         _time_flash("granite-3-8b (tp-8 pipeline stage rank, training)",
                     P_BATCH, T_SEQ, P_HEADS, P_KV, HEAD_DIM,
@@ -3912,6 +4071,7 @@ def main() -> int:
                             shared_attn_every=Z_LAYERS // Z_GROUPS),
         _zamba2_launches, f32_truth=True)
     phase_reduced_vs_cpu("zamba2-2.7b", f32_truth=True)
+    mark("phase 5")
     kernels += [
         _time_ssd(launches["ssd_scan"], errs["ssd_scan"]),
         _time_flash("zamba2-2.7b", BATCH, PROMPT_LEN, Z_HEADS, Z_HEADS,
@@ -3930,7 +4090,7 @@ def main() -> int:
     # hybrid training: the SSD backward kernel, the reduced config card vs
     # CPU, full-width zamba2-2.7b on one card, the new shapes' timings
     t_h = time.perf_counter()
-    ssd_bwd_err = _ssd_bwd_vs_plain()
+    ssd_bwd_err, ssd_bwd_rank_err = _ssd_bwd_vs_plain()
     _hybrid_reduced_vs_cpu()
     hybrid_launches = phase_hybrid_train(profile)
     kernels += [
@@ -3943,6 +4103,27 @@ def main() -> int:
                           errs[f"rmsnorm_bwd@d{Z_D_MODEL}"], Z_D_MODEL,
                           "zamba2-2.7b (training)")]
     log(f"# phase H: {time.perf_counter() - t_h:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # a rank of zamba2's tp-4 plan, and its kernels' shapes
+    t_z = time.perf_counter()
+    rank_launches = phase_zamba2_rank()
+    rank = "zamba2-2.7b (tp-4 rank, training)"
+    kernels += [
+        _time_ssd(rank_launches["ssd_scan"], errs["ssd_scan@zamba2_tp4"],
+                  (Z_MICRO, H_SEQ, ZR_SSD_HEADS), rank),
+        _time_ssd_bwd(rank_launches["ssd_scan_bwd"], ssd_bwd_rank_err,
+                      (Z_MICRO, H_SEQ, ZR_SSD_HEADS), rank),
+        _time_flash(rank, Z_MICRO, H_SEQ, ZR_HEADS, ZR_HEADS, Z_HEAD_DIM,
+                    rank_launches["flash_attention_fwd"],
+                    errs["flash_attention_fwd@zamba2_tp4"]),
+        _time_flash_bwd(rank_launches["flash_attention_bwd"],
+                        errs["flash_attention_bwd@zamba2_tp4"],
+                        (Z_MICRO, H_SEQ, ZR_HEADS, ZR_HEADS, Z_HEAD_DIM),
+                        rank)]
+    log(f"# phase Z: {time.perf_counter() - t_z:.1f} s")
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi_line())

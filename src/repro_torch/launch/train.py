@@ -16,8 +16,10 @@
 Runs ``build_model`` -> ``init_train_state`` -> ``make_train_step`` and
 takes ``--steps`` steps over ``SyntheticLM`` batches, on ``cuda`` unless
 ``--device cpu`` is given.  Dense decoders train on any plan; the hybrid
-(``--arch zamba2-2.7b``) on one device (a written or ``--plan-json``
-plan; multi-device hybrid plans raise).  ``--smoke`` trains the reduced
+(``--arch zamba2-2.7b``) on any single-stage plan, on one device or over
+dp · tp ranks (a ``--plan-json`` plan: the tuner's ``arch_stats`` cannot
+price zamba2 yet; a hybrid plan of S > 1 raises, as the reference has no
+hybrid pipeline).  ``--smoke`` trains the reduced
 config (seq 128, global batch 8, as the reference's smoke run);
 ``--layers`` cuts the depth of the config (a full-width config whose
 optimizer state does not fit one card).  With no ``--plan-json`` the plan is the reference's smoke plan:

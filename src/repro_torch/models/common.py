@@ -33,7 +33,13 @@ The collectives are autograd Functions over plain tensors:
   parallel products gather inside their own Function, which keeps only
   this rank's part of the input for the backward and gathers it again);
 * scatter-sequence: reduce-scatter forward, all-gather backward (the
-  output of a row-parallel product under sequence parallelism).
+  output of a row-parallel product under sequence parallelism);
+* sum-over-tp: all-reduce forward and backward (a sum every rank's output
+  depends on: the Mamba mixer's gated norm over d_inner);
+* gather-columns: all-gather of the ranks' equal parts of the last dim,
+  keeping given columns; its backward reduce-scatters the kept columns'
+  gradients (the Mamba mixer's fused projection, whose tp parts are not
+  whole heads).
 
 Gradients (``GradSink``, in ``ExecConfig.sink`` while a train step runs):
 the params are no autograd leaves.  Each use of a param -- layer l's slice
@@ -189,6 +195,59 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+class _SumOverTP(torch.autograd.Function):
+    """All-reduce forward and backward: a sum over the tp ranks that every
+    rank's output depends on (the gated norm's sum of squares), so each
+    rank's gradient of it is the sum of the ranks' gradients."""
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                           group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """The ranks' equal parts of the last dim all-gathered, and only the
+    columns ``ranges`` (``(lo, hi)`` pairs of the whole last dim) kept, in
+    that order.  The backward puts each kept column's gradient back in its
+    place, zeros elsewhere, and reduce-scatters in f32: a column that
+    several ranks keep gets the sum of their gradients."""
+    @staticmethod
+    def forward(ctx, x, group, ranges):
+        n, c = dist.get_world_size(group), x.shape[-1]
+        ctx.group, ctx.shape = group, tuple(x.shape)
+        ctx.pieces = []      # (rank, lo, hi) of its part, in order
+        for a, b in ranges:
+            while a < b:
+                k, lo = divmod(a, c)
+                hi = min(c, lo + b - a)
+                ctx.pieces.append((k, lo, hi))
+                a += hi - lo
+        parts = x.new_empty((n * ctx.shape[0],) + ctx.shape[1:])
+        dist.all_gather_into_tensor(parts, x.contiguous(), group=group)
+        parts = parts.view((n,) + ctx.shape)
+        return torch.cat([parts[k][..., lo:hi] for k, lo, hi in ctx.pieces],
+                         -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        shape = ctx.shape
+        full = g.new_zeros((n * shape[0],) + shape[1:], dtype=torch.float32)
+        parts, at = full.view((n,) + shape), 0
+        for k, lo, hi in ctx.pieces:
+            parts[k][..., lo:hi] = g[..., at:at + hi - lo]
+            at += hi - lo
+        out = full.new_empty(shape)
+        dist.reduce_scatter_tensor(out, full, group=ctx.group)
+        return out.to(g.dtype), None, None
+
+
 class _GatherDim(torch.autograd.Function):
     """All-gather along ``dim`` forward, reduce-scatter backward (the
     gradient summed in f32 and returned in the input's dtype)."""
@@ -277,6 +336,15 @@ class Parallel:
 
     def reduce_from_tp(self, x: torch.Tensor) -> torch.Tensor:
         return _ReduceFromTP.apply(x, self.tp_group)
+
+    def sum_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the tp ranks, its gradient summed too."""
+        return _SumOverTP.apply(x, self.tp_group)
+
+    def gather_columns(self, x: torch.Tensor, ranges) -> torch.Tensor:
+        """The columns ``ranges`` of the last dim that tp splits ``x``'s
+        parts of (``_GatherColumns``)."""
+        return _GatherColumns.apply(x, self.tp_group, tuple(ranges))
 
     def seq_part(self, x: torch.Tensor) -> torch.Tensor:
         """This tp rank's part of dim 1 (the sequence)."""

@@ -12,8 +12,17 @@ offload their inputs.  A train step's ``GradSink`` takes each use of a
 param inside the group body: the group's in-proj ``(g,)``, each Mamba
 layer's slices ``(g, l)``, and the shared block once per group, whose
 gradients add into one f32 sum.  The serving paths with caches loop over
-views of the ``(groups, per)`` stacked Mamba params.  One device only: the
-multi-device hybrid (TP/DP/ZeRO, pipelines) is not ported.
+views of the ``(groups, per)`` stacked Mamba params.
+
+Training under a single-stage multi-device plan (``ExecConfig.par``) runs
+on this rank's shards, cut as the reference's spec tables cut them: the
+shared block's attention and MLP are tensor-parallel as a dense layer's,
+each Mamba mixer runs its H / tp heads (``ssm.mamba2_mixer``), the
+embedding and the head are vocab-parallel, and under sequence parallelism
+the residual stream, ``x0``, every norm and the group's in-proj hold this
+rank's part of the sequence (the reference's ``shard_act(h, ("dp", "sp",
+None))``).  There is no hybrid pipeline (S > 1), as the reference has
+none (its ``PIPELINE_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -40,8 +49,16 @@ def group_shape(cfg: ArchConfig) -> Tuple[int, int]:
 
 
 def init_hybrid(cfg: ArchConfig, generator: Optional[torch.Generator],
-                dtype=torch.bfloat16, device="cpu") -> Tuple[Params, Axes]:
-    pb = ParamBuilder(generator, dtype, device)
+                dtype=torch.bfloat16, device="cpu", shard=None, layers=None,
+                keep=None) -> Tuple[Params, Axes]:
+    """``shard``: keep one rank's part of each param (``ParamBuilder``);
+    ``layers`` / ``keep`` (a pipeline stage's part) raise: the hybrid has
+    no pipeline."""
+    if (layers, keep) != (None, None):
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid has no pipeline stages (the reference's "
+            "PIPELINE_FAMILIES, src/repro/parallel/pipeline.py:42)")
+    pb = ParamBuilder(generator, dtype, device, shard)
     d = cfg.d_model
     ng, per = group_shape(cfg)
     pb.add("embed/w", (cfg.vocab_size, d), ("vocab", "embed"), scale=0.02)
@@ -79,7 +96,7 @@ def _shared_block(shared: Params, gin: torch.Tensor, h: torch.Tensor,
         new_cache = _fresh_attn_cache(new_cache, zn.shape[1])
     z = z + a
     zn = L.norm(subtree(shared, "ln2"), z, cfg, impl=ec.kernel_impl)
-    z = z + L.mlp(subtree(shared, "mlp"), zn, cfg)
+    z = z + L.mlp(subtree(shared, "mlp"), zn, cfg, ec.par)
     return h + z, new_cache
 
 

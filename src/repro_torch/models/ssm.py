@@ -64,10 +64,18 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return F.silu(out + b)
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor
-                ) -> torch.Tensor:
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                par=None) -> torch.Tensor:
+    """RMS norm of y · silu(z) over d_inner.  With ``par`` (tp > 1) the
+    rank holds d_inner / tp of it: its sum of squares is summed over tp,
+    forward and backward (``Parallel.sum_tp``)."""
     yf = (y * F.silu(z)).float()
-    yf = yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + 1e-6)
+    if par is None:
+        ms = torch.mean(yf * yf, -1, keepdim=True)
+    else:
+        ms = par.sum_tp(torch.sum(yf * yf, -1, keepdim=True)) \
+            / (yf.shape[-1] * par.tp)
+    yf = yf * torch.rsqrt(ms + 1e-6)
     return (yf * scale.float()).to(y.dtype)
 
 
@@ -134,25 +142,73 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, carry
 
 
+def _tp_heads(p: Params, x: torch.Tensor, cfg: ArchConfig, par):
+    """This tp rank's share of the mixer's inputs, for its H / tp heads.
+
+    The param specs split the fused ``in_proj`` columns and the conv's
+    channels into equal parts that are not whole heads (10448 / 4 = 2612
+    columns at zamba2's width), so the rank's product ``x @ in_proj_r``
+    (the sequence gathered under SP) is all-gathered over tp and the rank
+    keeps z, x and dt of its own heads and all of B and C (one group: every
+    head reads them); the conv's weight and bias are gathered the same way
+    (``Parallel.gather_columns``, whose backward reduce-scatters: the
+    ranks' B/C gradients add up).  Returns ``(zxbcdt, conv_w, conv_b,
+    (d_inner, heads))`` of the rank, laid out as one device's with those
+    sizes."""
+    di, h, n = d_inner(cfg), num_ssm_heads(cfg), cfg.ssm_state
+    if cfg.ssm_groups != 1:
+        raise NotImplementedError(
+            f"{cfg.ssm_groups} B/C groups under tp: the port splits the "
+            "mixer for one group (ROADMAP.md, queue A: sharding on torch)")
+    tp, r = par.tp, par.tp_rank
+    dl, hl = di // tp, h // tp
+    xs = (r * dl, (r + 1) * dl)             # its x channels
+    bc = (di, di + 2 * n)                   # B and C
+    (part,) = par.column(x, p["in_proj"])
+    dt0 = 2 * di + 2 * n + r * hl
+    zxbcdt = par.gather_columns(
+        part, [xs, (di + xs[0], di + xs[1]), (di + bc[0], di + bc[1]),
+               (dt0, dt0 + hl)])
+    conv_w = par.gather_columns(p["conv_w"], [xs, bc])
+    conv_b = par.gather_columns(p["conv_b"], [xs, bc])
+    return zxbcdt, conv_w, conv_b, (dl, hl)
+
+
 def mamba2_mixer(p: Params, x: torch.Tensor, cfg: ArchConfig, ec: ExecConfig,
                  cache: Optional[Dict] = None, return_state: bool = False
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x (B,S,D) -> (out, new_cache).  cache: {"conv": (B,K-1,convdim),
     "ssm": (B,H,P,N) f32} for decode.  return_state: populate a cache from
-    a prefill pass."""
-    bsz, s, _ = x.shape
-    di, h, p_, n, g = (d_inner(cfg), num_ssm_heads(cfg), cfg.ssm_head_dim,
-                       cfg.ssm_state, cfg.ssm_groups)
-    zxbcdt = x @ p["in_proj"]
+    a prefill pass.
+
+    Under ``ec.par`` with tp > 1 (training) the rank runs its H / tp heads
+    (``_tp_heads``) with its own slices of ``A_log``, ``D``, ``dt_bias``
+    and ``norm_scale``; the gated norm sums its squares over tp, and the
+    row-parallel ``out_proj``'s partial products leave summed
+    (``Parallel.tp_out``: reduce-scattered along the sequence under
+    SP)."""
+    par = ec.par if ec.par is not None and ec.par.tp > 1 else None
+    if par is not None and (cache is not None or return_state):
+        raise NotImplementedError("multi-device Mamba2 serving waits for "
+                                  "multi-device serving (ROADMAP.md, "
+                                  "queue A: serving)")
+    p_, n, g = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    if par is None:
+        di, h = d_inner(cfg), num_ssm_heads(cfg)
+        zxbcdt, conv_w, conv_b = x @ p["in_proj"], p["conv_w"], p["conv_b"]
+    else:
+        zxbcdt, conv_w, conv_b, (di, h) = _tp_heads(p, x, cfg, par)
+    bsz, s = zxbcdt.shape[:2]
+    cd = di + 2 * g * n
     z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + conv_dim(cfg)]
-    dt_raw = zxbcdt[..., di + conv_dim(cfg):]
+    xbc = zxbcdt[..., di:di + cd]
+    dt_raw = zxbcdt[..., di + cd:]
     a = -torch.exp(p["A_log"].float())
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
 
     if cache is None:
         xbc_raw = xbc
-        xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+        xbc = _causal_conv(xbc, conv_w, conv_b)
         # strided views of the conv output (row stride conv_dim): the kernel
         # reads them in place; B/C stay per group (the plain algebra repeats
         # them over heads as the reference does)
@@ -189,7 +245,9 @@ def mamba2_mixer(p: Params, x: torch.Tensor, cfg: ArchConfig, ec: ExecConfig,
         y = y[:, None]                                       # (B,1,H,P)
         new_cache = {"conv": conv_st[:, 1:], "ssm": hs}
 
-    y = _gated_norm(y.reshape(bsz, s, di), z, p["norm_scale"])
+    y = _gated_norm(y.reshape(bsz, s, di), z, p["norm_scale"], par)
+    if par is not None:
+        return par.tp_out(y @ p["out_proj"]), None
     return y @ p["out_proj"], new_cache
 
 

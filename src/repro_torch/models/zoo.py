@@ -1,7 +1,8 @@
 """Model registry (the port of ``repro/models/zoo.py``): the uniform
 init / loss / prefill / decode / caches interface over the ported families
--- dense decoders and the Zamba2 hybrid, each trained and served on one
-device (multi-device plans train dense decoders only)."""
+-- dense decoders and the Zamba2 hybrid, each served on one device and
+trained on one device or on a rank of a multi-device plan (pipelined
+plans, S > 1, train dense decoders only, as in the reference)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -33,25 +34,17 @@ class Model:
              shard=None, layers=None, keep=None):
         """(params, axes) with the reference's names, shapes and scales;
         values drawn from ``generator`` (on the model's device).
-        ``shard``, ``layers``, ``keep``: keep one rank's part of each param,
-        and a pipeline stage's layers and params (``ParamBuilder``); dense
-        decoders only."""
-        if (shard, layers, keep) != (None, None, None):
-            return DEC.init_lm(self.cfg, generator, dtype, self.device,
-                               shard, layers, keep)
+        ``shard``: keep one rank's part of each param; ``layers``, ``keep``:
+        a pipeline stage's layers and params (``ParamBuilder``), dense
+        decoders only (the hybrid raises: it has no pipeline)."""
         return _FAMILIES[self.cfg.family][0](self.cfg, generator, dtype,
-                                             self.device)
+                                             self.device, shard, layers, keep)
 
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
                 ec: ExecConfig) -> torch.Tensor:
         """The training loss (a scalar tensor) of ``batch`` ``{"tokens",
-        "labels"[, "loss_mask"]}``.  The hybrid's runs on one device:
-        ``ec.par`` (a rank of a multi-device plan) raises."""
-        if self.cfg.family != "dense" and ec.par is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: multi-device training of the "
-                f"{self.cfg.family} family (TP/DP/ZeRO, pipelines) is not "
-                "ported (ROADMAP.md, queue A: hybrid training)")
+        "labels"[, "loss_mask"]}``, on one device or, with ``ec.par``, on
+        one rank of a single-stage multi-device plan."""
         return _FAMILIES[self.cfg.family][1](params, batch, self.cfg, ec)
 
     def prefill_fn(self, params: Params, batch: Dict[str, torch.Tensor],

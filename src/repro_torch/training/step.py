@@ -120,21 +120,27 @@ def init_train_state(model: Model, plan: Plan, generator: torch.Generator
 
 # -- multi-device -------------------------------------------------------------
 
-# the products whose weights tensor parallelism splits (column-parallel
-# wq/wg/wu, row-parallel wo/wd): tp > 1 needs their heads and d_ff split
-_TP_SPLIT = ("layers/attn/wq", "layers/attn/wo", "layers/mlp/wg",
-             "layers/mlp/wu", "layers/mlp/wd")
+# the params tensor parallelism splits on their heads, d_ff or d_inner
+# (column-parallel wq/wg/wu, row-parallel wo/wd, and the Mamba mixer's
+# head-split params): tp > 1 needs every one of them split
+_TP_SPLIT = tuple(f"{blk}/{n}" for blk in ("layers", "shared") for n in (
+    "attn/wq", "attn/wo", "mlp/wg", "mlp/wu", "mlp/wd")) + tuple(
+    f"mamba/mixer/{n}" for n in ("in_proj", "conv_w", "conv_b", "A_log", "D",
+                                 "dt_bias", "norm_scale", "out_proj"))
+# the reference pipelines these families only (PIPELINE_FAMILIES,
+# src/repro/parallel/pipeline.py:42)
+PIPELINE_FAMILIES = ("dense", "moe", "ssm")
 
 
 def _lowered(model: Model, plan: Plan, mesh):
     from repro_torch.launch.mesh import mesh_coords
     from repro_torch.parallel.sharding import mesh_shape
-    if model.cfg.family != "dense":
+    if plan.num_stages > 1 and model.cfg.family not in PIPELINE_FAMILIES:
         raise NotImplementedError(
-            f"{model.cfg.name}: multi-device training of the "
-            f"{model.cfg.family} family (TP/DP/ZeRO, pipelines) is not "
-            "ported; it trains on one device (ROADMAP.md, queue A: hybrid "
-            "training)")
+            f"{model.cfg.name}: a plan of {plan.num_stages} stages; the "
+            f"{model.cfg.family} family has no pipeline, as in the "
+            f"reference (PIPELINE_FAMILIES = {PIPELINE_FAMILIES}, "
+            "src/repro/parallel/pipeline.py:42)")
     low = lower_plan(model.cfg, None, plan, mesh)
     return low, mesh_shape(mesh), mesh_coords(mesh)
 
@@ -237,8 +243,10 @@ def _tp_partial(pspecs, sp: bool, tp: int):
     (each rank projects the kv heads its query heads read)."""
     if tp == 1:
         return set()
+    kv = {f"{blk}/attn/{w}" for blk in ("layers", "shared")
+          for w in ("wk", "wv")}
     return {n for n, sp_ in pspecs.items() if "model" not in sp_
-            and (sp or n in ("layers/attn/wk", "layers/attn/wv"))}
+            and (sp or n in kv)}
 
 
 def _sharded_train_step(model, plan, adam, ec, mesh) -> TrainStep:

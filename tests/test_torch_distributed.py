@@ -101,17 +101,17 @@ def _batches(cfg):
             for i in range(STEPS)]
 
 
-def _train(cfg, plan, mesh=None):
+def _train(cfg, plan, mesh=None, dtype=torch.float32, adam=ADAM):
     """(metrics per step, final state, the shapes of the grads adam_update
-    was given, each grad's max |g| per step), from the one-process f32
-    state of seed 0 (this rank's cut of it)."""
+    was given, each grad's max |g| per step), from the one-process state
+    of seed 0 with params in ``dtype`` (this rank's cut of it), Adam's
+    ``adam``."""
     model = build_model(cfg, "cpu")
     state = TOPT.init_state(*model.init(torch.Generator().manual_seed(0),
-                                        torch.float32), plan.stages[0])
+                                        dtype), plan.stages[0])
     if mesh is not None:
         state = bridge.shard_train_state(bridge.train_state_to_numpy(state),
-                                         cfg, plan, mesh,
-                                         param_dtype=torch.float32)
+                                         cfg, plan, mesh, param_dtype=dtype)
     seen, amax = {}, {}
     real = TOPT.adam_update
 
@@ -123,7 +123,7 @@ def _train(cfg, plan, mesh=None):
 
     TOPT.adam_update = spy
     try:
-        step = TSTEP.make_train_step(model, plan, mesh=mesh)
+        step = TSTEP.make_train_step(model, plan, adam, mesh=mesh)
         metrics = []
         for b in _batches(cfg):
             state, m = step.fn(state, b)

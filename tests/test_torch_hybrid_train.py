@@ -661,13 +661,19 @@ def test_init_train_state_splits_the_hybrid_as_the_reference(weights):
 
 
 def test_multi_device_hybrid_training_raises():
-    """What is not ported raises and names it: a hybrid loss on a rank of a
-    multi-device plan (``ExecConfig.par``) and the multi-device step's
-    lowering."""
+    """What has no reference or is not ported raises and names it: the
+    multi-device step's lowering of a hybrid plan of two stages (the
+    reference pipelines no hybrid), and a Mamba2 mixer's decode on a tp
+    rank of a multi-device plan (multi-device serving)."""
+    from repro_torch.models import ssm as TSSM
+    from repro_torch.models.common import Parallel
     from repro_torch.training import step as TSTEP
     model = build_model(TCFG, "cpu")
-    with pytest.raises(NotImplementedError, match="TP/DP/ZeRO, pipelines"):
-        model.loss_fn({}, {}, ExecConfig(par=object()))
-    with pytest.raises(NotImplementedError, match="one device"):
-        TSTEP._lowered(model, Plan.from_json(jax_plan(
-            JCFG.num_layers, **_plan()).to_json()), None)
+    one = Plan.from_json(jax_plan(JCFG.num_layers, **_plan()).to_json())
+    st = one.stages[0].replace(layers=JCFG.num_layers // 2)
+    with pytest.raises(NotImplementedError, match="PIPELINE_FAMILIES"):
+        TSTEP._lowered(model, one.replace(stages=(st, st)), None)
+    par = Parallel(None, None, 1, 2, 0, 0, sp=False)
+    with pytest.raises(NotImplementedError, match="multi-device serving"):
+        TSSM.mamba2_mixer({}, torch.zeros(1, 1, TCFG.d_model), TCFG,
+                          ExecConfig(par=par), cache={})
