@@ -2,11 +2,11 @@
 port of ``repro/calibration/driver.py``).
 
 ``launch/train.py --calibrate`` runs it; the report keeps the
-reference's shape.  The reference's driver also takes the kernel
-anchors (``fit_kernels``), which wait (``fit.calibrate_kernels``), tuning
-knobs of the fit that no caller of the port sets, and ``write_report``,
-whose callers (the reference's calibration tool and accuracy benchmark)
-are not ported.
+reference's shape.  ``fit_kernels`` adds the kernel anchors
+(``fit.calibrate_kernels``: the Hopper kernels' bench on the device).
+The reference's driver also takes tuning knobs of the fit that no caller
+of the port sets, and ``write_report``, whose callers (the reference's
+calibration tool and accuracy benchmark) are not ported.
 
 One rule is the port's own: a cell of an arch the port builds that fails
 to run (an OOM, a kernel build or launch error) fails the whole run — the
@@ -25,16 +25,17 @@ from repro_torch.calibration.measure import (DEFAULT_SEQ, GOLDEN_ARCHS,
 def run_calibration(*, archs: Sequence[str] = GOLDEN_ARCHS,
                     steps: int = 4, seq_len: int = DEFAULT_SEQ,
                     reduced: bool = True, layers: Optional[int] = None,
-                    device=None, write_profile: Optional[str] = None
-                    ) -> Dict:
+                    device=None, fit_kernels: bool = False,
+                    write_profile: Optional[str] = None) -> Dict:
     """Measure the cells on ``device`` (``cuda`` unless the caller passes
     ``"cpu"``), fit a profile for that device's platform against the
     port's H100 spec, and return the full report (cells, errors, profile,
-    skip reasons).
+    skip reasons).  ``fit_kernels``: anchor the kernel roofline's scales
+    on the device's kernel bench as well (the report's ``kernels``).
 
     ``write_profile``: a path, or ``"auto"`` for the platform's default
     location (``profile_path``)."""
-    from repro_torch.calibration.fit import fit_profile
+    from repro_torch.calibration.fit import calibrate_kernels, fit_profile
     from repro_torch.calibration.measure import measure_cells
     from repro_torch.calibration.profile import default_platform, profile_path
 
@@ -46,7 +47,12 @@ def run_calibration(*, archs: Sequence[str] = GOLDEN_ARCHS,
         return {"platform": platform, "n_cells": 0, "cells": [],
                 "skipped_cells": skipped, "improved": False,
                 "error": "no cell ran to completion"}
-    profile, report = fit_profile(cells, platform=platform)
+    kc = (calibrate_kernels(archs, reduced=reduced, device=device)
+          if fit_kernels else None)
+    profile, report = fit_profile(cells, platform=platform,
+                                  kernel_coeffs=kc)
+    if kc is not None:
+        report["kernels"] = dict(profile.kernels)
     report["skipped_cells"] = skipped
     report["measured_cells"] = [c.to_doc() for c in cells]
     report["profile"] = profile.to_doc()

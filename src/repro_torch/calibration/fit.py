@@ -26,7 +26,9 @@ equivalent ``CostParams`` overrides.
 ``InterferenceModel.calibrate`` refit on the scaled stable-phase
 channels (it needs two cells whose stable phase runs two channels at
 once), a keep-if-better guard (never return a profile that predicts worse
-than what it started from), and a per-cell error report.
+than what it started from), and a per-cell error report.  It also carries
+``calibrate_kernels``'s ``KernelCoeffs`` anchors (the kernel bench of
+``kernels/autotune.py``) into the profile.
 
 Every function prices against ``hw`` (default: the port's ``H100``); a
 profile fitted against one hardware spec is only valid with that spec.
@@ -41,6 +43,7 @@ import numpy as np
 
 from repro_torch.calibration.measure import MeasuredCell
 from repro_torch.calibration.profile import (DEFAULT_PROFILE,
+                                             KERNEL_FIELDS,
                                              CalibrationProfile)
 from repro_torch.core.costmodel import (TORCH_AUTO_THRESHOLD, CostParams,
                                         StageCostModel, estimate_plan)
@@ -216,17 +219,27 @@ def scales_to_overrides(scales, base: CostParams) -> Dict[str, float]:
     return out
 
 
+def _kernel_overrides(kc: Optional[KernelCoeffs]) -> Dict[str, float]:
+    if kc is None:
+        return {}
+    base = KernelCoeffs()
+    return {f: float(getattr(kc, f)) for f in KERNEL_FIELDS
+            if getattr(kc, f) != getattr(base, f)}
+
+
 def fit_profile(cells: Sequence[MeasuredCell], *,
                 base: CalibrationProfile = DEFAULT_PROFILE,
-                platform: str = "cpu", hw: HardwareSpec = H100
+                platform: str = "cpu", hw: HardwareSpec = H100,
+                kernel_coeffs: Optional[KernelCoeffs] = None
                 ) -> Tuple[CalibrationProfile, Dict]:
     """Fit a CalibrationProfile from measured cells, pricing against
     ``hw``.  Returns ``(profile, report)``; the report carries the
     per-cell predicted-vs-measured table before and after fitting.
 
     A ``"cuda"`` profile pins the port's measured tape-backend crossover
-    (``TORCH_AUTO_THRESHOLD``); other platforms pin none.  The kernel
-    anchors stay the base's until ``calibrate_kernels`` is ported."""
+    (``TORCH_AUTO_THRESHOLD``); other platforms pin none.
+    ``kernel_coeffs`` (``calibrate_kernels``) layers its anchors over the
+    base's; the cells' frozen-default plans cannot see them."""
     if not cells:
         raise ValueError("no measured cells to fit")
     intf_base = base.interference_model()
@@ -240,11 +253,13 @@ def fit_profile(cells: Sequence[MeasuredCell], *,
     torch_auto_threshold = (TORCH_AUTO_THRESHOLD if platform == "cuda"
                             else None)
     source = f"measured ({len(cells)} cells)"
+    kern_over = dict(base.kernels)
+    kern_over.update(_kernel_overrides(kernel_coeffs))
 
     def make_profile(intf_factors) -> CalibrationProfile:
         return CalibrationProfile.make(
             platform=platform, source=source, cost=cost_over,
-            kernels=base.kernels, interference=intf_factors,
+            kernels=kern_over, interference=intf_factors,
             torch_auto_threshold=torch_auto_threshold)
 
     # interference refit, where two cells overlap two channels: feed
@@ -320,10 +335,20 @@ def fit_profile(cells: Sequence[MeasuredCell], *,
 
 
 def calibrate_kernels(archs: Sequence[str], *, seq_len: int = 2048,
-                      reduced: bool = True) -> KernelCoeffs:
-    """The reference anchors the ``KernelCoeffs`` scales through its
-    Pallas kernel bench.  The port's needs the Hopper tile menu and a
-    kernel bench of its own (ROADMAP.md, queue A items 5 and 11)."""
-    raise NotImplementedError(
-        "calibrate_kernels is not ported yet: it needs the Hopper tile menu "
-        "and the kernel bench (ROADMAP.md, queue A items 5 and 11)")
+                      reduced: bool = True, device=None,
+                      cache_path=None) -> KernelCoeffs:
+    """Anchor the KernelCoeffs ``*_scale`` factors through
+    ``kernels.autotune.calibrate`` (its bench of the Hopper kernels on a
+    CUDA device, of their plain versions on the CPU, and its cache),
+    chained across archs so each arch anchors the ops it actually runs."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.autotune import calibrate
+
+    kc = KernelCoeffs()
+    for arch in archs:
+        cfg = get_arch(arch)
+        if reduced:
+            cfg = cfg.reduced()
+        kc = calibrate(cfg, seq_len=seq_len, kc=kc, device=device,
+                       cache_path=cache_path)
+    return kc

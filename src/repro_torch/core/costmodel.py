@@ -342,11 +342,13 @@ class StageCostModel:
             "host_state": lay["host"], "host_act": host_acts,
         }
 
-        # ---- kernel VMEM working set (grid legality, not HBM peak) ----------
-        # Tiles must fit on-core VMEM; the budget is floored at the default
-        # config's own working set so the default tiles are feasible by
-        # construction (they are today's behaviour) and the mask can only
-        # prune configs strictly larger than both the budget and the default.
+        # ---- kernel working set (grid legality, not HBM peak) ---------------
+        # The Hopper kernels' shared memory a block at the knobs' tiles
+        # (``vmem_peak``, the reference's name) must fit a block's; the
+        # budget is floored at the default config's own working set so the
+        # default tiles are feasible by construction (they are today's
+        # behaviour) and the mask can only prune configs strictly larger
+        # than both the budget and the default.
         self.vmem_peak: Expr = self._kernel_vmem(
             Sym("qb"), Sym("kvb"), Sym("rnb"), Sym("sch"))
         vmem_default = self._kernel_vmem(
@@ -541,7 +543,8 @@ class StageCostModel:
             rnb=rnb, sch=sch, num_heads=st.num_heads, head_dim=st.head_dim,
             d_model=st.d_model, ssd_heads=sd_h, ssd_head_dim=sd_p,
             ssd_state=sd_n, hbm_bw=hw.hbm_bw,
-            peak_flops=hw.peak_flops_bf16, kc=kc, ops=KERNEL_SYMBOLIC_OPS)
+            peak_flops=hw.peak_flops_bf16, kc=kc, ops=KERNEL_SYMBOLIC_OPS,
+            tile_edge=float(hw.mxu_min_dim))
         per_layer = wrap(terms["rms"])
         if st.attn_layers_frac:
             per_layer = per_layer + st.attn_layers_frac * terms["attn"]
@@ -550,7 +553,7 @@ class StageCostModel:
         return L * per_layer
 
     def _kernel_vmem(self, qb, kvb, rnb, sch, concrete: bool = False):
-        """Worst-op VMEM working set; Expr over the knob symbols, or a
+        """Worst-op shared memory a block; Expr over the knob symbols, or a
         float (``concrete=True``) for the default-config budget floor."""
         from repro_torch.core.costmodel_params import KERNEL_CONCRETE_OPS
         st = self.st

@@ -9,15 +9,17 @@ calibratable per-kernel roofline constants, and ``kernel_time_terms`` /
 * the symbolic cost model (``core/costmodel.py`` builds them over
   ``Expr`` knobs — ``qb``/``kvb``/``rnb``/``sch`` — so the compiled
   tapes price the kernel dimension of the candidate grid), and
-* the concrete predictor (the reference's ``kernels/autotune.py``
-  evaluates them with floats against bench measurements of its Pallas
-  kernels; the port's counterpart waits for the Hopper tile menu,
-  ROADMAP.md).
+* the concrete predictor (``kernels/autotune.py`` evaluates them with
+  floats against bench measurements of the Hopper kernels and anchors the
+  per-kernel ``*_scale`` so the prediction is exact at the default config).
 
 Both paths run the same arithmetic in the same order through a tiny
 ``Ops`` adapter (the ``lowering/state_layout.py`` idiom), so symbolic
-and concrete evaluation agree bitwise.  The terms price the reference's
-TPU tiles (VMEM, a 128-wide MXU); at the default tiles they add exactly 0.
+and concrete evaluation agree bitwise.  The terms price the Hopper
+kernels at the tiles a plan's tuple runs them at (``kernels/tiles.py``):
+shared memory per block in place of the reference's VMEM, tensor-core
+efficiency per tile edge against wgmma's 64-row minimum in place of its
+128-wide MXU (docs/port.md).  At the default tuple they add exactly 0.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Dict
 
 from repro_torch.core import symbolic as S
+from repro_torch.kernels import tiles
 
 if TYPE_CHECKING:
     from repro_torch.configs.base import ArchConfig
@@ -63,7 +66,8 @@ def param_count(cfg: "ArchConfig", active_only: bool = False) -> int:
 @dataclass(frozen=True)
 class KernelCoeffs:
     """Calibratable roofline constants, one group per kernel (the
-    reference's values, fitted to its Pallas kernels).
+    reference's names and starting values; ``attn_mxu_eff`` is the
+    tensor-core efficiency at tiles of at least wgmma's 64 rows).
 
     The ``*_scale`` factors are dimensionless multipliers anchored by
     ``kernels.autotune.calibrate`` so the predicted time of the DEFAULT
@@ -120,6 +124,19 @@ class KernelSymbolicOps:
     def min(a, b):
         return S.smin(S.wrap(a), S.wrap(b))
 
+    @staticmethod
+    def ceil(a):
+        return S.ceil(a)
+
+    @staticmethod
+    def eq(a, b):
+        # a 0/1 indicator: neither is greater
+        return 1.0 - (S.wrap(a) > b) - (S.wrap(b) > a)
+
+    @staticmethod
+    def where(c, a, b):
+        return S.where(S.wrap(c), a, b)
+
 
 class KernelConcreteOps:
     @staticmethod
@@ -130,6 +147,19 @@ class KernelConcreteOps:
     def min(a, b):
         return a if a <= b else b
 
+    @staticmethod
+    def ceil(a):
+        return float(math.ceil(a))
+
+    @staticmethod
+    def eq(a, b):
+        return 1.0 if a == b else 0.0
+
+    @staticmethod
+    def where(c, a, b):
+        # the symbolic blend c*a + (1-c)*b with c exactly 0 or 1 is a or b
+        return a if c else b
+
 
 KERNEL_SYMBOLIC_OPS = KernelSymbolicOps()
 KERNEL_CONCRETE_OPS = KernelConcreteOps()
@@ -139,39 +169,48 @@ def kernel_time_terms(*, seq: int, b, tp, sp_div, qb, kvb, rnb, sch,
                       num_heads: int, head_dim: int, d_model: int,
                       ssd_heads: int, ssd_head_dim: int, ssd_state: int,
                       hbm_bw: float, peak_flops: float, kc: KernelCoeffs,
-                      ops=KERNEL_SYMBOLIC_OPS) -> Dict[str, Any]:
+                      ops=KERNEL_SYMBOLIC_OPS,
+                      tile_edge: float = 64.0) -> Dict[str, Any]:
     """Per-layer, per-microbatch, per-device kernel times, by op.
 
     Returns ``{"attn", "rms", "ssd"}`` seconds.  ``b``/``tp``/``sp_div``
-    and the four kernel knobs may be floats or ``Expr``s; everything
-    else is a python scalar.  The caller gates each term by whether the
-    arch actually runs that op and multiplies by the stage's layer
-    count.
+    and the four kernel knobs (the plan's values) may be floats or
+    ``Expr``s; everything else is a python scalar.  The caller gates each
+    term by whether the arch actually runs that op and multiplies by the
+    stage's layer count.  The knobs first become the Hopper tiles they run
+    at (``tiles.hopper_tile_expr``: the default maps to the kernels' tiles
+    of old, menu entries pass through).
 
     Model per op:
 
-    * attention — flash tiling: K/V stream once per query tile, so HBM
-      traffic falls with ``qb``; tiles below the 128-wide MXU run at
-      proportionally lower efficiency; each (q, kv) grid step pays a
-      launch overhead.  ``t = max(compute, memory) + overhead``.
-    * rmsnorm — bandwidth bound; the row-block only sets how many grid
-      steps (launch overheads) cover the rows.
-    * ssd scan — intra-chunk matmul work grows with the chunk length
-      while the number of sequential state steps (and their launch +
-      state-materialization traffic) shrinks: an interior optimum.
+    * attention -- the Hopper flash forward: K/V stream once per query
+      work item of ``qr`` rows, so HBM traffic falls with ``qr``; an edge
+      below wgmma's ``tile_edge`` (64) rows runs at proportionally lower
+      tensor-core efficiency; each (query item, K/V tile) step pays a
+      pipeline overhead.  ``t = max(compute, memory) + overhead``.
+    * rmsnorm -- bandwidth bound; the rows a block only set how many
+      blocks (launch overheads) cover the rows.
+    * ssd scan -- the reference's pricing: intra-chunk matmul work grows
+      with the chunk length while the number of sequential state steps
+      (and their hand-off + state-materialization traffic) shrinks: an
+      interior optimum.
     """
+    qr = tiles.hopper_tile_expr("attn_q_block", qb, ops)
+    kn = tiles.hopper_tile_expr("attn_kv_block", kvb, ops)
+    rw = tiles.hopper_tile_expr("rmsnorm_block", rnb, ops)
     heads = num_heads / tp
     hd = float(head_dim)
     fseq = float(seq)
 
     # -- flash attention ----------------------------------------------------
     attn_bytes = 2.0 * b * heads * hd * (2.0 * fseq
-                                         + 2.0 * fseq * (fseq / qb))
+                                         + 2.0 * fseq * (fseq / qr))
     t_attn_mem = attn_bytes / (hbm_bw * kc.attn_bw_eff)
-    align = (ops.min(qb, 128.0) / 128.0) * (ops.min(kvb, 128.0) / 128.0)
+    align = (ops.min(qr, tile_edge) / tile_edge) \
+        * (ops.min(kn, tile_edge) / tile_edge)
     attn_flops = 4.0 * b * heads * fseq * fseq * hd
     t_attn_comp = attn_flops / (peak_flops * kc.attn_mxu_eff * align)
-    attn_steps = b * heads * (fseq / qb) * (fseq / kvb)
+    attn_steps = b * heads * (fseq / qr) * (fseq / kn)
     t_attn = kc.attn_scale * (ops.max(t_attn_comp, t_attn_mem)
                               + attn_steps * kc.attn_tile_overhead_us * 1e-6)
 
@@ -179,7 +218,7 @@ def kernel_time_terms(*, seq: int, b, tp, sp_div, qb, kvb, rnb, sch,
     rows = b * fseq / sp_div
     rms_bytes = 2.0 * 2.0 * rows * float(d_model) * 2.0
     t_rms_mem = rms_bytes / (hbm_bw * kc.rms_bw_eff)
-    rms_steps = 2.0 * rows / rnb
+    rms_steps = 2.0 * rows / rw
     t_rms = kc.rms_scale * (t_rms_mem
                             + rms_steps * kc.rms_tile_overhead_us * 1e-6)
 
@@ -198,24 +237,27 @@ def kernel_time_terms(*, seq: int, b, tp, sp_div, qb, kvb, rnb, sch,
     return {"attn": t_attn, "rms": t_rms, "ssd": t_ssd}
 
 
-def kernel_vmem_terms(*, qb, kvb, rnb, sch, head_dim: int, d_model: int,
+def kernel_smem_terms(*, qb, kvb, rnb, sch, head_dim: int, d_model: int,
                       ssd_head_dim: int, ssd_state: int,
                       ops=KERNEL_SYMBOLIC_OPS) -> Dict[str, Any]:
-    """Worst-case VMEM working set per op, in bytes.
-
-    Mirrors the Pallas kernels' BlockSpecs + scratch shapes: flash
-    attention holds a (qb, d) f32 accumulator, two (qb, 1) f32 stats
-    rows, and bf16 q/k/v/o tiles; rmsnorm holds an f32 row block in and
-    out plus the scale row; ssd holds (sch, p)/(sch, n) tiles and the
-    (n, p) f32 carried state."""
+    """Shared memory of one block per op, in bytes, at the tiles the
+    plan's knobs run at: the larger of the forward's and the backward's
+    block for flash attention and the SSD scan (``tiles.flash_fwd_smem``
+    and the rest, the sources' own formulas); RMSNorm's forward row of
+    scale, which no tile changes.  The cost model's ``vmem_peak`` (the
+    reference's name) is their max over the ops the arch runs."""
+    kn = tiles.hopper_tile_expr("attn_kv_block", kvb, ops)
     hd = float(head_dim)
-    attn = qb * hd * 4.0 + 2.0 * qb * 4.0 \
-        + (qb * hd + 2.0 * kvb * hd + qb * hd) * 2.0
-    rms = 2.0 * rnb * float(d_model) * 4.0 + float(d_model) * 4.0
+    attn = ops.max(tiles.flash_fwd_smem(hd, kn), tiles.flash_bwd_smem(hd, kn))
+    rms = float(tiles.rmsnorm_smem(d_model))
     ps, ns = float(ssd_head_dim), float(ssd_state)
-    ssd = (sch * ps + 2.0 * sch * ns) * 4.0 + ns * ps * 4.0 \
-        + sch * ps * 4.0
+    ssd = ops.max(tiles.ssd_fwd_smem(sch, ps, ns, ops),
+                  tiles.ssd_bwd_smem(sch, ps, ns, ops))
     return {"attn": attn, "rms": rms, "ssd": ssd}
+
+
+# the reference's name for the working-set terms
+kernel_vmem_terms = kernel_smem_terms
 
 
 # ---------------------------------------------------------------------------

@@ -36,9 +36,10 @@ class HardwareSpec:
     # the smallest tensor-core tile edge the kernels use (wgmma m64nNk16 is
     # issued per 64-row warpgroup tile)
     mxu_min_dim: int = 64
-    # data sheet: 227 KB (232,448 B) of shared memory per block on sm_90.
-    # Read only by the kernel terms of the cost model, which still price
-    # the reference's TPU tiles (ROADMAP.md, the Hopper tile menu)
+    # data sheet: 227 KB (232,448 B) of shared memory per block on sm_90,
+    # under the reference's name (its TPU's VMEM): the budget of the cost
+    # model's kernel working set (``vmem_peak``, the Hopper kernels' shared
+    # memory a block, kernels/tiles.py) and of the kernel tuner's grid
     vmem_bytes: float = 232448.0
     # devices one fast fabric joins (``ici_bw``); a collective whose group
     # spans more is priced at ``dci_bw`` (``costmodel.StageCostModel``).

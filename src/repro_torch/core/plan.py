@@ -15,8 +15,16 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class KernelConfig:
-    """Per-op kernel tile/block sizes.  The values are the reference's TPU
-    tiles; the Hopper kernels choose their own tiles (docs/port.md)."""
+    """Per-op kernel tile/block sizes: the reference's fields and defaults.
+
+    What a tuple means on Hopper (``kernels/tiles.py``, docs/port.md "Plan
+    tiles and Hopper tiles"): a field at its default runs the tile its
+    kernel always ran (128 query rows an item, K/V tiles and backward blocks
+    of 128 keys, 8 RMSNorm rows a block, chunk 256); any other value must
+    be an entry of the Hopper menu (``tiles.MENU``: K/V tiles of 64 or 128
+    keys, 8 rows a block), which the kernel then runs; anything else
+    raises before a launch.  ``ssd_chunk`` is the chunk on every route.  On
+    the CPU the plain versions take the values as the reference does."""
     attn_q_block: int = 512     # flash-attention query tile (rows)
     attn_kv_block: int = 512    # flash-attention key/value tile (cols)
     rmsnorm_block: int = 256    # rmsnorm row-block

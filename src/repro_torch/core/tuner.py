@@ -28,9 +28,10 @@ hardware and a torch tape backend in place of jax.  The stage model's
 Eq. 4 feasibility evaluates the reference's state-layout derivation
 (``repro_torch.lowering.state_layout``), the derivation the lowering's
 ``memory_consistency`` evaluates concretely.  ``profile`` takes a
-calibration profile (``repro_torch.calibration``).  What waits raises
-with a pointer to ROADMAP.md: ``kernel_tune`` (the Hopper tile menu) and
-``hosts`` (the remote sweep).
+calibration profile (``repro_torch.calibration``).  ``kernel_tune``
+sweeps the Hopper tile menu (``repro_torch.kernels.autotune``).  What
+waits raises with a pointer to ROADMAP.md: ``hosts`` (the remote
+sweep).
 """
 from __future__ import annotations
 
@@ -97,9 +98,10 @@ class TuneSpec:
     # False sweeps only the default (q_block=512, kv_block=512, rmsnorm=256,
     # ssd_chunk=256) tile tuple — the roofline delta term is exactly 0 there,
     # so plans are byte-identical to the pre-kernel-tuning tuner.  True
-    # enlarges the grid with every legal tile tuple; the reference's menu
-    # (kernels/autotune.py::legal_kernel_grid) is the TPU/VMEM one, and
-    # the port's Hopper menu is ROADMAP.md queue A item 5, so True raises.
+    # enlarges the grid with the legal tuples of the Hopper tile menu
+    # (repro_torch.kernels.autotune.legal_kernel_grid: tiles the kernels
+    # launch forward and backward, seq-len divisibility, shared memory a
+    # block) as a joint per-candidate dimension.
     kernel_tune: bool = False
     # Explicit grid override ((q_block, kv_block, rmsnorm_block, ssd_chunk)
     # tuples) — takes precedence over kernel_tune; mainly for tests and
@@ -196,8 +198,6 @@ class MistTuner:
         if spec.hosts:
             raise _not_ported("the multi-host sweep (hosts)",
                               "queue A: core/remote.py and service/")
-        if spec.kernel_tune and spec.kernel_grid is None:
-            raise _not_ported("kernel_tune", "queue A: the Hopper tile menu")
         self.spec, self.hw, self.cp = spec, hw, cp
         self._scm_cache: Dict[Tuple[bool, bool], StageCostModel] = {}
         # cross-(S, G) frontier memo: identical stage hypotheses (same
@@ -218,6 +218,11 @@ class MistTuner:
             if self.spec.kernel_grid is not None:
                 self._kernel_grid = tuple(
                     tuple(int(x) for x in t) for t in self.spec.kernel_grid)
+            elif self.spec.kernel_tune:
+                from repro_torch.kernels.autotune import legal_kernel_grid
+                self._kernel_grid = legal_kernel_grid(
+                    self.spec.arch, seq_len=self.spec.seq_len, hw=self.hw,
+                    cp=self.cp)
             else:
                 self._kernel_grid = DEFAULT_KERNEL_GRID
         return self._kernel_grid

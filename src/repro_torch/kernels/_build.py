@@ -120,9 +120,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     lib.mist_flash_attn_fwd.argtypes = (
-        [p] * 5 + [i] * 6 + [ll] * 9 + [f, i, p])
+        [p] * 5 + [i] * 6 + [ll] * 9 + [f, i, i, p])
     lib.mist_flash_attn_fwd.restype = i
-    lib.mist_flash_attn_bwd.argtypes = [p] * 10 + [i] * 6 + [f, i, p]
+    lib.mist_flash_attn_bwd.argtypes = [p] * 10 + [i] * 6 + [f, i, i, p]
     lib.mist_flash_attn_bwd.restype = i
     lib.mist_rmsnorm.argtypes = [p, p, p, i, i, f, i, i, i, p]
     lib.mist_rmsnorm.restype = i

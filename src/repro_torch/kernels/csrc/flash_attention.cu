@@ -21,14 +21,15 @@
 //   tile serves 128 rows, and one producer warpgroup, which hands most of
 //   its registers to the consumers (setmaxnreg).
 // - Both products are warpgroup MMAs (wgmma.mma_async, bf16, f32 sums):
-//   S = Q K^T as m64n128k16 with Q and K read from shared memory through
-//   descriptors (K-major), and O += P V with P from registers -- the S
+//   S = Q K^T as m64nBNk16 (BN keys a tile, 128 or 64) with Q and K read
+//   from shared memory through descriptors (K-major), and O += P V with P
+//   from registers -- the S
 //   accumulator re-packed to bf16 in place, since each warp's accumulator
 //   layout is the A-fragment layout -- and V from shared memory, MN-major
 //   (transposed).  No head dim is padded in the math.
 // - One producer thread moves every tile by TMA.  Each copy lands on a
 //   "full" mbarrier, and rows past the end of q, k or v are zero-filled by
-//   the hardware.  Q is double-buffered, K tiles of 128 keys ring through
+//   the hardware.  Q is double-buffered, K tiles of BN keys ring through
 //   two stages and V tiles through three; the consumer warps release a
 //   stage on an "empty" mbarrier, and the producer refills it at once,
 //   running ahead into the next work item.
@@ -59,7 +60,10 @@ namespace {
 using namespace hopper;
 
 constexpr int BLOCK_M = 128;    // query rows per work item, 64 per warpgroup
-constexpr int BLOCK_N = 128;    // keys per K/V tile
+constexpr int BLOCK_N = 128;    // keys per K/V tile at the plan's default:
+                                // the kernel's template parameter BN, which
+                                // the tile menu (kernels/tiles.py) also
+                                // sets to 64
 constexpr int Q_STAGES = 2;     // Q tiles: the next item's is prefetched
 constexpr int K_STAGES = 2;     // K tiles in the ring
 constexpr int V_STAGES = 3;     // V tiles: P V of tile j - 1 runs beside
@@ -73,12 +77,15 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__host__ __device__ constexpr int tile_bytes(int hd) { return 128 * hd * 2; }
-__host__ __device__ constexpr int smem_bytes(int hd) {
-  return (Q_STAGES + K_STAGES + V_STAGES) * tile_bytes(hd) + 8 * N_BARS;
+__host__ __device__ constexpr int tile_bytes(int rows, int hd) {
+  return rows * hd * 2;
+}
+__host__ __device__ constexpr int smem_bytes(int hd, int bn) {
+  return Q_STAGES * tile_bytes(BLOCK_M, hd) +
+         (K_STAGES + V_STAGES) * tile_bytes(bn, hd) + 8 * N_BARS;
 }
 
-// TMA descriptors of q, k, v (boxes of 128 rows) and o (64 rows, one
+// TMA descriptors of q (boxes of 128 rows), k, v (BN rows) and o (64 rows, one
 // warpgroup's): per tensor the panel of head_dim columns [0, 64) (or
 // [0, 32) at hd 32), and at hd 80 the panel [64, 80)
 struct alignas(64) Maps {
@@ -157,7 +164,7 @@ __device__ __forceinline__ void decode_item(int item, int BH, int nq, int H,
   h = (item % BH) % H;
 }
 
-template <int HD>
+template <int HD, int BN>
 __global__ void __launch_bounds__(NUM_THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ Maps maps,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
@@ -165,17 +172,18 @@ flash_fwd_kernel(const __grid_constant__ Maps maps,
                  int causal) {
   constexpr int KSTEPS = HD / 16;       // k16 steps of Q K^T over head_dim
   constexpr int NT_O = HD / 8;          // 8-column chunks of O
-  constexpr int NT_S = BLOCK_N / 8;     // 8-column chunks of S
-  constexpr int PSTEPS = BLOCK_N / 16;  // k16 steps of P V over the key tile
-  constexpr int TILE = tile_bytes(HD);
+  constexpr int NT_S = BN / 8;          // 8-column chunks of S
+  constexpr int PSTEPS = BN / 16;       // k16 steps of P V over the key tile
+  constexpr int TILE = tile_bytes(BLOCK_M, HD);   // a Q tile
+  constexpr int KV_TILE = tile_bytes(BN, HD);     // a K or V tile
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t sQ = smem_u32(smem_raw);
   const uint32_t sK = sQ + Q_STAGES * TILE;
-  const uint32_t sV = sK + K_STAGES * TILE;
+  const uint32_t sV = sK + K_STAGES * KV_TILE;
   // mbarriers, 8 bytes each: for every stage a "full" one (the producer's
   // copies landed) and an "empty" one (all 8 consumer warps are done)
-  const uint32_t qfull = sV + V_STAGES * TILE;
+  const uint32_t qfull = sV + V_STAGES * KV_TILE;
   const uint32_t kfull = qfull + 8 * Q_STAGES, vfull = kfull + 8 * K_STAGES;
   const uint32_t qempty = vfull + 8 * V_STAGES;
   const uint32_t kempty = qempty + 8 * Q_STAGES;
@@ -188,7 +196,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps,
   const int group = H / KV;
   auto n_tiles_of = [&](int q0) {
     const int kv_end = causal ? min(Sk, q0 + BLOCK_M) : Sk;
-    return (kv_end + BLOCK_N - 1) / BLOCK_N;
+    return (kv_end + BN - 1) / BN;
   };
 
   if (static_cast<int>(blockIdx.x) >= n_items) return;
@@ -221,11 +229,11 @@ flash_fwd_kernel(const __grid_constant__ Maps maps,
         for (int j = 0; j < n_tiles; ++j, ++g) {
           const int ks = g % K_STAGES, vs = g % V_STAGES;
           mbar_wait(kempty + 8 * ks, ((g / K_STAGES) & 1) ^ 1);
-          load_tile<HD>(sK + ks * TILE, maps.k, j * BLOCK_N, h / group, b,
-                        kfull + 8 * ks);
+          load_tile<HD, BN>(sK + ks * KV_TILE, maps.k, j * BN, h / group,
+                            b, kfull + 8 * ks);
           mbar_wait(vempty + 8 * vs, ((g / V_STAGES) & 1) ^ 1);
-          load_tile<HD>(sV + vs * TILE, maps.v, j * BLOCK_N, h / group, b,
-                        vfull + 8 * vs);
+          load_tile<HD, BN>(sV + vs * KV_TILE, maps.v, j * BN, h / group,
+                            b, vfull + 8 * vs);
         }
       }
     }
@@ -276,23 +284,23 @@ flash_fwd_kernel(const __grid_constant__ Maps maps,
     // P_{j-1} V_{j-1}; tile 0 has no predecessor and the last P V follows
     // the loop
     for (int j = 0; j < n_tiles; ++j, ++g) {
-      const int k0 = j * BLOCK_N;
+      const int k0 = j * BN;
       const int ks = g % K_STAGES;
       const int vp = (g + V_STAGES - 1) % V_STAGES;  // V of tile g - 1
       mbar_wait(kfull + 8 * ks, (g / K_STAGES) & 1);
       if (j > 0) mbar_wait(vfull + 8 * vp, ((g - 1) / V_STAGES) & 1);
-      const uint32_t kt = sK + ks * TILE, vt = sV + vp * TILE;
+      const uint32_t kt = sK + ks * KV_TILE, vt = sV + vp * KV_TILE;
       wg_turn_wait(wg);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk)
-        wgmma_ss<BLOCK_N>(s, kmajor_desc<HD, BLOCK_M>(qt, wg * 64, kk),
-                          kmajor_desc<HD, BLOCK_N>(kt, 0, kk), kk > 0);
+        wgmma_ss<BN>(s, kmajor_desc<HD, BLOCK_M>(qt, wg * 64, kk),
+                     kmajor_desc<HD, BN>(kt, 0, kk), kk > 0);
       wgmma_commit();
       if (j > 0) {
 #pragma unroll
         for (int kk = 0; kk < PSTEPS; ++kk)
-          pv_product<HD>(acc, pa[kk], vt, kk);
+          pv_product<HD, BN>(acc, pa[kk], vt, kk);
       }
       wgmma_commit();
       wg_turn_pass(wg);
@@ -301,8 +309,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps,
       release(kempty + 8 * ks, true);
 
       float alpha[2];
-      if (c <= 0.f || k0 + BLOCK_N > Sk ||
-          (causal && k0 + BLOCK_N - 1 > qg))
+      if (c <= 0.f || k0 + BN > Sk || (causal && k0 + BN - 1 > qg))
         online_softmax<NT_S, true>(s, m_i, l_i, alpha, c, k0, t, qrow, Sk,
                                    causal);
       else
@@ -328,22 +335,23 @@ flash_fwd_kernel(const __grid_constant__ Maps maps,
         pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
       }
     }
-    // O += P V of the last tile.  Causal: where its keys from 64 on lie
+    // O += P V of the last tile.  Causal: where its keys from BN / 2 on lie
     // past every row of this warpgroup (the first warpgroup's diagonal
-    // tile), their P is 0 and only the first 64 keys are multiplied.
+    // tile at BN 128, its last tile at BN 64), their P is 0 and only the
+    // first BN / 2 keys are multiplied.
     if (n_tiles > 0) {
       const int vp = (g + V_STAGES - 1) % V_STAGES;
       mbar_wait(vfull + 8 * vp, ((g - 1) / V_STAGES) & 1);
-      const uint32_t vt = sV + vp * TILE;
+      const uint32_t vt = sV + vp * KV_TILE;
       wgmma_fence();
-      if (causal && (n_tiles - 1) * BLOCK_N >= qg) {
+      if (causal && (n_tiles - 1) * BN + BN / 2 >= qg + 64) {
 #pragma unroll
         for (int kk = 0; kk < PSTEPS / 2; ++kk)
-          pv_product<HD>(acc, pa[kk], vt, kk);
+          pv_product<HD, BN>(acc, pa[kk], vt, kk);
       } else {
 #pragma unroll
         for (int kk = 0; kk < PSTEPS; ++kk)
-          pv_product<HD>(acc, pa[kk], vt, kk);
+          pv_product<HD, BN>(acc, pa[kk], vt, kk);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -404,13 +412,14 @@ flash_fwd_kernel(const __grid_constant__ Maps maps,
 }
 
 
-template <int HD>
+template <int HD, int BN>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int Sq, int Sk, int H, int KV, long long q_sb,
            long long q_ss, long long q_sh, long long k_sb, long long k_ss,
            long long k_sh, long long v_sb, long long v_ss, long long v_sh,
            float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = smem_bytes(HD);
+  constexpr int smem = smem_bytes(HD, BN);
+  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
   static const int sms = [] {
     int dev = 0, n = 0;
     cudaGetDevice(&dev);
@@ -421,48 +430,72 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   Maps maps;
   const long long o_ss = static_cast<long long>(H) * HD;  // o: contiguous
   if (!make_maps(maps.q, q, B, Sq, H, HD, q_sb, q_ss, q_sh, BLOCK_M) ||
-      !make_maps(maps.k, k, B, Sk, KV, HD, k_sb, k_ss, k_sh, BLOCK_N) ||
-      !make_maps(maps.v, v, B, Sk, KV, HD, v_sb, v_ss, v_sh, BLOCK_N) ||
+      !make_maps(maps.k, k, B, Sk, KV, HD, k_sb, k_ss, k_sh, BN) ||
+      !make_maps(maps.v, v, B, Sk, KV, HD, v_sb, v_ss, v_sh, BN) ||
       !make_maps(maps.o, o, B, Sq, H, HD, o_ss * Sq, o_ss, HD, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<HD, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int items = ((Sq + BLOCK_M - 1) / BLOCK_M) * B * H;
   const int grid = items < sms ? items : sms;
-  flash_fwd_kernel<HD><<<grid, NUM_THREADS, smem, stream>>>(
+  flash_fwd_kernel<HD, BN><<<grid, NUM_THREADS, smem, stream>>>(
       maps, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H,
       KV, Sq, Sk, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_bn(int bn, const void* q, const void* k, const void* v, void* o,
+              void* lse, int B, int Sq, int Sk, int H, int KV,
+              long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+              long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+              long long v_sh, float scale, int causal, cudaStream_t s) {
+  switch (bn) {
+    case 64:
+      return launch<HD, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb, q_ss,
+                            q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                            causal, s);
+    case BLOCK_N:
+      return launch<HD, BLOCK_N>(q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb,
+                                 q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                 v_sh, scale, causal, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // q (B, Sq, H, hd), k/v (B, Sk, KV, hd): bf16, strides in elements, the
 // head_dim stride 1.  o (B, Sq, H, hd) bf16 and lse (B, H, Sq) f32 are
-// contiguous.  Returns cudaGetLastError() after the launch.
+// contiguous.  block_n: keys per K/V tile, 64 or 128.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int mist_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int Sq, int Sk, int H, int KV, int hd, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, float scale, int causal,
-    void* stream) {
+    int block_n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb, q_ss, q_sh,
-                        k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, s);
+      return launch_bn<32>(block_n, q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb,
+                           q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                           scale, causal, s);
     case 64:
-      return launch<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb, q_ss, q_sh,
-                        k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, s);
+      return launch_bn<64>(block_n, q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb,
+                           q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                           scale, causal, s);
     case 80:
-      return launch<80>(q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb, q_ss, q_sh,
-                        k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, s);
+      return launch_bn<80>(block_n, q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb,
+                           q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                           scale, causal, s);
     case 128:
-      return launch<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb, q_ss, q_sh,
-                         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
-                         s);
+      return launch_bn<128>(block_n, q, k, v, o, lse, B, Sq, Sk, H, KV, q_sb,
+                            q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                            scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -19,22 +19,26 @@
 //
 // What the design does about that (the FlashAttention-3 backward, kept
 // deterministic):
-// - One pass over the keys, 5 products: a block owns 128 keys of one
-//   (batch, KV head); each of its two consumer warpgroups holds dK and dV of
-//   64 keys in f32 registers.  The block walks the query tiles of 64 rows at
+// - One pass over the keys, 5 products: a block owns BN keys of one
+//   (batch, KV head), BN = 128 or 64 (the kernel's template parameter, the
+//   tile menu of kernels/tiles.py; 128 unless the plan asks for 64); each of
+//   its BN / 64 consumer warpgroups holds dK and dV of 64 keys in f32
+//   registers.  The block walks the query tiles of 64 rows at
 //   or after its keys (causal), last tile first, and in each all H / KV
 //   query heads of the group.  Per (key tile, query tile) every warpgroup
 //   forms S^T = K q^T and dP^T = V dO^T (wgmma, both operands in shared
 //   memory), then P^T and dS^T in registers (exp in the log2 domain, as the
 //   forward).  dS^T goes to shared memory in bf16 and P^T is re-packed in
 //   place to bf16 A fragments for dV += P^T dO (wgmma RS, dO MN-major).
-//   Both warpgroups read the dS^T tile: dQ = dS K over the block's 128 keys
+//   Both warpgroups read the dS^T tile: dQ = dS K over the block's BN keys
 //   (SS, both operands MN-major; each warpgroup one 64-column head_dim panel
-//   of K, at hd 64 and 32 the first alone), then dK += dS^T q over their own
-//   rows (SS, q MN-major), so the dQ part is staged while dK runs.
+//   of K, at hd 64 and 32 the first alone, and at BN 64 the one warpgroup
+//   every panel in turn), then dK += dS^T q over their own rows (SS, q
+//   MN-major), so the dQ part is staged while dK runs.
 // - A producer warpgroup hands its registers to the consumers (setmaxnreg:
 //   a block launches with 168 a thread, 64,512 in all, and 24 x 128 +
-//   240 x 256 fits them).  One thread loads K and V once and the q and dO
+//   240 x 256 fits them; at BN 64 a block of 256 threads launches with as
+//   many registers as a thread can have, and no warpgroup hands any over).  One thread loads K and V once and the q and dO
 //   tiles, with their rows of lse and delta, by TMA through a ring of
 //   Q_STAGES on full/empty mbarriers, so the next tile's loads overlap this
 //   tile's products.  A second thread writes dQ out (below).
@@ -74,39 +78,50 @@ namespace {
 using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
-constexpr int BLOCK_N = 128;    // keys per block, 64 per consumer warpgroup
+constexpr int BLOCK_N = 128;    // keys per block at the plan's default: the
+                                // kernel's template parameter BN, which the
+                                // tile menu (kernels/tiles.py) also sets to
+                                // 64 (one consumer warpgroup)
 constexpr int BLOCK_M = 64;     // query rows per tile
 constexpr int Q_STAGES = 2;     // q and dO tiles (with lse, delta) in the ring
 constexpr int DS_STAGES = 2;    // dS^T tiles: the next tile's is written
                                 // while the other warpgroup's dQ reads this
 constexpr int DQ_STAGES = 2;    // f32 dQ parts on their way out
-constexpr int CONSUMERS = 256;  // two warpgroups of 64 keys
-constexpr int NUM_THREADS = CONSUMERS + 128;  // and a producer warpgroup
+constexpr int CONSUMERS = 256;  // two warpgroups of 64 keys (at BLOCK_N)
+// a block of bn keys: a consumer warpgroup for every 64, and a producer
+// warpgroup
+__host__ __device__ constexpr int consumers(int bn) {
+  return CONSUMERS * bn / BLOCK_N;
+}
+__host__ __device__ constexpr int num_threads(int bn) {
+  return consumers(bn) + 128;
+}
 // registers a thread after the producer hands its share to the consumers
+// (BN 128; at BN 64 every thread keeps what it launched with)
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 // mbarriers: K/V loaded; q/dO full and empty; dQ part full and empty
 constexpr int N_BARS = 1 + 2 * Q_STAGES + 2 * DQ_STAGES;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__host__ __device__ constexpr int kv_tile_bytes(int hd) {
-  return BLOCK_N * hd * 2;
+__host__ __device__ constexpr int kv_tile_bytes(int bn, int hd) {
+  return bn * hd * 2;
 }
 __host__ __device__ constexpr int q_tile_bytes(int hd) {
   return BLOCK_M * hd * 2;
 }
-__host__ __device__ constexpr int ds_tile_bytes() {
-  return BLOCK_N * BLOCK_M * 2;
+__host__ __device__ constexpr int ds_tile_bytes(int bn) {
+  return bn * BLOCK_M * 2;
 }
 __host__ __device__ constexpr int dq_tile_bytes(int hd) {
   return BLOCK_M * hd * 4;
 }
-__host__ __device__ constexpr int smem_bytes(int hd) {
-  return 2 * kv_tile_bytes(hd) + 2 * Q_STAGES * q_tile_bytes(hd) +
-         DS_STAGES * ds_tile_bytes() + DQ_STAGES * dq_tile_bytes(hd) +
+__host__ __device__ constexpr int smem_bytes(int hd, int bn) {
+  return 2 * kv_tile_bytes(bn, hd) + 2 * Q_STAGES * q_tile_bytes(hd) +
+         DS_STAGES * ds_tile_bytes(bn) + DQ_STAGES * dq_tile_bytes(hd) +
          2 * Q_STAGES * BLOCK_M * 4 + 8 * N_BARS + 8;  // + the ticket
 }
 
-// TMA descriptors: q, dO (boxes of 64 rows), k, v (128 rows), each in its
+// TMA descriptors: q, dO (boxes of 64 rows), k, v (BN rows), each in its
 // head_dim panels; dq_accum (f32, 64 rows) in panels of 32 columns (128-byte
 // rows) and, at hd 80, one of 16
 struct alignas(64) Maps {
@@ -198,12 +213,12 @@ fa_bwd_dq_round_kernel(const float4* __restrict__ acc,
 // dK += dS^T q for queries [16 kk, 16 kk + 16): A = the warpgroup's rows
 // of the dS^T tile `dst` (K-major), B = the q tile `qt` (64 rows, MN-major),
 // N = head_dim in the panels pv_product uses
-template <int HD>
+template <int HD, int BN>
 __device__ __forceinline__ void dk_product(float (&acc)[HD / 8][4],
                                            uint32_t dst, int wg, uint32_t qt,
                                            int kk) {
   using P = Panels<HD>;
-  const uint64_t da = kmajor_desc<BLOCK_M, BLOCK_N>(dst, wg * 64, kk);
+  const uint64_t da = kmajor_desc<BLOCK_M, BN>(dst, wg * 64, kk);
   const int rows = kk * 16;
   if constexpr (HD == 128) {
     wgmma_ss_mn128<0>(acc, da,
@@ -222,15 +237,15 @@ __device__ __forceinline__ void dk_product(float (&acc)[HD / 8][4],
   }
 }
 
-// dQ (64 x one head_dim panel) = dS K over the block's 128 keys: A = dS
+// dQ (64 x one head_dim panel) = dS K over the block's BN keys: A = dS
 // from the dS^T tile `dst` (keys x 64 queries, 128-byte rows: MN-major),
-// B = the warpgroup's panel `p` of the K tile `kt` (MN-major).
-template <int HD>
+// B = panel `p` of the K tile `kt` (MN-major).
+template <int HD, int BN>
 __device__ __forceinline__ void dq_product(float (&dq)[8][4], uint32_t dst,
                                            uint32_t kt, int p) {
   using P = Panels<HD>;
 #pragma unroll
-  for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
+  for (int kk = 0; kk < BN / 16; ++kk) {
     const uint64_t da = smem_desc(dst + kk * 16 * 128, 16, 1024, 1);
     const int keys = kk * 16;
     if constexpr (HD == 32) {
@@ -238,13 +253,13 @@ __device__ __forceinline__ void dq_product(float (&dq)[8][4], uint32_t dst,
                      smem_desc(kt + keys * 64, 16, 512, 2), kk > 0);
     } else if (P::cols(p) == 64) {
       wgmma_ss_t<64>(dq, da,
-                     smem_desc(kt + P::template offset<BLOCK_N>(p) +
+                     smem_desc(kt + P::template offset<BN>(p) +
                                    keys * 128,
                                16, 1024, 1),
                      kk > 0);
     } else {
       wgmma_ss_t<16>(reinterpret_cast<float(&)[2][4]>(dq), da,
-                     smem_desc(kt + P::template offset<BLOCK_N>(p) +
+                     smem_desc(kt + P::template offset<BN>(p) +
                                    keys * 32,
                                16, 256, 3),
                      kk > 0);
@@ -277,8 +292,8 @@ __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-template <int HD>
-__global__ void __launch_bounds__(NUM_THREADS, 1)
+template <int HD, int BN>
+__global__ void __launch_bounds__(num_threads(BN), 1)
 flash_bwd_kernel(const __grid_constant__ Maps maps,
                  const float* __restrict__ lse2,
                  const float* __restrict__ delta, int* __restrict__ sync,
@@ -288,8 +303,10 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
   constexpr int NT = HD / 8;            // 8-column chunks of dK, dV
   constexpr int NT_S = BLOCK_M / 8;     // 8-column chunks of S^T, dP^T
   constexpr int PSTEPS = BLOCK_M / 16;  // k16 steps of dV, dK over queries
-  constexpr int KV_TILE = kv_tile_bytes(HD), Q_TILE = q_tile_bytes(HD);
-  constexpr int DS_TILE = ds_tile_bytes(), DQ_TILE = dq_tile_bytes(HD);
+  constexpr int KV_TILE = kv_tile_bytes(BN, HD), Q_TILE = q_tile_bytes(HD);
+  constexpr int DS_TILE = ds_tile_bytes(BN), DQ_TILE = dq_tile_bytes(HD);
+  constexpr int CONSUMER_THREADS = consumers(BN);
+  constexpr int NWG = BN / 64;          // consumer warpgroups
   using DQ = DqPanels<HD>;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -316,10 +333,10 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
     mbar_init(kvfull, 1);
     for (int i = 0; i < Q_STAGES; ++i) {
       mbar_init(qfull + 8 * i, 1);  // the producer's arrival
-      mbar_init(qempty + 8 * i, CONSUMERS / 32);
+      mbar_init(qempty + 8 * i, CONSUMER_THREADS / 32);
     }
     for (int i = 0; i < DQ_STAGES; ++i) {
-      mbar_init(dqfull + 8 * i, CONSUMERS / 32);
+      mbar_init(dqfull + 8 * i, CONSUMER_THREADS / 32);
       mbar_init(dqempty + 8 * i, 1);  // the writer's arrival
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -329,7 +346,7 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
   const int ticket = *s_ticket;
   const int n = ticket / (B * KV), b = (ticket % (B * KV)) / KV,
             kvh = ticket % KV;
-  const int k0 = n * BLOCK_N;
+  const int k0 = n * BN;
   // query tiles [m0, nm) reach these keys; items run last tile first and,
   // in each, over the group's heads
   const int m0 = causal ? min(nm, k0 / BLOCK_M) : 0;
@@ -341,13 +358,13 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
   };
 
   const int role = __shfl_sync(0xffffffffu, tid / 128, 0);  // warp-uniform
-  if (role == CONSUMERS / 128) {
-    regs_down<PRODUCER_REGS>();
-    if (tid == CONSUMERS && n_items > 0) {
+  if (role == CONSUMER_THREADS / 128) {
+    if constexpr (NWG == 2) regs_down<PRODUCER_REGS>();
+    if (tid == CONSUMER_THREADS && n_items > 0) {
       // the loader: K and V once, then q, dO, lse2 and delta per item
       mbar_expect(kvfull, 2 * KV_TILE);
-      load_panels<HD, BLOCK_N>(sK, maps.k, k0, kvh, b, kvfull);
-      load_panels<HD, BLOCK_N>(sV, maps.v, k0, kvh, b, kvfull);
+      load_panels<HD, BN>(sK, maps.k, k0, kvh, b, kvfull);
+      load_panels<HD, BN>(sV, maps.v, k0, kvh, b, kvfull);
 #pragma unroll 1
       for (int it = 0; it < n_items; ++it) {
         int m, h;
@@ -365,7 +382,7 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
         bulk_load(sL + s * BLOCK_M * 4, lse2 + row, BLOCK_M * 4, bar);
         bulk_load(sD + s * BLOCK_M * 4, delta + row, BLOCK_M * 4, bar);
       }
-    } else if (tid == CONSUMERS + 32) {
+    } else if (tid == CONSUMER_THREADS + 32) {
       // the dQ writer: each part, in ascending key-tile order per
       // (batch, head, query tile)
 #pragma unroll 1
@@ -394,15 +411,17 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
     return;
   }
 
-  // The consumers: two warpgroups of 64 keys each
-  regs_up<CONSUMER_REGS>();
+  // The consumers: BN / 64 warpgroups of 64 keys each
+  if constexpr (NWG == 2) regs_up<CONSUMER_REGS>();
   const int wg = role;
   const int warp = __shfl_sync(0xffffffffu, warp_id & 3, 0);  // in the wg
   const int g = lane >> 2, t = lane & 3;
   const float c = scale * LOG2E;
   const int kw0 = k0 + wg * 64;  // the warpgroup's first key
   const int key[2] = {kw0 + warp * 16 + g, kw0 + warp * 16 + g + 8};
-  const bool has_dq = wg < Panels<HD>::COUNT;  // a head_dim panel of dQ
+  // the head_dim panels of dQ this warpgroup forms: its own (at BN 128;
+  // none at hd 64 and 32 for the second), or every one in turn (BN 64)
+  const bool has_dq = wg < Panels<HD>::COUNT;
 
   float dka[NT][4], dva[NT][4];
 #pragma unroll
@@ -429,12 +448,12 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
-      wgmma_ss<BLOCK_M>(st, kmajor_desc<HD, BLOCK_N>(kt, wg * 64, kk),
+      wgmma_ss<BLOCK_M>(st, kmajor_desc<HD, BN>(kt, wg * 64, kk),
                         kmajor_desc<HD, BLOCK_M>(qt, 0, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk)
-      wgmma_ss<BLOCK_M>(dp, kmajor_desc<HD, BLOCK_N>(vt, wg * 64, kk),
+      wgmma_ss<BLOCK_M>(dp, kmajor_desc<HD, BN>(vt, wg * 64, kk),
                         kmajor_desc<HD, BLOCK_M>(dot, 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<1>();  // S^T is done; dP^T may still run
@@ -486,7 +505,7 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
       pv_product<HD, BLOCK_M>(dva, pa[kk], dot, kk);
     wgmma_commit();
     fence_proxy_async_shared();
-    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_THREADS) : "memory");
 
     // the dQ part = dS K, one head_dim panel per warpgroup, summed in dP^T's
     // registers (dead by now: an accumulator of its own would leave S^T and
@@ -495,10 +514,11 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
     // of dS^T
     float (&dq)[8][4] = dp;
     wgmma_fence();
-    if (has_dq) dq_product<HD>(dq, dst, kt, wg);
+    if (has_dq) dq_product<HD, BN>(dq, dst, kt, wg);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < PSTEPS; ++kk) dk_product<HD>(dka, dst, wg, qt, kk);
+    for (int kk = 0; kk < PSTEPS; ++kk)
+      dk_product<HD, BN>(dka, dst, wg, qt, kk);
     wgmma_commit();
     wgmma_wait<1>();  // dV and the dQ part are done; dK may still run
     fence_regs(dva);
@@ -507,21 +527,35 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
 
     // stage the dQ part (f32) for the writer, while dK runs
     const int ps = it % DQ_STAGES;
-    mbar_wait(dqempty + 8 * ps, ((it / DQ_STAGES) & 1) ^ 1);
-    if (has_dq) {
-      const uint32_t part = sDQ + ps * DQ_TILE;
-      const int cols = Panels<HD>::cols(wg);
+    const uint32_t part = sDQ + ps * DQ_TILE;
+    auto stage = [&](int p) {  // head_dim panel p of the part
+      const int cols = Panels<HD>::cols(p);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if (j * 8 >= cols) break;
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           st_shared_f2(part + DQ::at(warp * 16 + g + 8 * r,
-                                     wg * 64 + j * 8 + 2 * t),
+                                     p * 64 + j * 8 + 2 * t),
                        dq[j][2 * r], dq[j][2 * r + 1]);
       }
-      fence_proxy_async_shared();
+    };
+    mbar_wait(dqempty + 8 * ps, ((it / DQ_STAGES) & 1) ^ 1);
+    if (has_dq) stage(wg);
+    if constexpr (NWG == 1) {
+      // the one warpgroup forms the other panels in turn, in dQ's
+      // registers again (dK may still run)
+#pragma unroll
+      for (int p = 1; p < Panels<HD>::COUNT; ++p) {
+        wgmma_fence();
+        dq_product<HD, BN>(dq, dst, kt, p);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        stage(p);
+      }
     }
+    if (has_dq) fence_proxy_async_shared();
     wgmma_wait<0>();  // dK is done too
     fence_regs(dka);
     mbar_arrive_if(qempty + 8 * s, lane == 0);  // q, dO of this stage read
@@ -548,7 +582,7 @@ flash_bwd_kernel(const __grid_constant__ Maps maps,
 
 // the scratch of one call, in one buffer: dq_accum f32 (B, Sq, H, hd), then
 // lse2 and delta f32 (B, H, SqP), then the ticket and the counters, int32
-// (1 + B * H * SqP / BLOCK_M)
+// (1 + B * H * SqP / BLOCK_M), whatever the key tile
 struct Scratch {
   float *dq_accum, *lse2, *delta;
   int* sync;
@@ -566,15 +600,16 @@ Scratch carve(void* base, int B, int Sq, int H, int hd) {
   return s;
 }
 
-template <int HD>
+template <int HD, int BN>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
            const bf16* dout, const float* lse, void* scratch, bf16* dq,
            bf16* dk, bf16* dv, int B, int Sq, int Sk, int H, int KV,
            float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = smem_bytes(HD);
+  constexpr int smem = smem_bytes(HD, BN);
+  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
   if (encode_fn() == nullptr) return static_cast<int>(cudaErrorNotSupported);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_kernel<HD, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
 
@@ -585,8 +620,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   const long long ks = static_cast<long long>(KV) * HD;
   if (!make_maps(maps.q, q, B, Sq, H, HD, qs * Sq, qs, HD, BLOCK_M) ||
       !make_maps(maps.dout, dout, B, Sq, H, HD, qs * Sq, qs, HD, BLOCK_M) ||
-      !make_maps(maps.k, k, B, Sk, KV, HD, ks * Sk, ks, HD, BLOCK_N) ||
-      !make_maps(maps.v, v, B, Sk, KV, HD, ks * Sk, ks, HD, BLOCK_N) ||
+      !make_maps(maps.k, k, B, Sk, KV, HD, ks * Sk, ks, HD, BN) ||
+      !make_maps(maps.v, v, B, Sk, KV, HD, ks * Sk, ks, HD, BN) ||
       !make_map(&maps.dq[0], s.dq_accum, B, Sq, H, HD, qs * Sq, qs, HD,
                 32, BLOCK_M, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4) ||
@@ -603,8 +638,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
       o, dout, lse, s.lse2, s.delta, s.sync, s.n_sync, Sq, SqP, H, HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nk = (Sk + BLOCK_N - 1) / BLOCK_N;
-  flash_bwd_kernel<HD><<<nk * B * KV, NUM_THREADS, smem, stream>>>(
+  const int nk = (Sk + BN - 1) / BN;
+  flash_bwd_kernel<HD, BN><<<nk * B * KV, num_threads(BN), smem, stream>>>(
       maps, s.lse2, s.delta, s.sync, dk, dv, B, H, KV, Sq, Sk, SqP, scale,
       causal);
   err = cudaGetLastError();
@@ -617,21 +652,40 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_bn(int bn, const bf16* q, const bf16* k, const bf16* v,
+              const bf16* o, const bf16* dout, const float* lse,
+              void* scratch, bf16* dq, bf16* dk, bf16* dv, int B, int Sq,
+              int Sk, int H, int KV, float scale, int causal,
+              cudaStream_t s) {
+  switch (bn) {
+    case 64:
+      return launch<HD, 64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
+                            Sq, Sk, H, KV, scale, causal, s);
+    case BLOCK_N:
+      return launch<HD, BLOCK_N>(q, k, v, o, dout, lse, scratch, dq, dk, dv,
+                                 B, Sq, Sk, H, KV, scale, causal, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q, o, dout, dq (B, Sq, H, hd) and k, v, dk, dv (B, Sk, KV, hd): bf16,
 // contiguous, 16-byte aligned.  lse (B, H, Sq) f32 from the forward.
 // scratch: 16-byte aligned, 4 * (B Sq H hd + 2 B H SqP + 1 + B H SqP / 64)
 // bytes, SqP = Sq rounded up to a multiple of 64; nothing in it is read
-// before this call writes it.  Returns cudaGetLastError() after the
-// launches (the first error stops them).
+// before this call writes it.  block_n: keys a block owns, 64 or 128.
+// Returns cudaGetLastError() after the launches (the first error stops
+// them).
 extern "C" int mist_flash_attn_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    void* scratch, void* dq, void* dk,
                                    void* dv, int B, int Sq, int Sk, int H,
                                    int KV, int hd, float scale, int causal,
-                                   void* stream) {
+                                   int block_n, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -643,17 +697,17 @@ extern "C" int mist_flash_attn_bwd(const void* q, const void* k,
        *dv_ = static_cast<bf16*>(dv);
   switch (hd) {
     case 32:
-      return launch<32>(q_, k_, v_, o_, do_, l_, scratch, dq_, dk_, dv_, B,
-                        Sq, Sk, H, KV, scale, causal, s);
+      return launch_bn<32>(block_n, q_, k_, v_, o_, do_, l_, scratch, dq_,
+                           dk_, dv_, B, Sq, Sk, H, KV, scale, causal, s);
     case 64:
-      return launch<64>(q_, k_, v_, o_, do_, l_, scratch, dq_, dk_, dv_, B,
-                        Sq, Sk, H, KV, scale, causal, s);
+      return launch_bn<64>(block_n, q_, k_, v_, o_, do_, l_, scratch, dq_,
+                           dk_, dv_, B, Sq, Sk, H, KV, scale, causal, s);
     case 80:
-      return launch<80>(q_, k_, v_, o_, do_, l_, scratch, dq_, dk_, dv_, B,
-                        Sq, Sk, H, KV, scale, causal, s);
+      return launch_bn<80>(block_n, q_, k_, v_, o_, do_, l_, scratch, dq_,
+                           dk_, dv_, B, Sq, Sk, H, KV, scale, causal, s);
     case 128:
-      return launch<128>(q_, k_, v_, o_, do_, l_, scratch, dq_, dk_, dv_, B,
-                         Sq, Sk, H, KV, scale, causal, s);
+      return launch_bn<128>(block_n, q_, k_, v_, o_, do_, l_, scratch, dq_,
+                            dk_, dv_, B, Sq, Sk, H, KV, scale, causal, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tiles
 from repro_torch.kernels.ref import NEG_INF
 
 # launches of the CUDA kernels in this process (the wrappers' counts): the
@@ -45,40 +45,48 @@ from repro_torch.kernels.ref import NEG_INF
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = tiles.FLASH_HEAD_DIMS
 
 # the kernel's launch shape (csrc/flash_attention.cu): query rows per work
-# item, keys per K/V tile, the tiles of each kind in shared memory (Q double
-# buffered, K and V rings), and the shared memory a block may have on an H100
-BLOCK_M = 128
-BLOCK_N = 128
-Q_STAGES, K_STAGES, V_STAGES = 2, 2, 3
-SMEM_LIMIT = 232448
+# item, keys per K/V tile at the plan's default (the tile menu,
+# ``tiles.MENU``, also has 64), the tiles of each kind in shared memory (Q
+# double buffered, K and V rings), and the shared memory a block may have on
+# an H100
+BLOCK_M = tiles.FWD_BLOCK_M
+BLOCK_N = tiles.HOPPER_DEFAULT["attn_kv_block"]
+Q_STAGES, K_STAGES, V_STAGES = (tiles.FWD_Q_STAGES, tiles.FWD_K_STAGES,
+                                tiles.FWD_V_STAGES)
+SMEM_LIMIT = tiles.SMEM_LIMIT
 # blocks per SM the design counts on: a persistent grid of one block per SM
 # (registers for two warpgroups' S, O and P fragments admit no more)
 RESIDENT_BLOCKS = 1
 
 
 # the backward kernel's launch shape (csrc/flash_attention_bwd.cu): keys per
-# block (64 per consumer warpgroup), query rows per tile, and the stages of
+# block at the plan's default (64 per consumer warpgroup; the menu also has
+# blocks of 64 keys, one warpgroup), query rows per tile, and the stages of
 # the q/dO ring, of the dS^T tiles and of the f32 dQ parts in shared memory
-BWD_BLOCK_N = 128
-BWD_BLOCK_M = 64
-BWD_Q_STAGES, BWD_DS_STAGES, BWD_DQ_STAGES = 2, 2, 2
+BWD_BLOCK_N = tiles.HOPPER_DEFAULT["attn_kv_block"]
+BWD_BLOCK_M = tiles.BWD_BLOCK_M
+BWD_Q_STAGES, BWD_DS_STAGES, BWD_DQ_STAGES = (
+    tiles.BWD_Q_STAGES, tiles.BWD_DS_STAGES, tiles.BWD_DQ_STAGES)
 
 
-def bwd_smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one backward block (``smem_bytes`` in
-    ``flash_attention_bwd.cu``): K and V tiles, the q/dO ring, the dS^T
-    tiles, the f32 dQ parts, the lse/delta rows of each stage, 9 mbarriers
-    and the ticket."""
+def _check_tile(hd: int, block_n: int) -> None:
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
-    n_bars = 1 + 2 * BWD_Q_STAGES + 2 * BWD_DQ_STAGES
-    return (2 * BWD_BLOCK_N * hd * 2 + 2 * BWD_Q_STAGES * BWD_BLOCK_M * hd * 2
-            + BWD_DS_STAGES * BWD_BLOCK_N * BWD_BLOCK_M * 2
-            + BWD_DQ_STAGES * BWD_BLOCK_M * hd * 4
-            + 2 * BWD_Q_STAGES * BWD_BLOCK_M * 4 + 8 * n_bars + 8)
+    if block_n not in tiles.MENU["attn_kv_block"]:
+        raise ValueError(f"{block_n} keys a tile: the kernels take "
+                         f"{tiles.MENU['attn_kv_block']}")
+
+
+def bwd_smem_bytes(hd: int, block_n: int = BWD_BLOCK_N) -> int:
+    """Dynamic shared memory of one backward block of ``block_n`` keys
+    (``smem_bytes`` in ``flash_attention_bwd.cu``, ``tiles.flash_bwd_smem``):
+    K and V tiles, the q/dO ring, the dS^T tiles, the f32 dQ parts, the
+    lse/delta rows of each stage, 9 mbarriers and the ticket."""
+    _check_tile(hd, block_n)
+    return tiles.flash_bwd_smem(hd, block_n)
 
 
 def bwd_scratch_elems(b: int, sq: int, h: int, hd: int) -> int:
@@ -90,15 +98,13 @@ def bwd_scratch_elems(b: int, sq: int, h: int, hd: int) -> int:
     return b * sq * h * hd + 2 * b * h * sqp + 1 + b * h * sqp // BWD_BLOCK_M
 
 
-def smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block (``smem_bytes`` in the source):
-    the bf16 Q, K and V tiles of 128 rows and two 8-byte mbarriers (full,
-    empty) per tile.
-    Raises for a head dim the kernel lacks."""
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
-    tiles = Q_STAGES + K_STAGES + V_STAGES
-    return tiles * (128 * hd * 2 + 16)
+def smem_bytes(hd: int, block_n: int = BLOCK_N) -> int:
+    """Dynamic shared memory of one block (``smem_bytes`` in the source,
+    ``tiles.flash_fwd_smem``): the bf16 Q tiles of 128 rows, the K and V
+    tiles of ``block_n`` rows and two 8-byte mbarriers (full, empty) per
+    tile.  Raises for a head dim or a tile the kernel lacks."""
+    _check_tile(hd, block_n)
+    return tiles.flash_fwd_smem(hd, block_n)
 
 
 def fit_block(blk: int, size: int) -> int:
@@ -221,6 +227,11 @@ def _plain_bwd(q, k, v, o, lse, dout, causal, scale, kv_block):
     return dq, group_sum(dkf, k.dtype), group_sum(dvf, v.dtype)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernels (a CUDA tensor)."""
+    return t.device.type == "cuda"
+
+
 def _check_cuda_inputs(q, k, v):
     # the head dim first: the kernel is instantiated for HEAD_DIMS only
     if q.shape[-1] not in HEAD_DIMS:
@@ -245,9 +256,10 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError(f"{h} query heads over {k.shape[2]} KV heads")
 
 
-def _launch(q, k, v, causal, scale):
+def _launch(q, k, v, causal, scale, block_n=BLOCK_N):
     global LAUNCHES
     _check_cuda_inputs(q, k, v)
+    _check_tile(q.shape[-1], block_n)
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
@@ -261,15 +273,16 @@ def _launch(q, k, v, causal, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, sq, sk, h, kv, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(causal), stream)
+            float(scale), int(causal), int(block_n), stream)
     _build.check(err, "flash attention kernel")
     LAUNCHES += 1
     return o, lse
 
 
-def _launch_bwd(q, k, v, o, lse, dout, causal, scale):
+def _launch_bwd(q, k, v, o, lse, dout, causal, scale, block_n=BWD_BLOCK_N):
     global BWD_LAUNCHES
     _check_cuda_inputs(q, k, v)
+    _check_tile(q.shape[-1], block_n)
     q, k, v, o, dout = (t.contiguous() for t in (q, k, v, o, dout))
     for name, t in (("o", o), ("dout", dout)):
         if t.dtype != torch.bfloat16 or t.shape != q.shape \
@@ -296,7 +309,7 @@ def _launch_bwd(q, k, v, o, lse, dout, causal, scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kv, hd,
-            float(scale), int(causal), stream)
+            float(scale), int(causal), int(block_n), stream)
     _build.check(err, "flash attention backward kernel")
     BWD_LAUNCHES += 1
     return dq, dk, dv
@@ -305,20 +318,24 @@ def _launch_bwd(q, k, v, o, lse, dout, causal, scale):
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
-                        scale: Optional[float] = None, kv_block: int = 512,
-                        impl: str = "kernel"
+                        scale: Optional[float] = None, q_block: int = 512,
+                        kv_block: int = 512, impl: str = "kernel"
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of ``flash_attention``: q/o/dout (B, Sq, H, hd), k/v
     (B, Sk, KV, hd), lse (B, H, Sq) f32 -> dq, dk, dv in q/k/v's layouts and
-    dtypes.  ``impl`` as in ``flash_attention``."""
+    dtypes.  ``impl`` and the tiles as in ``flash_attention``: the kernel's
+    blocks own ``kv_block``'s Hopper tile of keys."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if impl == "plain" or (impl == "kernel" and q.device.type == "cpu"):
+    if impl == "plain" or (impl == "kernel" and q.device.type == "cpu"
+                           and not _on_card(q)):
         return _plain_bwd(q, k, v, o, lse, dout, causal, scale, kv_block)
     if impl != "kernel":
         raise ValueError(f"impl {impl!r}: 'kernel' or 'plain'")
-    if q.device.type != "cuda":
+    if not _on_card(q):
         raise ValueError(f"no kernel for device {q.device}")
-    return _launch_bwd(q, k, v, o, lse, dout, causal, scale)
+    tiles.hopper_tile("attn_q_block", q_block)
+    return _launch_bwd(q, k, v, o, lse, dout, causal, scale,
+                       tiles.hopper_tile("attn_kv_block", kv_block))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -328,12 +345,13 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: Optional[float],
-                kv_block: int, impl: str):
+                q_block: int, kv_block: int, impl: str):
         o, lse = flash_attention(q, k, v, causal=causal, scale=scale,
-                                 kv_block=kv_block, impl=impl)
+                                 q_block=q_block, kv_block=kv_block,
+                                 impl=impl)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = dict(causal=causal, scale=scale, kv_block=kv_block,
-                        impl=impl)
+        ctx.opts = dict(causal=causal, scale=scale, q_block=q_block,
+                        kv_block=kv_block, impl=impl)
         return o
 
     @staticmethod
@@ -341,25 +359,33 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout.contiguous(),
                                          **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    kv_block: int = 512, impl: str = "kernel"
+                    q_block: int = 512, kv_block: int = 512,
+                    impl: str = "kernel"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> o (B, Sq, H, hd),
     lse (B, H, Sq) f32.
 
     ``impl="kernel"``: the Hopper kernel for CUDA tensors (bf16 only), the
     plain version for CPU tensors.  ``impl="plain"``: the plain version.
-    ``kv_block`` tiles the plain version only (the reference's TPU tile).
+    ``q_block``/``kv_block`` are the plan's tiles: the plain version tiles
+    KV by ``kv_block`` as the reference does; the kernel runs their Hopper
+    tiles (``tiles.hopper_tile``: 128 query rows an item, and K/V tiles of
+    128 keys at the default, or of 64), and a tile that is neither the
+    default nor a menu entry raises before the launch.
     """
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if impl == "plain" or (impl == "kernel" and q.device.type == "cpu"):
+    if impl == "plain" or (impl == "kernel" and q.device.type == "cpu"
+                           and not _on_card(q)):
         return _plain(q, k, v, causal, scale, kv_block)
     if impl != "kernel":
         raise ValueError(f"impl {impl!r}: 'kernel' or 'plain'")
-    if q.device.type != "cuda":
+    if not _on_card(q):
         raise ValueError(f"no kernel for device {q.device}")
-    return _launch(q, k, v, causal, scale)
+    tiles.hopper_tile("attn_q_block", q_block)
+    return _launch(q, k, v, causal, scale,
+                   tiles.hopper_tile("attn_kv_block", kv_block))

@@ -44,11 +44,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               kernel_impl: str = "kernel") -> torch.Tensor:
     """q (B,Sq,H,hd); k/v (B,Sk,KV,hd) with H = KV*G (GQA) -> (B,Sq,H,hd).
 
-    ``q_block``/``kv_block`` are the plan's TPU tiles: the plain blocked
+    ``q_block``/``kv_block`` are the plan's tiles: the plain blocked
     version tiles KV by ``kv_block`` (fitted as the reference fits it); the
-    Hopper kernels use their own tiles (docs/port.md): the forward, work
-    items of 128 query rows and K/V tiles of 128 keys; the backward, tiles
-    of 64 keys and of 32 or 64 query rows."""
+    Hopper kernels run their Hopper tiles (``tiles.hopper_tile``,
+    docs/port.md): at the default, forward work items of 128 query rows and
+    K/V tiles of 128 keys, backward blocks of 128 keys; at ``kv_block`` 64,
+    tiles and blocks of 64 keys."""
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -67,17 +68,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl not in ("blocked", "pallas"):
         raise ValueError(f"attention impl {impl!r}")
     return FlashAttention.apply(q, k, v, causal, scale,
+                                q_block if q_block is not None else block,
                                 kv_block if kv_block is not None else block,
                                 kernel_impl)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, impl: str = "pallas",
-            eps: float = 1e-6, kernel_impl: str = "kernel") -> torch.Tensor:
+            eps: float = 1e-6, block: int = 256,
+            kernel_impl: str = "kernel") -> torch.Tensor:
     """``impl="pallas"``: the RMSNorm Function over the kernel wrappers (the
-    kernels on CUDA, the plain versions on the CPU); anything else:
+    kernels on CUDA, which raise on a ``block`` that is neither the default
+    nor a Hopper menu entry; the plain versions on the CPU); anything else:
     ``ref.rmsnorm_ref``, differentiated by autograd."""
     if impl == "pallas":
-        return RMSNorm.apply(x, scale, eps, kernel_impl)
+        return RMSNorm.apply(x, scale, eps, kernel_impl, block)
     return ref.rmsnorm_ref(x, scale, eps)
 
 

@@ -33,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tiles
 from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 # launches of the CUDA kernels in this process (the wrappers' counts): the
@@ -44,7 +44,8 @@ BWD_LAUNCHES = 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernel's launch shape (csrc/rmsnorm.cu): one warp per row, 8 rows per
-# block; rows of these widths are held in registers
+# block (the tile menu's one entry, ``tiles.MENU``); rows of these widths
+# are held in registers
 WARPS_PER_BLOCK = 8
 RESIDENT_WIDTHS = (2560, 4096)
 
@@ -126,6 +127,11 @@ def vectors_per_lane(d: int, esize: int, vec_ok: bool) -> int:
     if vec_ok and d in RESIDENT_WIDTHS:
         return d // (32 * (16 // esize))
     return 0
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the kernels (a CUDA tensor)."""
+    return t.device.type == "cuda"
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -213,25 +219,31 @@ class RMSNorm(torch.autograd.Function):
     recomputes the row statistics from the saved x."""
 
     @staticmethod
-    def forward(ctx, x, scale, eps: float, impl: str):
+    def forward(ctx, x, scale, eps: float, impl: str, block: int = 256):
         ctx.save_for_backward(x, scale)
         ctx.opts = dict(eps=eps, impl=impl)
-        return rmsnorm(x, scale, eps=eps, impl=impl)
+        return rmsnorm(x, scale, eps=eps, impl=impl, block=block)
 
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
         dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), **ctx.opts)
-        return dx, dscale, None, None
+        return dx, dscale, None, None, None
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
-            impl: str = "kernel") -> torch.Tensor:
-    """x (..., d), scale (d,) -> (..., d) in x's dtype."""
-    if impl == "plain" or (impl == "kernel" and x.device.type == "cpu"):
+            impl: str = "kernel", block: int = 256) -> torch.Tensor:
+    """x (..., d), scale (d,) -> (..., d) in x's dtype.  ``block``: the
+    plan's ``rmsnorm_block``; the kernel runs 8 rows a block, the tile of
+    the default (256) and of the menu's one entry (8), and any other value
+    raises before the launch (``tiles.hopper_tile``).  The plain version
+    has no tiles."""
+    if impl == "plain" or (impl == "kernel" and x.device.type == "cpu"
+                           and not _on_card(x)):
         return rmsnorm_ref(x, scale, eps)
     if impl != "kernel":
         raise ValueError(f"impl {impl!r}: 'kernel' or 'plain'")
-    if x.device.type != "cuda":
+    if not _on_card(x):
         raise ValueError(f"no kernel for device {x.device}")
+    tiles.hopper_tile("rmsnorm_block", block)
     return _launch(x, scale, eps)

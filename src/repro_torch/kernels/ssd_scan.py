@@ -52,7 +52,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tiles
 
 # launches of the CUDA kernels in this process (the wrappers' counts)
 LAUNCHES = 0
@@ -67,10 +67,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # bf16 (tensor-core) kernel, mirrored from csrc/ssd_scan.cu: warps a block,
 # rows of one m16n8k16 tile (the chunk is padded to it), bf16 elements of
 # padding after each shared row, and the P / N it takes
-TC_WARPS = 8
-ROW_BLOCK = 16
-SMEM_PAD = 8
-TC_DIMS = (16, 32, 48, 64)
+TC_WARPS = tiles.SSD_TC_WARPS
+ROW_BLOCK = tiles.SSD_ROW_BLOCK
+SMEM_PAD = tiles.SSD_SMEM_PAD
+TC_DIMS = tiles.SSD_TC_DIMS
 # f32 (CUDA-core) kernel: 64-row query / key tiles
 _TILE = 64
 
@@ -80,9 +80,7 @@ def smem_bytes(q: int, p: int, n: int, dtype=torch.bfloat16) -> int:
     chunk padded to whole 16-row tiles) or ``smem_floats`` (f32) in the
     source."""
     if dtype == torch.bfloat16:
-        qp = -(-q // ROW_BLOCK) * ROW_BLOCK
-        return 2 * (qp * (p + SMEM_PAD) + qp * (n + SMEM_PAD)
-                    + 2 * p * (n + SMEM_PAD)) + 4 * (3 * qp + TC_WARPS + 4)
+        return int(tiles.ssd_fwd_smem(q, p, n))
     return 4 * (q * p + q * (n + 1) + _TILE * (n + 1) + _TILE * (_TILE + 1)
                 + n * p + 3 * q)
 
@@ -92,9 +90,9 @@ def smem_bytes(q: int, p: int, n: int, dtype=torch.bfloat16) -> int:
 # each shared row, f32 padding after each staged dB / dC row, and the most
 # heads a cluster.  f32 (CUDA cores): threads a block (16 x 16) and rows of
 # its square tiles; one f32 of padding after each shared row.
-BWD_TC_WARPS = 16
-BWD_MAX_CHUNK = BWD_TC_WARPS * ROW_BLOCK
-BWD_STAGE_PAD = 4
+BWD_TC_WARPS = tiles.SSD_BWD_TC_WARPS
+BWD_MAX_CHUNK = tiles.SSD_BWD_MAX_CHUNK
+BWD_STAGE_PAD = tiles.SSD_BWD_STAGE_PAD
 BWD_MAX_CLUSTER = 8
 BWD_THREADS = 256
 BWD_TILE = 64
@@ -111,11 +109,7 @@ def bwd_smem_bytes(q: int, p: int, n: int, dtype=torch.bfloat16) -> int:
     vectors, two 64 x 65 tiles, two 16 x 64 partial-sum tiles, the entering
     state and its gradient (N x P+1 each), and the block's scratch."""
     if dtype == torch.bfloat16:
-        qp = -(-q // ROW_BLOCK) * ROW_BLOCK
-        region = max(2 * qp * (2 * (p + SMEM_PAD) + 2 * (n + SMEM_PAD)),
-                     4 * 2 * qp * (n + BWD_STAGE_PAD))
-        return region + 2 * 4 * n * (p + SMEM_PAD) + \
-            4 * (9 * qp + BWD_TC_WARPS + 4)
+        return int(tiles.ssd_bwd_smem(q, p, n))
     qp = -(-q // BWD_TILE) * BWD_TILE
     return 4 * (2 * qp * (p + 1 + n + 1) + 9 * qp
                 + 2 * BWD_TILE * (BWD_TILE + 1) + 2 * 16 * BWD_TILE

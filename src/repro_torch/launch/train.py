@@ -40,8 +40,10 @@ must agree bitwise).
 on the device, fits a ``CalibrationProfile`` and prints the
 uncalibrated-vs-fitted error table: the reduced config at seq 128 with
 ``--smoke``, as the reference does, else the config cut by ``--layers``
-at ``--seq``.  ``--calibration-out`` writes the profile (``auto``: the
-platform's default path).  It exits 0 iff every cell ran and the
+at ``--seq``.  ``--fit-kernels`` also anchors the kernel roofline's
+scales on the kernel bench (``kernels/autotune.calibrate``, the Hopper
+kernels on the card).  ``--calibration-out`` writes the profile (``auto``:
+the platform's default path).  It exits 0 iff every cell ran and the
 fitted error is no worse than the uncalibrated one; a failed cell (an
 OOM, a kernel build or launch error) fails the run and writes no
 profile.
@@ -178,6 +180,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="measure this arch's calibration cells on the "
                          "device and fit a CalibrationProfile (the reduced "
                          "config at seq 128 with --smoke)")
+    ap.add_argument("--fit-kernels", action="store_true",
+                    help="with --calibrate: also anchor the kernel "
+                         "roofline's scales on the kernel bench "
+                         "(kernels/autotune.py)")
     ap.add_argument("--calibration-out", default=None, metavar="PATH|auto",
                     help="with --calibrate: write the fitted profile (auto "
                          "= the platform's default path)")
@@ -239,6 +245,7 @@ def _run(args, device: torch.device, distributed: bool) -> int:
             archs=(args.arch,), steps=min(args.steps, 6),
             seq_len=128 if args.smoke else (args.seq or 4096),
             reduced=args.smoke, layers=args.layers, device=device,
+            fit_kernels=args.fit_kernels,
             write_profile=args.calibration_out)
         print(format_table(report))
         if report.get("error"):

@@ -74,14 +74,14 @@ def apply_block(p: Params, h: torch.Tensor, cfg: ArchConfig, ec: ExecConfig,
     """One dense attention block.  Returns (h, aux_loss, new_cache); the aux
     loss of a dense block is 0."""
     block_kind(cfg)
-    hn = L.norm(subtree(p, "ln1"), h, cfg, impl=ec.kernel_impl)
+    hn = L.norm(subtree(p, "ln1"), h, cfg, ec)
     fresh = return_cache and cache is None
     a, new_cache = L.attention(subtree(p, "attn"), hn, cfg, ec, cache=cache,
                                mask_kind=mask_kind, return_kv=fresh)
     if fresh:
         new_cache = _fresh_attn_cache(new_cache, hn.shape[1])
     h = h + a
-    hn = L.norm(subtree(p, "ln2"), h, cfg, impl=ec.kernel_impl)
+    hn = L.norm(subtree(p, "ln2"), h, cfg, ec)
     h = h + L.mlp(subtree(p, "mlp"), hn, cfg, ec.par)
     return h, 0.0, new_cache
 
@@ -170,7 +170,7 @@ def _logits(params: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def final_norm(params: Params, h: torch.Tensor, cfg: ArchConfig,
                ec: ExecConfig) -> torch.Tensor:
     return L.norm(in_use(subtree(params, "final_norm"), ec, "final_norm/"),
-                  h, cfg, impl=ec.kernel_impl)
+                  h, cfg, ec)
 
 
 def run_layers(params: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -334,7 +334,7 @@ def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
         h, _, nc = apply_block(layer(stacked, i), h, cfg, ec,
                                return_cache=True)
         caches.append(nc)
-    h = L.norm(subtree(params, "final_norm"), h, cfg, impl=ec.kernel_impl)
+    h = L.norm(subtree(params, "final_norm"), h, cfg, ec)
     stacked_caches = {key: torch.stack([c[key] for c in caches])
                       for key in ("k", "v", "pos")}
     return _logits(params, h[:, -1:], cfg), stacked_caches
@@ -353,7 +353,7 @@ def lm_decode(params: Params, tokens: torch.Tensor, caches: Dict,
         lc = {"k": caches["k"][i], "v": caches["v"][i],
               "pos": caches["pos"][i]}
         h, _, _ = apply_block(layer(stacked, i), h, cfg, ec, cache=lc)
-    h = L.norm(subtree(params, "final_norm"), h, cfg, impl=ec.kernel_impl)
+    h = L.norm(subtree(params, "final_norm"), h, cfg, ec)
     return _logits(params, h, cfg), {"k": caches["k"], "v": caches["v"],
                                      "pos": caches["pos"] + 1}
 

@@ -88,21 +88,21 @@ def _shared_block(shared: Params, gin: torch.Tensor, h: torch.Tensor,
     fresh cache (``return_cache`` without ``cache``) keeps the k/v that
     attention computed."""
     z = torch.cat([h, x0], dim=-1) @ gin
-    zn = L.norm(subtree(shared, "ln1"), z, cfg, impl=ec.kernel_impl)
+    zn = L.norm(subtree(shared, "ln1"), z, cfg, ec)
     fresh = return_cache and cache is None
     a, new_cache = L.attention(subtree(shared, "attn"), zn, cfg, ec,
                                cache=cache, return_kv=fresh)
     if fresh:
         new_cache = _fresh_attn_cache(new_cache, zn.shape[1])
     z = z + a
-    zn = L.norm(subtree(shared, "ln2"), z, cfg, impl=ec.kernel_impl)
+    zn = L.norm(subtree(shared, "ln2"), z, cfg, ec)
     z = z + L.mlp(subtree(shared, "mlp"), zn, cfg, ec.par)
     return h + z, new_cache
 
 
 def _mamba_layer(lp: Params, h: torch.Tensor, cfg: ArchConfig,
                  ec: ExecConfig, cache=None, return_state=False):
-    hn = L.norm(subtree(lp, "ln"), h, cfg, impl=ec.kernel_impl)
+    hn = L.norm(subtree(lp, "ln"), h, cfg, ec)
     m, nc = SSM.mamba2_mixer(subtree(lp, "mixer"), hn, cfg, ec, cache=cache,
                              return_state=return_state)
     return h + m, nc
@@ -126,7 +126,7 @@ def _forward(params: Params, x: torch.Tensor, cfg: ArchConfig,
             h, mc = _mamba_layer(layer(group, li), h, cfg, ec,
                                  return_state=True)
             mamba_c.append(mc)
-    h = L.norm(subtree(params, "final_norm"), h, cfg, impl=ec.kernel_impl)
+    h = L.norm(subtree(params, "final_norm"), h, cfg, ec)
     caches = {
         "attn": {key: torch.stack([c[key] for c in attn_c])
                  for key in ("k", "v", "pos")},
@@ -234,7 +234,7 @@ def hybrid_decode(params: Params, tokens: torch.Tensor, caches: Dict,
             h, nc = _mamba_layer(layer(group, li), h, cfg, ec, cache=lc)
             lc["conv"].copy_(nc["conv"])
             lc["ssm"].copy_(nc["ssm"])
-    h = L.norm(subtree(params, "final_norm"), h, cfg, impl=ec.kernel_impl)
+    h = L.norm(subtree(params, "final_norm"), h, cfg, ec)
     new_caches = {"attn": {"k": ac["k"], "v": ac["v"], "pos": ac["pos"] + 1},
                   "mamba": mc}
     return _logits(params, h, cfg), new_caches

@@ -34,12 +34,14 @@ def init_norm(b: ScopedBuilder, cfg: ArchConfig):
 
 
 def norm(p: Params, x: torch.Tensor, cfg: ArchConfig,
-         impl: str = "kernel") -> torch.Tensor:
+         ec: Optional[ExecConfig] = None) -> torch.Tensor:
     """RMSNorm goes through ``ops.rmsnorm``, the RMSNorm kernels' autograd
-    Function (``impl`` is its ``kernel_impl``); LayerNorm stays plain
-    torch."""
+    Function, with ``ec``'s ``kernel_impl`` and ``rmsnorm_block`` (the
+    defaults without one); LayerNorm stays plain torch."""
     if cfg.norm_type == "rmsnorm":
-        return kops.rmsnorm(x, p["scale"], eps=1e-6, kernel_impl=impl)
+        ec = ec if ec is not None else ExecConfig()
+        return kops.rmsnorm(x, p["scale"], eps=1e-6, block=ec.rmsnorm_block,
+                            kernel_impl=ec.kernel_impl)
     dtype = x.dtype
     xf = x.float()
     xf = xf - xf.mean(-1, keepdim=True)

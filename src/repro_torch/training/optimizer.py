@@ -26,6 +26,14 @@ splits cut the local shard's leading layer dim, which is never sharded.
 On a stage of a pipelined plan the norm also adds over the stages, each
 param counted once: the embedding, head and final norm that the first and
 the last stage both hold count on the first.
+
+The update and the norm's sums of squares walk each leaf in slices of its
+leading (stacked-layer) dim, ``SLICE_ELEMS`` elements or one row at most
+(``row_slices``), so that their f32 temporaries are one slice's, never a
+whole leaf's (zamba2's stacked mixer ``in_proj`` is 5.78 GB in f32).  Adam
+is elementwise, so the sliced update is bitwise the whole-leaf one; a leaf
+of one slice also keeps the whole-leaf sum of squares bit for bit, and a
+larger one adds its slices' sums in order.
 """
 from __future__ import annotations
 
@@ -41,6 +49,38 @@ from repro_torch.models.common import Axes, Params
 # the stacked-layer axis names (a copy of the reference's
 # ``lowering/state_layout.py:58``)
 LAYER_AXES = ("layers", "layers1", "layers2")
+
+# the most elements one slice of the update takes (2^26: 256 MB of f32), or
+# one row of the leading dim where a row is larger.  On an H100 the update
+# at 2^24 took 2-4 ms a step more than the whole-leaf update, at 2^26 1-2
+# ms, at the same peak (PERF.md, ``chip_smoke.py --adam-slices``)
+SLICE_ELEMS = 1 << 26
+
+
+def row_slices(x: torch.Tensor):
+    """``[(lo, hi)]`` over ``x``'s leading dim: runs of whole rows of at
+    most ``SLICE_ELEMS`` elements (one row where a row holds more); one
+    slice, ``(0, None)``, for a 0-d tensor."""
+    if x.dim() == 0:
+        return [(0, None)]
+    n = x.shape[0]
+    step = max(1, SLICE_ELEMS // max(1, x.numel() // max(1, n)))
+    return [(lo, min(n, lo + step)) for lo in range(0, n, step)]
+
+
+def _rows(x: torch.Tensor, lo: int, hi) -> torch.Tensor:
+    return x if hi is None else x[lo:hi]
+
+
+def sum_squares(g: torch.Tensor) -> torch.Tensor:
+    """sum(g^2) in f32, over ``row_slices``: a leaf of one slice is the
+    whole-leaf ``torch.sum(torch.square(g.float()))`` bit for bit; a larger
+    one adds its slices' sums in order."""
+    total = None
+    for lo, hi in row_slices(g):
+        part = torch.sum(torch.square(_rows(g, lo, hi).float()))
+        total = part if total is None else total + part
+    return total
 
 
 @dataclass(frozen=True)
@@ -152,7 +192,7 @@ class StateSharding:
             if n in self.counted_elsewhere:
                 continue
             key = ("data" in self.gspecs[n], "model" in self.gspecs[n])
-            sums[key] = sums.get(key, 0) + torch.sum(torch.square(g.float()))
+            sums[key] = sums.get(key, 0) + sum_squares(g)
         z = torch.zeros((), dtype=torch.float32,
                         device=next(iter(grads.values())).device)
 
@@ -208,8 +248,7 @@ class StateSharding:
 
 
 def global_norm(grads: Params) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+    return torch.sqrt(sum(sum_squares(g) for g in grads.values()))
 
 
 @torch.no_grad()
@@ -236,14 +275,18 @@ def adam_update(state: Dict[str, Any], grads: Params, acfg: AdamConfig,
     c1 = 1.0 - acfg.b1 ** step.float()
     c2 = 1.0 - acfg.b2 ** step.float()
 
-    def upd(m, mu, nu, gg):
-        mu.mul_(acfg.b1).add_((1 - acfg.b1) * gg)
-        nu.mul_(acfg.b2).add_((1 - acfg.b2) * gg * gg)
-        u = (mu / c1) / (torch.sqrt(nu / c2) + acfg.eps)
-        m.sub_(acfg.lr * (u + acfg.weight_decay * m))
+    def upd(m, mu, nu, g):
+        # slice by slice of the leading dim: the f32 temporaries are one
+        # slice's
+        for lo, hi in row_slices(g):
+            gg = _rows(g, lo, hi).float() * clip
+            m_, mu_, nu_ = (_rows(x, lo, hi) for x in (m, mu, nu))
+            mu_.mul_(acfg.b1).add_((1 - acfg.b1) * gg)
+            nu_.mul_(acfg.b2).add_((1 - acfg.b2) * gg * gg)
+            u = (mu_ / c1) / (torch.sqrt(nu_ / c2) + acfg.eps)
+            m_.sub_(acfg.lr * (u + acfg.weight_decay * m_))
 
     for name, g in grads.items():
-        g = g.float() * clip
         p = state["params"][name]
         leaves = [state[e][name] for e in ("master", "mu", "nu")]
         if not any(is_split(x) for x in leaves):

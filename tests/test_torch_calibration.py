@@ -26,6 +26,7 @@ The reference's runs sit in module-scoped fixtures.
 """
 import dataclasses
 import json
+import math
 import pickle
 
 import numpy as np
@@ -58,6 +59,7 @@ from repro_torch.core.costmodel import (TORCH_AUTO_THRESHOLD, CostParams,
 from repro_torch.core.hardware import HardwareSpec
 from repro_torch.core.interference import _DEFAULT, InterferenceModel
 from repro_torch.core.memo_store import report_key, tuner_fingerprint
+from repro_torch.core.costmodel_params import KernelCoeffs
 from repro_torch.core.plan import KernelConfig
 from repro_torch.core.tuner import MistTuner, TuneSpec, tune
 from repro_torch.launch import train as train_launch
@@ -260,13 +262,20 @@ def test_fit_keeps_the_base_when_it_is_better():
         report["mean_err_uncalibrated"] + 1e-12
 
 
-def test_non_default_kernel_cell_refused_and_kernels_wait():
+def test_non_default_kernel_cell_refused_and_kernels_wait(tmp_path):
+    """A cell off the default kernel tuple is refused (the scalar fit
+    needs the roofline delta at 0); the kernel anchors come from the
+    kernel bench instead: on the CPU, of the plain versions."""
     cell = _cells()[0]
     cell.plan = cell.plan.replace(kernel=KernelConfig(attn_q_block=256))
     with pytest.raises(ValueError, match="kernel"):
         attribute_cell(cell)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calibrate_kernels(("granite-3-8b",))
+    kc = calibrate_kernels(("granite-3-8b", "zamba2-2.7b"), seq_len=128,
+                           device="cpu", cache_path=tmp_path / "bench.json")
+    assert isinstance(kc, KernelCoeffs)
+    for f in ("attn_scale", "rms_scale", "ssd_scale"):
+        v = getattr(kc, f)
+        assert math.isfinite(v) and v > 0 and v != 1.0, (f, v)
 
 
 def test_cell_plans_run_flash_attention_on_one_device():

@@ -194,11 +194,35 @@ def _rank_main(out: str) -> None:
                     offloaded=offloaded,
                     local_bytes=(float(spread[0]), -float(spread[1])),
                     report_bytes=report.stages[0].state_bytes)
+        if world == 2:
+            results["sliced_z1"] = _sliced_update_is_bitwise()
     finally:
         if rank == 0:
             with open(out, "wb") as f:
                 pickle.dump(results, f)
         dist.destroy_process_group()
+
+
+def _sliced_update_is_bitwise() -> bool:
+    """On every rank of a dp 2 ZeRO 1 world: the state after the steps
+    with the update in slices of at most 64 elements equals, leaf for leaf
+    and bit for bit, the state with each leaf updated whole (the grad norm
+    clips nothing, so that the sliced sums of squares cannot move it)."""
+    cfg, plan = _cfg(V), _plan(2, 1, CASES["dp2_z1"][2])
+    mesh = make_plan_mesh(2, 1, "cpu")
+    adam = TOPT.AdamConfig(grad_clip=1e30)
+    finest = TOPT.SLICE_ELEMS
+    try:
+        TOPT.SLICE_ELEMS = 1 << 62
+        _, whole, _, _ = _train(cfg, plan, mesh, adam=adam)
+        TOPT.SLICE_ELEMS = 64
+        _, sliced, _, _ = _train(cfg, plan, mesh, adam=adam)
+    finally:
+        TOPT.SLICE_ELEMS = finest
+    ok = torch.tensor(float(all(
+        torch.equal(a, b) for a, b in zip(_leaves(whole), _leaves(sliced)))))
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return bool(ok)
 
 
 def _start_world(world: int, out: pathlib.Path):
@@ -323,6 +347,13 @@ def test_multi_device_step_matches_one_process(runs, case):
     seq = SEQ // tp if plan.sequence_parallel else SEQ
     assert got["offloaded"] == STEPS * plan.grad_accum * off * \
         st.micro_batch * seq * TCFG.d_model * 4, case
+
+
+def test_sliced_adam_update_is_bitwise_on_a_zero1_shard(runs):
+    """Each rank of dp 2 ZeRO 1 updates its data part of master/mu/nu
+    (``StateSharding.opt_grad``) in slices exactly as it would update the
+    whole part."""
+    assert runs["sliced_z1"]
 
 
 def test_world_size_one_is_bitwise_the_one_device_step():

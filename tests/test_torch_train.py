@@ -321,6 +321,106 @@ def test_adam_update_matches_reference(weights, wo, oo):
                                        rtol=2 ** -7, atol=1e-6)
 
 
+def _sliced_run(weights, wo, oo, slice_elems, steps=2):
+    """The state after ``steps`` AdamW updates of the reduced model's state
+    (WO/OO splits as given) with fixed gradients, the update in slices of at
+    most ``slice_elems`` elements; the grad norm clips nothing."""
+    _, axes = JDEC.init_lm(jax.random.PRNGKey(0), JCFG, dtype=jnp.float32,
+                           abstract=True)
+    stage = single_stage_plan(TCFG.num_layers, dp=1, tp=1, micro_batch=1,
+                              grad_accum=1, wo=wo, oo=oo).stages[0]
+    rng = np.random.default_rng(7)
+    grads = {n: torch.from_numpy(
+        rng.standard_normal(v.shape, dtype=np.float32) * 0.01)
+        for n, v in weights.items()}
+    state = TOPT.init_state(
+        bridge.params_from_numpy(weights, dtype=torch.bfloat16), axes, stage)
+    acfg = TOPT.AdamConfig(grad_clip=1e30)
+    finest = TOPT.SLICE_ELEMS
+    TOPT.SLICE_ELEMS = slice_elems
+    try:
+        for _ in range(steps):
+            state, _ = TOPT.adam_update(state, grads, acfg)
+    finally:
+        TOPT.SLICE_ELEMS = finest
+    return state
+
+
+def _state_tensors(state):
+    for e in ("params", "master", "mu", "nu"):
+        for n, v in sorted(state[e].items()):
+            yield from ((f"{e}/{n}/{k}", x) for k, x in sorted(
+                v.items())) if isinstance(v, dict) else ((f"{e}/{n}", v),)
+
+
+@pytest.mark.parametrize("wo,oo", [(0.0, 0.0), (0.5, 0.5)],
+                         ids=["stacked", "wo_oo_split"])
+def test_sliced_adam_update_is_bitwise_the_whole_leaf_update(weights, wo,
+                                                             oo):
+    """Adam is elementwise: the update walked in slices of the leading dim
+    (here one row, or 64 elements, at a time) leaves every leaf -- whole,
+    or both halves of a WO/OO split one -- bit for bit where the whole-leaf
+    update does."""
+    whole = dict(_state_tensors(_sliced_run(weights, wo, oo, 1 << 62)))
+    sliced = dict(_state_tensors(_sliced_run(weights, wo, oo, 64)))
+    assert whole.keys() == sliced.keys()
+    if wo:
+        assert any(k.endswith("/host") for k in whole)
+    for k in whole:
+        assert torch.equal(whole[k], sliced[k]), k
+
+
+def test_sliced_adam_update_allocates_one_slice_at_most(weights):
+    """The largest tensor that the update (grad norm included) allocates is
+    one slice of a leaf, not a whole leaf: every op that is neither in
+    place nor a view is recorded with its output's size."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    quiet = {"slice", "select", "view", "_unsafe_view", "alias", "detach",
+             "as_strided", "expand", "t", "transpose", "lift_fresh",
+             "_to_copy_noop"}
+
+    class Largest(TorchDispatchMode):
+        most = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if not name.endswith("_") and name not in quiet:
+                for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                    if isinstance(t, torch.Tensor):
+                        Largest.most = max(Largest.most, t.numel())
+            return out
+
+    _, axes = JDEC.init_lm(jax.random.PRNGKey(0), JCFG, dtype=jnp.float32,
+                           abstract=True)
+    stage = single_stage_plan(TCFG.num_layers, dp=1, tp=1, micro_batch=1,
+                              grad_accum=1).stages[0]
+    grads = {n: torch.full(v.shape, 1e-3) for n, v in weights.items()}
+    largest = {}
+    for elems in (1 << 62, 64):
+        state = TOPT.init_state(
+            bridge.params_from_numpy(weights, dtype=torch.bfloat16), axes,
+            stage)
+        TOPT.SLICE_ELEMS, finest = elems, TOPT.SLICE_ELEMS
+        try:
+            Largest.most = 0
+            with Largest():
+                TOPT.adam_update(state, grads, TOPT.AdamConfig())
+            largest[elems] = Largest.most
+            # the largest slice that this bound cuts
+            slices = [(hi - lo) * (g.numel() // max(1, g.shape[0]))
+                      if g.dim() else 1
+                      for g in grads.values()
+                      for lo, hi in TOPT.row_slices(g)]
+        finally:
+            TOPT.SLICE_ELEMS = finest
+        assert largest[elems] <= max(slices), (elems, largest[elems])
+    whole_leaf = max(g.numel() for g in grads.values())
+    assert largest[1 << 62] == whole_leaf
+    assert largest[64] < whole_leaf
+
+
 def test_split_k_and_init_match_reference(weights):
     _, axes = JDEC.init_lm(jax.random.PRNGKey(0), JCFG, abstract=True)
     for n, v in weights.items():

@@ -477,9 +477,8 @@ def test_granite_on_one_h100(layers, feasible):
 def test_unported_tuner_options_raise():
     cfg = get_arch("granite-3-8b").replace(num_layers=2)
     base = TuneSpec(arch=cfg, seq_len=128, global_batch=2, n_devices=1)
-    for kw in (dict(kernel_tune=True), dict(hosts=("localhost:1",))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MistTuner(dataclasses.replace(base, **kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MistTuner(dataclasses.replace(base, hosts=("localhost:1",)))
 
 
 # -- launchers --------------------------------------------------------------------
