@@ -7,6 +7,8 @@
     python3 chip_smoke.py --adam-slices      # phase 1, then only Adam's update
                                              # at each slice size, in phase H's
                                              # and phase U's steps
+    python3 chip_smoke.py --moe-only         # phases 1 and 2, then only
+                                             # phase M
 
 Drives the port (``src/repro_torch``) only; imports nothing of JAX or of
 the JAX package.  Phases, in order; any failure raises and the script exits
@@ -220,6 +222,25 @@ Z. A rank of a multi-device zamba2 plan: zamba2-2.7b at full width and
    SSD forward and backward and flash forward and backward there.  With
    two or more cards, ``_multi_card`` also runs the reduced zamba2 at dp 2
    ZeRO 3 and tp 2 with SP through NCCL against one card.
+M. The MoE family, qwen2-moe-a2.7b (24 layers, d 2048, 16 heads of 128 with
+   QKV biases, 60 routed experts top-4 of 1408 and 4 shared, 14.316 B
+   params).  (a) Served at full width and depth in bf16 through
+   ``phase_full_width_serve`` (its kernels under the ACCURACY_ROOM rule
+   against the plain versions in f32, the bf16 weights waiting on the host
+   while the f32 copy runs; exact counts: 24 flash, 49 RMSNorm a forward),
+   then the reduced config on the card against the CPU.  (b) Trained on one
+   card at full width, depth cut to 4, through the launcher in this
+   process: the written plan (micro-batch 1 x 4096, G 2, CKPT 4, WO = OO =
+   0, lr 1e-6), 5 steps, exact counts, a falling loss, step ms, and the
+   allocator's peak beside the memory report (split by term, not gated);
+   then the tuner's plan for the same 4 layers on one H100, run 2 steps
+   through the launcher when the tuner finds one.  (c) Rank 0 of a tp-4 +
+   SP plan (expert parallelism: 15 experts a rank), depth cut to 8, under
+   the ``fake`` group in a child process: exact counts, the rank's state
+   bytes equal to the report's state term, its peak beside the report.
+   (d) Flash forward at the serving shape, flash forward and backward at
+   the training shape, RMSNorm forward and backward at 4096 x 2048 (phase
+   2 holds each, and the tp-4 rank's shapes, against its plain version).
 6. With ``--profile`` only: a ``torch.profiler`` window over one prefill
    and over three decode steps of each model, and over one train step of
    each trained model (granite in phase T, zamba2 in phase H) --
@@ -395,6 +416,13 @@ SSD_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-4}
 # within H_PEAK_BOUND, as phase D holds D2 within 1.02; the term above the
 # bound is named where a peak is over
 Z_PEAK_BOUND, H_PEAK_BOUND = 1.05, 1.10
+# phase M: qwen2-moe-a2.7b (MHA, 16 heads of 128, d 2048).  (b) one card,
+# depth cut to M_T_LAYERS, micro-batch 1 x 4096, G 2, CKPT over every layer,
+# M_STEPS steps at T_LR; the tuner's plan for the same depth runs
+# M_TUNED_STEPS.  (c) rank 0 of a tp-M_TP plan with SP at M_R_LAYERS layers
+M_LAYERS, M_D_MODEL, M_HEADS, M_EXPERTS = 24, 2048, 16, 60
+M_T_LAYERS, M_STEPS, M_TUNED_STEPS = 4, 5, 2
+M_TP, M_R_LAYERS = 4, 8
 
 
 def log(msg: str) -> None:
@@ -609,6 +637,12 @@ def phase_kernels_vs_plain():
         # non-causal with Sk not a multiple of the K/V tile
         (2, 256, 333, Z_HEADS, Z_HEADS, Z_HEAD_DIM, False),
         (2, 129, 200, 8, 2, 32, False),
+        # qwen2-moe (phase M): serving, one card's training micro-batch,
+        # its tp-4 rank's
+        (BATCH, PROMPT_LEN, PROMPT_LEN, M_HEADS, M_HEADS, HEAD_DIM, True),
+        (T_MICRO, T_SEQ, T_SEQ, M_HEADS, M_HEADS, HEAD_DIM, True),
+        (T_MICRO, T_SEQ, T_SEQ, M_HEADS // M_TP, M_HEADS // M_TP, HEAD_DIM,
+         True),
         # a rank of the tp-4 plan (phase D)
         (R_BATCH, T_SEQ, T_SEQ, R_HEADS, R_KV, HEAD_DIM, True),
         # a pipeline stage's rank of the tp-8 plan (phase P)
@@ -616,8 +650,10 @@ def phase_kernels_vs_plain():
         # a rank of zamba2's tp-4 plan (phase Z)
         (Z_MICRO, H_SEQ, H_SEQ, ZR_HEADS, ZR_HEADS, Z_HEAD_DIM, True),
     ]
-    rank_cases = {len(cases) - 3: "tp4", len(cases) - 2: "tp8",
-                  len(cases) - 1: "zamba2_tp4"}
+    rank_cases = {len(cases) - 6: "qwen2_moe",
+                  len(cases) - 5: "qwen2_moe_train",
+                  len(cases) - 4: "qwen2_moe_tp4", len(cases) - 3: "tp4",
+                  len(cases) - 2: "tp8", len(cases) - 1: "zamba2_tp4"}
     for i, (b, sq, sk, h, kv, hd, causal) in enumerate(cases):
         q, k, v = _qkv(b, sq, sk, h, kv, hd, seed=10 + i)
         o, lse = FA.flash_attention(q, k, v, causal=causal)
@@ -652,6 +688,11 @@ def phase_kernels_vs_plain():
         (300, Z_D_MODEL, torch.float32, torch.bfloat16, True),
         (300, D_MODEL, torch.bfloat16, torch.float32, True),
         (7, D_MODEL, None, None, False),         # rows not 16-byte aligned
+        # qwen2-moe (phase M): serving, decode, its tp-4 rank's rows, one row
+        (BATCH * PROMPT_LEN, M_D_MODEL, None, None, True),
+        (BATCH, M_D_MODEL, None, None, True),
+        (T_SEQ // M_TP, M_D_MODEL, None, None, True),
+        (1, M_D_MODEL, None, None, True),
     ]
     for rows, d, xdt, sdt, aligned in rn_cases:
         for dtype in ((xdt,) if xdt else (torch.bfloat16, torch.float32)):
@@ -781,6 +822,10 @@ def _backward_kernels_vs_plain():
         # non-causal with a ragged last key tile
         (2, 129, 200, 8, 2, 32, False),
         (2, 256, 333, 8, 8, 80, False),
+        # qwen2-moe's training shape (phase M (b)) and its tp-4 rank's (c)
+        (T_MICRO, T_SEQ, T_SEQ, M_HEADS, M_HEADS, HEAD_DIM, True),
+        (T_MICRO, T_SEQ, T_SEQ, M_HEADS // M_TP, M_HEADS // M_TP, HEAD_DIM,
+         True),
         (R_BATCH, T_SEQ, T_SEQ, R_HEADS, R_KV, HEAD_DIM, True),  # tp-4 rank
         (P_BATCH, T_SEQ, T_SEQ, P_HEADS, P_KV, HEAD_DIM, True),  # tp-8 stage
         # zamba2's shared block in training (phase H)
@@ -788,8 +833,9 @@ def _backward_kernels_vs_plain():
         # ... and on a rank of its tp-4 plan (phase Z)
         (Z_MICRO, H_SEQ, H_SEQ, ZR_HEADS, ZR_HEADS, Z_HEAD_DIM, True),
     ]
-    rank_cases = {len(cases) - 4: "tp4", len(cases) - 3: "tp8",
-                  len(cases) - 2: f"hd{Z_HEAD_DIM}",
+    rank_cases = {len(cases) - 6: "qwen2_moe",
+                  len(cases) - 5: "qwen2_moe_tp4", len(cases) - 4: "tp4",
+                  len(cases) - 3: "tp8", len(cases) - 2: f"hd{Z_HEAD_DIM}",
                   len(cases) - 1: "zamba2_tp4"}
     def check(what, got, want):
         res = [flash_bwd_close(g, w) for g, w in zip(got, want)]
@@ -887,6 +933,9 @@ def _backward_kernels_vs_plain():
         (300, D_MODEL, bf16, f32),
         (300, Z_D_MODEL, f32, f32),               # the ring's other cases:
         (3, D_MODEL, bf16, bf16),                 # f32 d 2560, 3 blocks
+        (T_MICRO * T_SEQ, M_D_MODEL, bf16, bf16),  # qwen2-moe training
+        (T_SEQ // M_TP, M_D_MODEL, bf16, bf16),   # ... its tp-4 rank
+        (300, M_D_MODEL, f32, f32),
     ]
 
     def rn_inputs(rows, d, xdt, sdt):
@@ -922,7 +971,7 @@ def _backward_kernels_vs_plain():
         if not (ok_x and ok_s):
             raise AssertionError("rmsnorm backward kernel disagrees with "
                                  f"its plain version ({rows}x{d})")
-        if bool(route) != (d in (D_MODEL, Z_D_MODEL)):
+        if bool(route) != (d in (D_MODEL, Z_D_MODEL, M_D_MODEL)):
             raise AssertionError(f"rmsnorm backward at d {d}: route "
                                  f"{route or 'generic'}")
         if rows == T_MICRO * T_SEQ and d == D_MODEL:
@@ -930,6 +979,8 @@ def _backward_kernels_vs_plain():
             train = (x, scale, dy), got, want
         if rows == H_MICRO * H_SEQ and d == Z_D_MODEL and xdt == bf16:
             errs[f"rmsnorm_bwd@d{Z_D_MODEL}"] = err_x
+        if rows == T_MICRO * T_SEQ and d == M_D_MODEL:
+            errs[f"rmsnorm_bwd@d{M_D_MODEL}"] = err_x
     # the training shape again, right after another shape (other grid, other
     # route): it agrees with its plain version, and bit for bit with the
     # first call (the dscale partials add in a fixed order)
@@ -1064,11 +1115,24 @@ def phase_full_width_serve(arch, dims, want_launches, f32_truth=False):
     if f32_truth:
         ec = serve_exec_cfg(plan).replace(kernel_impl="plain",
                                           compute_dtype=torch.float32)
-        p32 = {n: t.float() for n, t in params.items()}
+        # the f32 copy beside the bf16 weights takes 3x their bytes; where
+        # the card cannot hold that (qwen2-moe's 28.6 GB of bf16), the bf16
+        # weights wait on the host meanwhile
+        host = None
+        if 3 * 2 * n_params > 0.8 * torch.cuda.get_device_properties(
+                DEVICE).total_memory:
+            host = {n: t.cpu() for n, t in params.items()}
+            params = None
+            torch.cuda.empty_cache()
+        p32 = {n: t.to(DEVICE).float() for n, t in
+               (host or params).items()}
         with torch.inference_mode():
             truth = model.prefill_fn(p32, batch, ec)
         del p32
         torch.cuda.empty_cache()
+        if host is not None:
+            params = {n: t.to(DEVICE) for n, t in host.items()}
+            del host
         _as_accurate(got, want, truth, f"{arch} prefill logits")
     elif not (torch.isfinite(got).all() and err <= LOGIT_REL_TOL * scale):
         raise AssertionError(f"prefill logits: kernels vs plain {err} > "
@@ -1130,11 +1194,54 @@ def _teacher_forced(cfg, params, toks, plen, dev, dtype=torch.bfloat16):
     return torch.stack(rows, 1).float().cpu()
 
 
+class _PinnedRouting:
+    """The MoE blocks' routing pinned to a recorded run's: ``record`` keeps
+    each call's experts and slots (in call order: layer by layer, prefill
+    then each decode step), ``replay`` routes every call to them, the gates
+    taken from the run's own probabilities at those experts.  A bf16 run's
+    rounding moves some router logits across near-ties, and a flipped
+    choice moves its token's output by a whole expert's: pinned, the runs
+    differ only by their arithmetic, which the ACCURACY_ROOM rule holds."""
+
+    def __init__(self):
+        from repro_torch.models import moe as MOE
+        self.mod, self.real, self.book, self.at = MOE, MOE.route, [], None
+
+    def __enter__(self):
+        self.mod.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.real
+
+    def replay(self):
+        self.at = 0
+
+    def _route(self, logits, cfg, ec):
+        import dataclasses
+        r = self.real(logits, cfg, ec)
+        if self.at is None:
+            self.book.append((r.idx.cpu(), r.pos.cpu()))
+            return r
+        idx, pos = (t.to(logits.device) for t in self.book[self.at])
+        self.at += 1
+        probs = torch.softmax(logits.reshape(idx.shape[0], idx.shape[1], -1),
+                              -1)
+        gates = probs.gather(-1, idx)
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        return dataclasses.replace(r, gates=gates, idx=idx, pos=pos,
+                                   keep=pos < r.cap)
+
+
 def phase_reduced_vs_cpu(arch, f32_truth=False):
     """The reduced config with the kernels on the card against the plain
     versions on the CPU, same weights, teacher-forced, bf16: within
     REDUCED_LOGIT_ATOL, or with ``f32_truth`` under the ACCURACY_ROOM rule
-    against the CPU run in f32 (the exact function of these weights)."""
+    against the CPU run in f32 (the exact function of these weights).  An
+    MoE config routes both bf16 runs as the f32 run routed
+    (``_PinnedRouting``)."""
+    import contextlib
+
     from repro_torch.configs.base import get_arch
     from repro_torch.models.zoo import build_model
 
@@ -1144,14 +1251,23 @@ def phase_reduced_vs_cpu(arch, f32_truth=False):
                          generator=torch.Generator().manual_seed(2),
                          dtype=torch.int32)
     params, _ = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
-    card = _teacher_forced(cfg, params, toks, plen, DEVICE)
-    cpu = _teacher_forced(cfg, params, toks, plen, "cpu")
+    pinned = cfg.is_moe and f32_truth
+    pin = _PinnedRouting() if pinned else contextlib.nullcontext()
+    with pin:
+        if f32_truth:
+            truth = _teacher_forced(cfg, params, toks, plen, "cpu",
+                                    torch.float32)
+        if pinned:
+            pin.replay()
+        card = _teacher_forced(cfg, params, toks, plen, DEVICE)
+        if pinned:
+            pin.replay()
+        cpu = _teacher_forced(cfg, params, toks, plen, "cpu")
     err = float((card - cpu).abs().max())
     log(f"# {arch} reduced config, card kernels vs CPU plain, teacher-forced "
-        f"logits: max abs diff {err:.4e} (max |logit| "
-        f"{float(cpu.abs().max()):.4f})")
+        f"logits{', routing pinned to the f32 run' if pinned else ''}: "
+        f"max abs diff {err:.4e} (max |logit| {float(cpu.abs().max()):.4f})")
     if f32_truth:
-        truth = _teacher_forced(cfg, params, toks, plen, "cpu", torch.float32)
         _as_accurate(card, cpu, truth, f"{arch} reduced config")
     elif not (torch.isfinite(card).all() and err <= REDUCED_LOGIT_ATOL):
         raise AssertionError(f"reduced config: {err} > {REDUCED_LOGIT_ATOL}")
@@ -4498,6 +4614,209 @@ def phase_profile(arch, model, params, prompts, plan):
     log(json.dumps({"profile": report, "model": arch}))
 
 
+# ---------------------------------------------------------------------------
+# phase M: the MoE family (qwen2-moe-a2.7b)
+# ---------------------------------------------------------------------------
+
+
+def _moe_train_plan(layers, tp=1):
+    from repro_torch.core.plan import single_stage_plan
+    return single_stage_plan(layers, dp=1, tp=tp, micro_batch=T_MICRO,
+                             grad_accum=T_ACCUM, zero=0 if tp == 1 else 1,
+                             ckpt_layers=layers, attn_impl="pallas",
+                             use_pallas=True, remat_policy="full",
+                             sequence_parallel=tp > 1)
+
+
+def _moe_launcher_in_process(plan, layers, steps, tag):
+    """``launch.train.main`` in this process on ``plan`` at ``layers``
+    layers of qwen2-moe (Adam at T_LR), with ``_MEMORY_SPLIT``'s hooks;
+    every count set to 0 just before and read just after.  Returns (the
+    launcher's output, counts per step, its lines, the split's terms)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launch_train
+
+    path = ROOT / "build" / f"m_plan_{tag}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(plan.to_json())
+    argv = ["--arch", "qwen2-moe-a2.7b", "--layers", str(layers),
+            "--plan-json", str(path), "--steps", str(steps), "--seq",
+            str(T_SEQ), "--global-batch", str(T_MICRO * T_ACCUM), "--lr",
+            str(T_LR)]
+    out = io.StringIO()
+    split, unhook = _split_in_process()
+    _reset_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = launch_train.main(argv)
+        sync()
+    finally:
+        unhook()
+    counts = _read_counts()
+    text = out.getvalue()
+    log(f"# python -m repro_torch.launch.train {' '.join(argv)}: exit {rc}\n"
+        + text.strip())
+    if rc != 0:
+        raise AssertionError(f"the training launcher failed ({tag})")
+    lines = _launcher_lines(text)
+    st = plan.stages[0]
+    per_step = _per_step(counts, _train_launches(
+        layers, min(st.ckpt_layers, layers), plan.grad_accum), steps,
+        f"qwen2-moe {tag}")
+    terms = _terms_of_split(split, plan.grad_accum)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return text, per_step, lines, terms
+
+
+def _moe_train_one_card():
+    """Phase M (b): the written plan at M_T_LAYERS layers, then the tuner's
+    plan for the same depth on one H100.  Returns the written plan's
+    launches per step."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.tuner import tune
+
+    cfg = get_arch("qwen2-moe-a2.7b")
+    plan = _moe_train_plan(M_T_LAYERS)
+    gbs = T_MICRO * T_ACCUM
+    _, per_step, (ms, losses, _, peak, pred), terms = \
+        _moe_launcher_in_process(plan, M_T_LAYERS, M_STEPS, "written")
+    rec = _peak_against_report("phase M (b)", cfg.replace(
+        num_layers=M_T_LAYERS), plan, T_SEQ, gbs, peak, terms, H_PEAK_BOUND,
+        gate=False)
+    log(json.dumps({"train_moe": dict(
+        model="qwen2-moe-a2.7b", layers=M_T_LAYERS, seq=T_SEQ,
+        global_batch=gbs, plan=json.loads(plan.to_json()), lr=T_LR,
+        losses=losses, step_ms=ms, median_step_ms_after_first=
+        statistics.median(ms[1:]), tokens_per_s=gbs * T_SEQ /
+        (statistics.median(ms[1:]) / 1e3), launches_per_step=per_step,
+        launcher_predicted_peak_bytes=pred,
+        peak_against_memory_report=rec, smi=smi_line())}))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("qwen2-moe training: a non-finite loss")
+    # the launcher draws a new batch each step, so the loss need not fall
+    # at every step: it must over the run
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"qwen2-moe training: the loss does not fall: "
+                             f"{losses}")
+
+    # the tuner's plan for the same depth on one H100
+    cfg4 = cfg.replace(num_layers=M_T_LAYERS)
+    t0 = time.perf_counter()
+    rep = tune(cfg4, ShapeConfig("m", T_SEQ, gbs, "train"), n_devices=1)
+    log(f"# phase M (b): the tuner for qwen2-moe at {M_T_LAYERS} layers on "
+        f"one H100 ({time.perf_counter() - t0:.1f} s): "
+        + (f"predicted step {rep.objective:.4f} s, plan "
+           f"{rep.plan.to_json()}" if rep.plan is not None
+           else f"no feasible plan of {rep.n_swept} swept"))
+    if rep.plan is None:
+        raise AssertionError("the tuner finds no plan for qwen2-moe at "
+                             f"{M_T_LAYERS} layers on one H100")
+    tplan = rep.plan.replace(attn_impl="pallas", use_pallas=True)
+    _, t_step, (t_ms, t_losses, _, t_peak, t_pred), t_terms = \
+        _moe_launcher_in_process(tplan, M_T_LAYERS, M_TUNED_STEPS, "tuned")
+    t_rec = _peak_against_report(
+        "phase M (b), tuned plan", cfg4, tplan, T_SEQ, gbs, t_peak, t_terms,
+        H_PEAK_BOUND, gate=False)
+    log(json.dumps({"train_moe_tuned": dict(
+        plan=json.loads(tplan.to_json()), predicted_step_s=rep.objective,
+        step_ms=t_ms, losses=t_losses, launches_per_step=t_step,
+        launcher_predicted_peak_bytes=t_pred,
+        peak_against_memory_report=t_rec, smi=smi_line())}))
+    if not all(math.isfinite(x) for x in t_losses):
+        raise AssertionError("qwen2-moe, the tuned plan: a non-finite loss")
+    return per_step
+
+
+def _moe_rank_of_tp4():
+    """Phase M (c): rank 0 of a tp-4 + SP plan of qwen2-moe at M_R_LAYERS
+    layers (15 experts a rank) under the ``fake`` group in a child process.
+    Returns its launches per step."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.lowering import lower_plan, plan_mesh
+
+    cfg = get_arch("qwen2-moe-a2.7b").replace(num_layers=M_R_LAYERS)
+    plan = _moe_train_plan(M_R_LAYERS, tp=M_TP)
+    gbs = T_MICRO * T_ACCUM
+    path = ROOT / "build" / "m_rank_plan.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(plan.to_json())
+    t0 = time.perf_counter()
+    text = _launcher_process(
+        [str(M_TP), "0", "--arch", "qwen2-moe-a2.7b", "--layers",
+         str(M_R_LAYERS), "--plan-json", str(path), "--steps", str(D_STEPS),
+         "--seq", str(T_SEQ), "--global-batch", str(gbs), "--lr",
+         str(T_LR)], code=_FAKE_RANK.replace("HOOK", _MEMORY_SPLIT),
+        timeout=600)
+    secs = time.perf_counter() - t0
+    ms, _, counts, peak, pred = _launcher_lines(text)
+    per_step = _per_step(counts, _train_launches(M_R_LAYERS, M_R_LAYERS,
+                                                 T_ACCUM),
+                         D_STEPS, "rank 0 of qwen2-moe's tp-4 plan")
+    split = _split_terms(text, plan.grad_accum)
+    st = lower_plan(cfg, ShapeConfig("m", T_SEQ, gbs, "train"), plan,
+                    plan_mesh(plan)).memory_report().stages[0]
+    state = split["weights_bf16"] + split["master_mu_nu"] \
+        + split["grad_sums_f32"]
+    rec = _peak_against_report("phase M (c)", cfg, plan, T_SEQ, gbs, peak,
+                               split, H_PEAK_BOUND, gate=False)
+    log(json.dumps({"m_rank0_of_4": dict(
+        model="qwen2-moe-a2.7b", layers=M_R_LAYERS, seq=T_SEQ,
+        global_batch=gbs, plan=json.loads(plan.to_json()),
+        experts_per_rank=M_EXPERTS // M_TP, launches_per_step=per_step,
+        state_term_of_split=state, memory_report_state_bytes=st.state_bytes,
+        launcher_predicted_peak_bytes=pred, peak_against_memory_report=rec,
+        step_ms_compute_of_one_rank_no_communication=ms,
+        process_seconds=secs, smi=smi_line())}))
+    if state != st.state_bytes:
+        raise AssertionError(f"qwen2-moe's tp-4 rank holds {state} B of "
+                             f"state; the memory report charges "
+                             f"{st.state_bytes}")
+    return per_step
+
+
+def phase_moe(errs, profile=False):
+    """Phase M (module docstring).  Returns its entries of the kernels
+    line."""
+    model, params, prompts, plan, launches, peak = phase_full_width_serve(
+        "qwen2-moe-a2.7b", dict(num_layers=M_LAYERS, d_model=M_D_MODEL,
+                                num_heads=M_HEADS, num_kv_heads=M_HEADS,
+                                head_dim=HEAD_DIM, num_experts=M_EXPERTS,
+                                num_experts_per_tok=4, num_shared_experts=4,
+                                moe_d_ff=1408, qkv_bias=True),
+        _granite_launches, f32_truth=True)
+    phase_reduced_vs_cpu("qwen2-moe-a2.7b", f32_truth=True)
+    kernels = [
+        _time_flash("qwen2-moe-a2.7b", BATCH, PROMPT_LEN, M_HEADS, M_HEADS,
+                    HEAD_DIM, launches["flash_attention_fwd"],
+                    errs["flash_attention_fwd@qwen2_moe"]),
+        _time_rmsnorm("qwen2-moe-a2.7b", M_D_MODEL, launches["rmsnorm"],
+                      errs[f"rmsnorm@d{M_D_MODEL}"])]
+    _time_serve("qwen2-moe-a2.7b", model, params, prompts, plan, peak)
+    if profile:
+        phase_profile("qwen2-moe-a2.7b", model, params, prompts, plan)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    train = _moe_train_one_card()
+    shape = (T_MICRO, T_SEQ, M_HEADS, M_HEADS, HEAD_DIM)
+    what = "qwen2-moe-a2.7b (training)"
+    kernels += [
+        _time_flash(what, *shape, train["flash_attention_fwd"],
+                    errs["flash_attention_fwd@qwen2_moe_train"]),
+        _time_flash_bwd(train["flash_attention_bwd"],
+                        errs["flash_attention_bwd@qwen2_moe"], shape, what),
+        _time_rmsnorm_bwd(train["rmsnorm_bwd"],
+                          errs[f"rmsnorm_bwd@d{M_D_MODEL}"], M_D_MODEL, what)]
+    _moe_rank_of_tp4()
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4522,6 +4841,11 @@ def main() -> int:
         return 0
     errs = phase_kernels_vs_plain()
     mark("phases 1-2")
+    if "--moe-only" in sys.argv[1:]:
+        kernels = phase_moe(errs, profile)
+        mark("phase M")
+        print(json.dumps({"kernels": kernels}))
+        return 0
 
     # granite-3-8b
     model, params, prompts, plan, launches, peak = phase_full_width_serve(
@@ -4681,6 +5005,14 @@ def main() -> int:
                         (Z_MICRO, H_SEQ, ZR_HEADS, ZR_HEADS, Z_HEAD_DIM),
                         rank)]
     log(f"# phase Z: {time.perf_counter() - t_z:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the MoE family: qwen2-moe-a2.7b served, trained on one card and on a
+    # rank of a tp-4 plan
+    kernels += phase_moe(errs, profile)
+    mark("phase M")
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     # every entry ran at the tiles the plan's default tuple runs

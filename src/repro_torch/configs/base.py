@@ -2,9 +2,9 @@
 
 Every architecture is a frozen ``ArchConfig``; ``reduced()`` yields the small
 smoke-test variant of the same family (same code paths, tiny dims).  The
-port registers only the architectures it can run (granite-3-8b and
-zamba2-2.7b).  ``param_count`` is not copied: it reaches the cost model,
-which has not been ported.
+port registers only the architectures it can run (granite-3-8b,
+qwen2-moe-a2.7b and zamba2-2.7b).  ``param_count`` is not copied: it
+reaches the cost model, which has not been ported.
 """
 from __future__ import annotations
 
@@ -182,4 +182,5 @@ def list_archs():
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from repro_torch.configs import granite_3_8b, zamba2_2p7b  # noqa: F401
+    from repro_torch.configs import (granite_3_8b,  # noqa: F401
+                                     qwen2_moe_a2p7b, zamba2_2p7b)

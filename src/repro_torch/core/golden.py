@@ -30,10 +30,8 @@ from repro_torch.configs.base import get_arch
 from repro_torch.core.hardware import H100, HardwareSpec
 from repro_torch.core.tuner import SPACES, MistTuner, TuneSpec
 
-# the reference pins a dense GQA decoder and an MoE (qwen2-moe-a2.7b); the
-# port has no MoE builders yet, so its cells wait for them (ROADMAP.md,
-# queue A: MoE)
-GOLDEN_ARCHS: Tuple[str, ...] = ("granite-3-8b",)
+# the reference pins a dense GQA decoder and an MoE
+GOLDEN_ARCHS: Tuple[str, ...] = ("granite-3-8b", "qwen2-moe-a2.7b")
 GOLDEN_SPACES: Tuple[str, ...] = SPACES
 
 # small but non-trivial workload: 8 devices leave room for S in {1, 2}

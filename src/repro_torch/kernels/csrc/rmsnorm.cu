@@ -14,13 +14,13 @@
 // __syncthreads and its sum of squares is one warp-shuffle reduction.  A
 // block of 8 warps walks the rows in a grid-stride loop, and the grid is
 // the number of blocks the card holds at once (or fewer for few rows).
-// - Register-resident widths (d 2560 and 4096, 16-byte aligned rows): the
-//   row stays in registers between the sum and the scale pass, so x is read
+// - Register-resident widths (d 2048, 2560 and 4096, 16-byte aligned rows):
+//   the row stays in registers between the sum and the scale pass, so x is read
 //   from device memory exactly once, as 16-byte vectors, vector i * 32 +
 //   lane of the row in lane `lane` (each load instruction of a warp reads
 //   512 contiguous bytes).  NV, the vectors per lane, is a template
-//   argument: bf16 16 at d 4096 and 10 at d 2560 (64 and 40 registers), f32
-//   32 and 20.  The scale is read once per block as 16-byte vectors,
+//   argument: bf16 16 at d 4096, 10 at d 2560 and 8 at d 2048 (64, 40 and
+//   32 registers), f32 32, 20 and 16.  The scale is read once per block as 16-byte vectors,
 //   converted to f32 once and kept in shared memory (16 KB at d 4096),
 //   laid out so that each lane's float4 reads are conflict-free.  Shared
 //   memory and not registers: at f32 x and d 4096 the row alone takes 128
@@ -45,7 +45,7 @@
 // What the design does about that: one block per SM (the wrapper's grid),
 // each owning a contiguous band of rows, balanced to within one row, and
 // every row read from device memory once.
-// - Ring widths (d 2560 and 4096, 16-byte aligned rows): one producer
+// - Ring widths (d 2048, 2560 and 4096, 16-byte aligned rows): one producer
 //   thread streams the band, BWD_STAGE_ROWS rows of x and of g a stage,
 //   into a ring of shared memory with 1-D bulk copies (one for x, one for g:
 //   the rows of a stage are contiguous), on full/empty mbarriers; the ring
@@ -288,6 +288,9 @@ int launch(const void* x, const void* scale, void* y, int rows, int d,
                                                   stream);
   if (vec_ok && d == 2560)
     return launch_resident<T, S, 2560 / (32 * V)>(x, scale, y, rows, eps,
+                                                  stream);
+  if (vec_ok && d == 2048)
+    return launch_resident<T, S, 2048 / (32 * V)>(x, scale, y, rows, eps,
                                                   stream);
   auto kernel = rmsnorm_generic_kernel<T, S>;
   static const int most = resident_blocks(kernel);
@@ -679,6 +682,9 @@ int launch_bwd(const void* x_, const void* gy_, const void* scale_,
             x, gy, scale, dx, part, dscale, rows, eps, blocks, stream);
       case 4096:
         return launch_bwd_ring<T, S, 4096 / (32 * BWD_COLS)>(
+            x, gy, scale, dx, part, dscale, rows, eps, blocks, stream);
+      case 2048:
+        return launch_bwd_ring<T, S, 2048 / (32 * BWD_COLS)>(
             x, gy, scale, dx, part, dscale, rows, eps, blocks, stream);
     }
   // the column partials, and after the grid sync the combine's WARPS x 32

@@ -47,7 +47,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # block (the tile menu's one entry, ``tiles.MENU``); rows of these widths
 # are held in registers
 WARPS_PER_BLOCK = 8
-RESIDENT_WIDTHS = (2560, 4096)
+RESIDENT_WIDTHS = (2048, 2560, 4096)
 
 
 # the backward's launch shape (csrc/rmsnorm.cu): one block per SM, each
@@ -56,7 +56,7 @@ RESIDENT_WIDTHS = (2560, 4096)
 # many stages as BWD_RING_BYTES holds (at most BWD_MAX_STAGES).  Generic
 # route: 8 warps over BWD_ROWS rows at a time, its column partials in
 # d * 4 bytes of shared memory, which bounds the width.
-BWD_RING_WIDTHS = (2560, 4096)
+BWD_RING_WIDTHS = (2560, 4096, 2048)
 BWD_COLS = 16
 BWD_STAGE_ROWS = 2
 BWD_RING_BYTES = 196608

@@ -197,6 +197,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         tempfile.gettempdir()) / "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="Adam's learning rate (default: AdamConfig's)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -225,6 +227,7 @@ def _run(args, device: torch.device, distributed: bool) -> int:
     from repro_torch.training.checkpoint import StatePlacement
     from repro_torch.training.data import BatchSpec, SyntheticLM
     from repro_torch.training.loop import LoopConfig, TrainLoop
+    from repro_torch.training.optimizer import AdamConfig
     from repro_torch.training.step import init_train_state, make_train_step
 
     rank, world = 0, 1
@@ -274,7 +277,7 @@ def _run(args, device: torch.device, distributed: bool) -> int:
                 say(rep.plan.to_json())
                 say(memory_line(tcfg, shape, rep.plan,
                                 serve=args.space == "serve"))
-                if tcfg.family != "dense":
+                if tcfg.family == "hybrid":
                     say(f"# note: the tuner's arch_stats give {tcfg.name} no "
                         "layer parameters (the reference's prefixes miss its "
                         "stacks; ROADMAP.md, section C): its memory and time "
@@ -313,6 +316,7 @@ def _run(args, device: torch.device, distributed: bool) -> int:
     if args.plan_json:
         say(memory_line(cfg, shape, plan))
     gen = torch.Generator(device).manual_seed(0)
+    adam = AdamConfig() if args.lr is None else AdamConfig(lr=args.lr)
     mesh, S, stage = None, plan.num_stages, 0
     if distributed:
         from repro_torch.launch.mesh import make_plan_mesh, mesh_coords
@@ -322,17 +326,17 @@ def _run(args, device: torch.device, distributed: bool) -> int:
         if S > 1:
             from repro_torch.parallel.pipeline import \
                 make_pipeline_train_step
-            step = make_pipeline_train_step(model, plan, mesh)
+            step = make_pipeline_train_step(model, plan, mesh, adam)
             c = mesh_coords(mesh)
             stage = c["stage"]
             if c["data"] == c["model"] == 0:
                 def say(*a):    # this stage's lines
                     print(*a, flush=True)
         else:
-            step = make_train_step(model, plan, mesh=mesh)
+            step = make_train_step(model, plan, adam, mesh=mesh)
         state = init_sharded_state(model, plan, mesh, gen)
     else:
-        step = make_train_step(model, plan)
+        step = make_train_step(model, plan, adam)
         state = init_train_state(model, plan, gen)
     tag = f" (stage {stage})" if S > 1 else ""
     data = SyntheticLM(BatchSpec(global_batch=gbs, seq_len=seq,

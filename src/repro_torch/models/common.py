@@ -39,7 +39,12 @@ The collectives are autograd Functions over plain tensors:
 * gather-columns: all-gather of the ranks' equal parts of the last dim,
   keeping given columns; its backward reduce-scatters the kept columns'
   gradients (the Mamba mixer's fused projection, whose tp parts are not
-  whole heads).
+  whole heads);
+* gather-replicated: all-gather along a dim forward, and a backward that
+  keeps this rank's part of the gradient and sums nothing (a value every
+  tp rank then uses identically, so each rank's gradient of it is already
+  whole: the MoE router's expert columns and, under sequence
+  parallelism, its logits).
 
 Gradients (``GradSink``, in ``ExecConfig.sink`` while a train step runs):
 the params are no autograd leaves.  Each use of a param -- layer l's slice
@@ -274,6 +279,23 @@ class _ScatterDim(torch.autograd.Function):
         return all_gather_dim(g, ctx.dim, ctx.group), None, None
 
 
+class _GatherReplicated(torch.autograd.Function):
+    """All-gather along ``dim`` forward; the backward keeps this rank's
+    part of the gradient, summing nothing: what the gather feeds is
+    computed identically on every rank of ``group``, so the gradient of
+    the gathered tensor is the same, and whole, on each."""
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(), \
+            None, None
+
+
 class _GatheredProducts(torch.autograd.Function):
     """``x`` gathered along the sequence, times each of ``ws``: the
     column-parallel products under sequence parallelism.  Saves this
@@ -336,6 +358,22 @@ class Parallel:
 
     def reduce_from_tp(self, x: torch.Tensor) -> torch.Tensor:
         return _ReduceFromTP.apply(x, self.tp_group)
+
+    def copy_to_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity forward, the gradient summed over tp: a value every tp
+        rank holds whole and uses on its own part of the work (the MoE's
+        gates, which each rank's experts combine with)."""
+        return _CopyToTP.apply(x, self.tp_group)
+
+    def gather_dim(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The tp ranks' parts of ``x`` along ``dim``; the gradient
+        reduce-scattered (each rank's is a partial sum)."""
+        return _GatherDim.apply(x, dim, self.tp_group)
+
+    def gather_replicated(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The tp ranks' parts of ``x`` along ``dim``, for a use that every
+        rank computes identically (``_GatherReplicated``)."""
+        return _GatherReplicated.apply(x, dim, self.tp_group)
 
     def sum_tp(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the tp ranks, its gradient summed too."""

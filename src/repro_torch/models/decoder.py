@@ -1,12 +1,13 @@
-"""Stacked decoder LM, dense GQA blocks (the port of
+"""Stacked decoder LM, dense and MoE GQA blocks (the port of
 ``repro/models/decoder.py``).
 
 Init / loss / prefill / decode over flat-dict params with stacked-``L``
 tensors.  ``run_layers`` (training and the cache-less prefill) runs the
 layers through ``segmented_layer_scan`` (over views of each layer taken
 by the train step's sink, or over the unbound stack); the serving paths
-loop over views of layer ``i``.  MoE, Mamba2 and mLSTM blocks wait
-for their slices.
+loop over views of layer ``i``.  An MoE block (``models/moe.py``) takes
+the MLP's place and returns its aux loss, which ``run_layers`` sums over
+the layers.  Mamba2 and mLSTM blocks wait for their slices.
 
 Training under a multi-device plan (``ExecConfig.par``, see
 ``models/common.py``) runs on this rank's shards: attention and the MLP
@@ -39,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import (Axes, ExecConfig, ParamBuilder, Params,
                                        StackedBuilder, in_use, layer,
                                        segmented_layer_scan, softmax_xent,
@@ -53,10 +55,7 @@ def block_kind(cfg: ArchConfig) -> str:
     if cfg.family == "ssm":
         raise NotImplementedError("Mamba2 / mLSTM blocks are not ported yet "
                                   "(ROADMAP.md, queue A: remaining families)")
-    if cfg.is_moe:
-        raise NotImplementedError("MoE blocks are not ported yet "
-                                  "(ROADMAP.md, queue A: MoE)")
-    return "attn"
+    return "attn"  # dense / moe
 
 
 def init_block(b: StackedBuilder, cfg: ArchConfig):
@@ -64,15 +63,19 @@ def init_block(b: StackedBuilder, cfg: ArchConfig):
     L.init_norm(b.scope("ln1"), cfg)
     L.init_attention(b.scope("attn"), cfg)
     L.init_norm(b.scope("ln2"), cfg)
-    L.init_mlp(b.scope("mlp"), cfg)
+    if cfg.is_moe:
+        MOE.init_moe(b.scope("moe"), cfg)
+    else:
+        L.init_mlp(b.scope("mlp"), cfg)
 
 
 def apply_block(p: Params, h: torch.Tensor, cfg: ArchConfig, ec: ExecConfig,
                 cache: Optional[Dict] = None, mask_kind: str = "causal",
                 return_cache: bool = False
                 ) -> Tuple[torch.Tensor, float, Optional[Dict]]:
-    """One dense attention block.  Returns (h, aux_loss, new_cache); the aux
-    loss of a dense block is 0."""
+    """One attention block, dense or MoE.  Returns (h, aux_loss,
+    new_cache); the aux loss of a dense block is 0.  Prefill and decode
+    run the same block: a decode step routes its B tokens as one group."""
     block_kind(cfg)
     hn = L.norm(subtree(p, "ln1"), h, cfg, ec)
     fresh = return_cache and cache is None
@@ -82,6 +85,9 @@ def apply_block(p: Params, h: torch.Tensor, cfg: ArchConfig, ec: ExecConfig,
         new_cache = _fresh_attn_cache(new_cache, hn.shape[1])
     h = h + a
     hn = L.norm(subtree(p, "ln2"), h, cfg, ec)
+    if cfg.is_moe:
+        m, aux = MOE.moe(subtree(p, "moe"), hn, cfg, ec)
+        return h + m, aux, new_cache
     h = h + L.mlp(subtree(p, "mlp"), hn, cfg, ec.par)
     return h, 0.0, new_cache
 

@@ -5,8 +5,11 @@ Every layer is an (init, apply) pair over flat-dict params.  Attention
 covers prefill (full sequence, ``cache=None``) and scalar-``pos`` decode
 (one token against a KV cache).  The prefill route is differentiable: the
 projections, RoPE, flash attention and the norm carry gradients, the
-latter two through their kernels' autograd Functions.  MLA, cross-attention, per-request
-positions and the int8 KV cache wait for their slices (ROADMAP.md).
+latter two through their kernels' autograd Functions.  The QKV biases
+(``cfg.qkv_bias``, qwen2-moe) are added after the projections, before the
+rotation, in training, prefill and decode alike.  MLA, cross-attention,
+per-request positions and the int8 KV cache wait for their slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -100,7 +103,8 @@ class _GatedDown(torch.autograd.Function):
     inputs, so its gradients are autograd's.  Eager autograd would also
     keep act(g) and the product, two (tokens, d_ff) tensors a layer that
     the memory model does not charge (XLA recomputes such elementwise
-    work)."""
+    work).  A 3-D ``wd`` is a stack of experts' (the MoE's ``(E, f, d)``),
+    with g and u ``(E, rows, f)``: the product is batched over E."""
     @staticmethod
     def forward(ctx, g, u, wd, kind):
         ctx.kind = kind
@@ -114,8 +118,11 @@ class _GatedDown(torch.autograd.Function):
             gg = g.detach().requires_grad_(True)
             a = _act(gg, ctx.kind)
         h = a.detach() * u
-        dwd = h.reshape(-1, h.shape[-1]).T @ dy.reshape(-1, dy.shape[-1])
-        dh = dy @ wd.T
+        if wd.dim() == 3:
+            dwd = h.transpose(1, 2) @ dy
+        else:
+            dwd = h.reshape(-1, h.shape[-1]).T @ dy.reshape(-1, dy.shape[-1])
+        dh = dy @ wd.transpose(-1, -2)
         dg, = torch.autograd.grad(a, gg, dh * u)
         return dg, dh * a.detach(), dwd, None
 
@@ -137,11 +144,15 @@ def mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, par=None
 # ---------------------------------------------------------------------------
 
 
+def _no_mla(cfg: ArchConfig):
+    if cfg.attention_type == "mla":
+        raise NotImplementedError("MLA attention is not ported yet "
+                                  "(ROADMAP.md, queue A: remaining "
+                                  "families)")
+
+
 def init_attention(b: ScopedBuilder, cfg: ArchConfig):
-    if cfg.attention_type == "mla" or cfg.qkv_bias:
-        raise NotImplementedError("MLA attention and qkv biases are not "
-                                  "ported yet (ROADMAP.md, queue A: "
-                                  "remaining families)")
+    _no_mla(cfg)
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     b.add("wq", (d, h, hd), ("embed", "heads", "head_dim"),
           scale=1.0 / math.sqrt(d))
@@ -151,6 +162,10 @@ def init_attention(b: ScopedBuilder, cfg: ArchConfig):
           scale=1.0 / math.sqrt(d))
     b.add("wo", (h, hd, d), ("heads", "head_dim", "embed"),
           scale=1.0 / math.sqrt(h * hd))
+    if cfg.qkv_bias:
+        b.add("bq", (h, hd), ("heads", "head_dim"), init="zeros")
+        b.add("bk", (kv, hd), ("kv_heads", "head_dim"), init="zeros")
+        b.add("bv", (kv, hd), ("kv_heads", "head_dim"), init="zeros")
 
 
 def _sdpa(q, k, v, cfg: ArchConfig, mask_kind: str, kv_valid_len=None,
@@ -187,18 +202,16 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
     cache's contents).  Decode: ``cache`` holds ``{"k","v","pos"}`` with a
     scalar ``pos`` and x is (B,1,D); the second result is the updated cache,
     whose k/v are the input buffers written in place (``cache_write``)."""
-    if cfg.attention_type == "mla" or cfg.qkv_bias:
-        raise NotImplementedError("MLA attention and qkv biases are not "
-                                  "ported yet (ROADMAP.md, queue A: "
-                                  "remaining families)")
+    _no_mla(cfg)
     par = exec_cfg.par
     wk, wv = p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
     if par is not None:
         if cache is not None:
             raise NotImplementedError("multi-device decode waits for "
                                       "multi-device serving (ROADMAP.md, "
                                       "queue A: serving)")
-        wk, wv = _local_kv(p, cfg, par)
+        wk, wv, bk, bv = _local_kv(p, cfg, par)
     # this rank's heads (all of them on one device)
     d = x.shape[-1]
     h, kv, hd = p["wq"].shape[1], wk.shape[1], cfg.head_dim
@@ -209,6 +222,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
     b_, s = q.shape[:2]
     q, k, v = (q.view(b_, s, h, hd), k.view(b_, s, kv, hd),
                v.view(b_, s, kv, hd))
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + bk, v + bv
     if cache is not None and "pos" not in cache:
         raise NotImplementedError("cross-attention caches are not ported yet "
                                   "(ROADMAP.md, queue A: remaining families)")
@@ -262,15 +277,16 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
     return (out if par is None else par.tp_out(out)), new_cache
 
 
-def _local_kv(p: Params, cfg: ArchConfig, par) -> Tuple[torch.Tensor,
-                                                        torch.Tensor]:
-    """wk/wv for this tp rank's query heads.  Sharded with the query heads
-    when the kv heads divide by tp; otherwise replicated, and the rank
-    takes the kv heads its query heads read (its gradient of the rest is
-    zero, and the step sums wk/wv's gradients over tp)."""
+def _local_kv(p: Params, cfg: ArchConfig, par) -> Tuple[Optional[
+        torch.Tensor], ...]:
+    """wk/wv (and bk/bv, None without QKV biases) for this tp rank's query
+    heads.  Sharded with the query heads when the kv heads divide by tp;
+    otherwise replicated, and the rank takes the kv heads its query heads
+    read (its gradient of the rest is zero, and the step sums wk/wv's and
+    bk/bv's gradients over tp)."""
     h_loc = p["wq"].shape[1]
     if p["wk"].shape[1] != cfg.num_kv_heads or h_loc == cfg.num_heads:
-        return p["wk"], p["wv"]
+        return tuple(p.get(n) for n in ("wk", "wv", "bk", "bv"))
     g = cfg.q_per_kv
     if h_loc % g and g % h_loc:
         raise NotImplementedError(
@@ -279,7 +295,8 @@ def _local_kv(p: Params, cfg: ArchConfig, par) -> Tuple[torch.Tensor,
             "sharding on torch)")
     lo = par.tp_rank * h_loc // g
     hi = -(-(par.tp_rank + 1) * h_loc // g)
-    return p["wk"][:, lo:hi], p["wv"][:, lo:hi]
+    return (p["wk"][:, lo:hi], p["wv"][:, lo:hi],
+            *(p[n][lo:hi] if n in p else None for n in ("bk", "bv")))
 
 
 def cache_write(buf: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,

@@ -1,8 +1,8 @@
 """Model registry (the port of ``repro/models/zoo.py``): the uniform
 init / loss / prefill / decode / caches interface over the ported families
--- dense decoders and the Zamba2 hybrid, each served on one device and
-trained on one device or on a rank of a multi-device plan (pipelined
-plans, S > 1, train dense decoders only, as in the reference)."""
+-- dense and MoE decoders and the Zamba2 hybrid, each served on one device
+and trained on one device or on a rank of a multi-device plan (pipelined
+plans, S > 1, train dense and MoE decoders only, as in the reference)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -17,9 +17,11 @@ from repro_torch.models import hybrid as HY
 from repro_torch.models.common import ExecConfig, Params, resolve_device
 
 # family -> (init, loss, prefill, decode, init_caches), one signature each
+_DECODER = (DEC.init_lm, DEC.lm_loss, DEC.lm_prefill, DEC.lm_decode,
+            DEC.init_lm_caches)
 _FAMILIES = {
-    "dense": (DEC.init_lm, DEC.lm_loss, DEC.lm_prefill, DEC.lm_decode,
-              DEC.init_lm_caches),
+    "dense": _DECODER,
+    "moe": _DECODER,
     "hybrid": (HY.init_hybrid, HY.hybrid_loss, HY.hybrid_prefill,
                HY.hybrid_decode, HY.init_hybrid_caches),
 }
@@ -70,11 +72,11 @@ def build_model(arch: Union[str, ArchConfig],
     nothing."""
     cfg = get_arch(arch) if isinstance(arch, str) else arch
     dev = resolve_device(device, allow_meta=True)
-    if cfg.family not in _FAMILIES or cfg.is_moe:
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            "runs dense decoders and the Zamba2 hybrid (ROADMAP.md, "
-            "queue A: MoE and remaining families)")
+            "runs dense and MoE decoders and the Zamba2 hybrid (ROADMAP.md, "
+            "queue A: remaining families)")
     return Model(cfg=cfg, device=dev)
 
 

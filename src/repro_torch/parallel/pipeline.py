@@ -23,11 +23,14 @@ gradient; under sequence parallelism this tp rank's part of the sequence
 -- goes in one ``batch_isend_irecv`` that pairs its sends with its
 receives.  The first stage embeds, the last takes the final norm and the
 loss; the loss (the mean over the G micro-batches and the data ranks) is
-broadcast from the last stage to every rank.  The embedding, head and
+summed over the stages, so every rank reports it.  The embedding, head and
 final norm live on the first and the last stage, and their gradients are
 summed over those two (the reference's ``psum`` over ``stage``); the
 gradient norm of the clip adds over the stages, each param once.  Dense
-decoders only: their blocks' aux loss is 0.
+and MoE decoders: an MoE stage adds ``AUX_COEF · aux / num_layers`` of its
+own layers to what its backward starts from, so that gradient stays on
+the stage, and the loss every rank reports sums the stages' aux terms
+with the last stage's loss (the reference's ``psum`` of ``aux_sum``).
 """
 from __future__ import annotations
 
@@ -117,7 +120,7 @@ def make_pipeline_train_step(model: Model, plan: Plan, mesh,
         def buf():
             return torch.zeros(act, dtype=dtype, device=dev)
 
-        losses = []
+        losses, auxes = [], []
 
         def forward(i, x):
             micro = micros[i]
@@ -127,15 +130,21 @@ def make_pipeline_train_step(model: Model, plan: Plan, mesh,
                     micro["tokens"], cfg, run_ec)
             else:
                 x.requires_grad_(True)
-            h, _ = DEC.run_layers(params, x, scfg, run_ec, final=s == S - 1)
+            h, aux = DEC.run_layers(params, x, scfg, run_ec,
+                                    final=s == S - 1)
+            aux = DEC.AUX_COEF * aux / cfg.num_layers
+            if torch.is_tensor(aux):
+                auxes.append(aux.detach())
             if s == S - 1:
                 h = DEC.head_loss(params, h, micro, cfg, run_ec)
                 losses.append(h.detach())
-            return x, h
+            return x, h, aux
 
-        def backward(x, out, dy):
-            if dy is None:
-                out.backward()
+        def backward(x, out, aux, dy):
+            if dy is None:          # the last stage: its loss and its aux
+                (out + aux).backward()
+            elif torch.is_tensor(aux):  # an MoE stage's own aux term
+                torch.autograd.backward([out, aux], [dy, torch.ones_like(aux)])
             else:
                 out.backward(dy)
             return None if s == 0 else x.grad
@@ -161,20 +170,20 @@ def make_pipeline_train_step(model: Model, plan: Plan, mesh,
         held = collections.deque()      # (input, output) per micro-batch
         for i in range(warm):
             x = None if first else send_recv(recv_prev=True)[0]
-            x, out = forward(i, x)
+            x, out, aux = forward(i, x)
             send_recv(send_next=out)
-            held.append((x, out))
+            held.append((x, out, aux))
         x = None
         if G > warm and not first:
             x = send_recv(recv_prev=True)[0]
         for j in range(G - warm):
-            x, out = forward(warm + j, x)
-            held.append((x, out))
+            x, out, aux = forward(warm + j, x)
+            held.append((x, out, aux))
             # the output on to the next stage, and the gradient of the
             # oldest held micro-batch's output back from it
             dy = None if last else \
                 send_recv(send_next=out, recv_next=True)[1]
-            del x, out
+            del x, out, aux
             dx = backward(*held.popleft(), dy)
             more = j < G - warm - 1
             x = send_recv(send_prev=dx, recv_prev=more and not first)[0]
@@ -194,20 +203,18 @@ def make_pipeline_train_step(model: Model, plan: Plan, mesh,
         if plan.grad_compression:
             grads = fake_compress(grads, sharding.global_amax)
         state, om = OPT.adam_update(state, grads, adam, sharding)
+        # the last stage's loss plus every stage's aux term, averaged over
+        # the micro-batches and the data ranks
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         if last:
             loss = torch.stack(losses).mean()
-            dist.all_reduce(loss, group=par.dp_group)
-            loss = loss / dp
-        dist.broadcast(loss, src=_last_rank(mesh), group=stage_group)
+        if auxes:
+            loss = loss + torch.stack(auxes).mean()
+        dist.all_reduce(loss, group=par.dp_group)
+        loss = loss / dp
+        dist.all_reduce(loss, group=stage_group)
         metrics = {"loss": loss, **om, "step": state["step"]}
         return state, metrics
 
     return PipelineStep(fn=train_step, exec_cfg=ec, stage=s)
 
-
-def _last_rank(mesh) -> int:
-    """The global rank of the last stage at this rank's (data, model)."""
-    from repro_torch.launch.mesh import mesh_coords
-    c = mesh_coords(mesh)
-    return int(mesh.mesh[-1, c["data"], c["model"]])

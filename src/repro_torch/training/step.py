@@ -120,13 +120,16 @@ def init_train_state(model: Model, plan: Plan, generator: torch.Generator
 
 # -- multi-device -------------------------------------------------------------
 
-# the params tensor parallelism splits on their heads, d_ff or d_inner
-# (column-parallel wq/wg/wu, row-parallel wo/wd, and the Mamba mixer's
-# head-split params): tp > 1 needs every one of them split
+# the params tensor parallelism splits on their heads, d_ff, d_inner or
+# experts (column-parallel wq/bq/wg/wu, row-parallel wo/wd, the Mamba
+# mixer's head-split params, the MoE's experts on E or on moe_d_ff and its
+# shared expert): tp > 1 needs every one of them split
 _TP_SPLIT = tuple(f"{blk}/{n}" for blk in ("layers", "shared") for n in (
-    "attn/wq", "attn/wo", "mlp/wg", "mlp/wu", "mlp/wd")) + tuple(
+    "attn/wq", "attn/bq", "attn/wo", "mlp/wg", "mlp/wu", "mlp/wd")) + tuple(
     f"mamba/mixer/{n}" for n in ("in_proj", "conv_w", "conv_b", "A_log", "D",
-                                 "dt_bias", "norm_scale", "out_proj"))
+                                 "dt_bias", "norm_scale", "out_proj")) + \
+    tuple(f"layers/moe/{n}" for n in ("wg", "wu", "wd", "shared_wg",
+                                      "shared_wu", "shared_wd"))
 # the reference pipelines these families only (PIPELINE_FAMILIES,
 # src/repro/parallel/pipeline.py:42)
 PIPELINE_FAMILIES = ("dense", "moe", "ssm")
@@ -177,8 +180,9 @@ def rank_plan(model: Model, plan: Plan, mesh) -> RankPlan:
         if whole:
             raise NotImplementedError(
                 f"tp {par.tp} does not split {whole} (heads "
-                f"{model.cfg.num_heads}, d_ff {model.cfg.d_ff}); ROADMAP.md, "
-                "queue A: sharding on torch")
+                f"{model.cfg.num_heads}, d_ff {model.cfg.d_ff}, experts "
+                f"{model.cfg.num_experts} of {model.cfg.moe_d_ff}); "
+                "ROADMAP.md, queue A: sharding on torch")
     return RankPlan(low, i, par, pspecs, low.grad_specs(i),
                     low.opt_specs(i))
 
@@ -238,13 +242,14 @@ def rank_sink(params, pspecs, gspecs, par: Parallel) -> GradSink:
 def _tp_partial(pspecs, sp: bool, tp: int):
     """Params replicated over ``model`` whose tp ranks each use them on
     part of the work, so their gradients are summed over tp: under
-    sequence parallelism every one (the norms and the embedding see this
-    rank's part of the sequence), and wk/wv when the kv heads do not split
-    (each rank projects the kv heads its query heads read)."""
+    sequence parallelism every one (the norms, the embedding, the MoE's
+    router and shared gate see this rank's part of the sequence), and
+    wk/wv with bk/bv when the kv heads do not split (each rank projects
+    the kv heads its query heads read)."""
     if tp == 1:
         return set()
     kv = {f"{blk}/attn/{w}" for blk in ("layers", "shared")
-          for w in ("wk", "wv")}
+          for w in ("wk", "wv", "bk", "bv")}
     return {n for n, sp_ in pspecs.items() if "model" not in sp_
             and (sp or n in kv)}
 

@@ -395,10 +395,10 @@ def test_calibrate_needs_cuda_unless_asked_for_cpu(monkeypatch):
 
 def test_measure_cells_reports_what_it_cannot_run():
     cells, skipped = measure_cells(
-        ("qwen2-moe-a2.7b", "granite-3-8b"), steps=1, warmup=1, seq_len=16,
+        ("xlstm-1.3b", "granite-3-8b"), steps=1, warmup=1, seq_len=16,
         device="cpu")
     assert [(s["arch"], s["label"]) for s in skipped] == \
-        [("qwen2-moe-a2.7b", NOT_IN_ZOO)]
+        [("xlstm-1.3b", NOT_IN_ZOO)]
     assert "not in the port's zoo" in skipped[0]["error"]
     assert [c.label for c in cells] == ["granite-3-8b/dp1_z0",
                                         "granite-3-8b/dp1_z2_ckpt"]

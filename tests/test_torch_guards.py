@@ -129,14 +129,18 @@ def test_unported_serve_modes_exit(flag):
 
 
 def test_only_dense_single_device_plans(no_cuda):
-    """Dense families only; training takes plans on exactly S · dp · tp
-    ranks, serving single-stage plans on one device; each refusal names
-    ROADMAP.md."""
+    """Dense and MoE decoders build, other families and MLA refuse;
+    training takes plans on exactly S · dp · tp ranks, serving
+    single-stage plans on one device; each refusal names ROADMAP.md."""
     cfg = get_arch("granite-3-8b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg.replace(num_experts=4, num_experts_per_tok=2), "cpu")
+    moe = build_model(get_arch("qwen2-moe-a2.7b").reduced(), "cpu")
+    params, _ = moe.init(torch.Generator().manual_seed(0), torch.float32)
+    assert "layers/moe/router" in params and "layers/attn/bq" in params
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg.replace(family="audio"), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(cfg.replace(attention_type="mla"), "cpu").init(
+            torch.Generator())
     for dp, tp in ((1, 1), (2, 1), (1, 2), (2, 4)):
         plan = single_stage_plan(4, dp=dp, tp=tp, micro_batch=1,
                                  grad_accum=1)

@@ -525,11 +525,11 @@ def test_rmsnorm_wrapper_mirrors_the_kernels_dispatch():
     (4096, 2, True, 16), (2560, 2, True, 10),     # bf16 serving widths
     (4096, 4, True, 32), (2560, 4, True, 20),     # f32
     (4096, 2, False, 0), (2560, 4, False, 0),     # rows not 16-byte aligned
-    (8192, 2, True, 0), (2048, 2, True, 0), (1000, 2, True, 0),
-    (1001, 4, False, 0)])
+    (8192, 2, True, 0), (2048, 2, True, 8), (1000, 2, True, 0),
+    (1001, 4, False, 0), (2048, 4, True, 16)])
 def test_rmsnorm_plan_holds_the_serving_widths_in_registers(d, esize, vec_ok,
                                                             want):
-    """Register-resident instantiation for d 2560 and 4096, the generic
+    """Register-resident instantiation for d 2048, 2560 and 4096, the generic
     kernel (0) otherwise; a resident row is whole 16-byte vectors per lane
     and at most 128 registers of it."""
     nv = RN.vectors_per_lane(d, esize, vec_ok)
@@ -680,12 +680,12 @@ def test_rmsnorm_bwd_wrapper_mirrors_the_kernels_dispatch():
     (4096, 2, True, 2), (2560, 2, True, 2),       # bf16 model widths
     (4096, 4, True, 4), (2560, 4, True, 4),       # f32
     (4096, 2, False, 0), (2560, 4, False, 0),     # rows not 16-byte aligned
-    (8192, 2, True, 0), (2048, 2, True, 0), (1000, 2, True, 0),
-    (1001, 4, False, 0), (57856, 2, True, 0)])
+    (8192, 2, True, 0), (2048, 2, True, 2), (1000, 2, True, 0),
+    (1001, 4, False, 0), (57856, 2, True, 0), (2048, 4, True, 4)])
 def test_rmsnorm_bwd_ring_route_takes_the_model_widths(d, esize, vec_ok,
                                                         want):
-    """The ring route for d 2560 and 4096 with 16-byte aligned rows, in bf16
-    and f32 (BWD_COLS columns a consumer thread: 2 or 4 vectors), the
+    """The ring route for d 2048, 2560 and 4096 with 16-byte aligned rows, in
+    bf16 and f32 (BWD_COLS columns a consumer thread: 2 or 4 vectors), the
     generic route (0) otherwise.  A ring instance has at least two stages
     with at least 64 KB in flight beside the one being read, and fits a
     block's shared memory beside the widest generic route's."""

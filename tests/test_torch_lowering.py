@@ -46,7 +46,7 @@ from repro_torch.lowering import (MEMORY_REL_TOL, check_plan_mesh,
                                   train_exec_cfg)
 from repro_torch.parallel.sharding import abstract_mesh
 
-ARCHS = ("granite-3-8b", "zamba2-2.7b")
+ARCHS = ("granite-3-8b", "qwen2-moe-a2.7b", "zamba2-2.7b")
 # the port's H100, as a reference spec, less the one field the reference
 # lacks (devices_per_host: the plans held here fit one host, where it
 # changes no price)

@@ -56,7 +56,7 @@ from repro_torch.launch import train as train_launch
 from repro_torch.lowering import cache_layout as TCL
 from repro_torch.lowering import state_layout as TSL
 
-ARCHS = ("granite-3-8b", "zamba2-2.7b")
+ARCHS = ("granite-3-8b", "qwen2-moe-a2.7b", "zamba2-2.7b")
 # the reference's hardware, as a port spec: the golden fixtures and the
 # test_system plan were tuned for it
 V5E_VALUES = HardwareSpec(**dataclasses.asdict(V5E))
@@ -268,6 +268,11 @@ def test_arch_stats_and_param_count_match_the_reference(arch):
     for active in (False, True):
         assert TCP.param_count(get_arch(arch), active_only=active) == \
             JCP.param_count(jax_get_arch(arch), active_only=active)
+    if arch == "qwen2-moe-a2.7b":
+        # the counterpart of the reference's test_moe_uses_active_params
+        total = TCP.param_count(get_arch(arch))
+        assert total == 14_315_784_192
+        assert TCP.param_count(get_arch(arch), active_only=True) < total / 2
 
 
 def test_meta_probe_allocates_and_draws_nothing():
@@ -319,11 +324,14 @@ def test_cache_layout_matches_the_reference(arch, batch, max_len, kv):
 # -- plans ------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("space", golden.GOLDEN_SPACES)
-def test_golden_fixture_reproduced(space):
-    path = golden.golden_path(space, "granite-3-8b")
+@pytest.mark.parametrize("space, arch", [
+    pytest.param(space, arch, id=space if arch == "granite-3-8b"
+                 else f"{space}-{arch}")
+    for arch in golden.GOLDEN_ARCHS for space in golden.GOLDEN_SPACES])
+def test_golden_fixture_reproduced(space, arch):
+    path = golden.golden_path(space, arch)
     want = json.loads(path.read_text())
-    doc = golden.compute_doc(space, "granite-3-8b", hw=V5E_VALUES)
+    doc = golden.compute_doc(space, arch, hw=V5E_VALUES)
     assert golden.diff_docs(want["doc"], doc) == []
     assert golden.fingerprint(doc) == want["fingerprint"]
 
