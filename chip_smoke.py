@@ -9,6 +9,8 @@
                                              # and phase U's steps
     python3 chip_smoke.py --moe-only         # phases 1 and 2, then only
                                              # phase M
+    python3 chip_smoke.py --serve-only       # phases 1 and 2, then only
+                                             # phase S
 
 Drives the port (``src/repro_torch``) only; imports nothing of JAX or of
 the JAX package.  Phases, in order; any failure raises and the script exits
@@ -22,7 +24,8 @@ non-zero (no phase catches another's exception):
    attention (hd 128 for granite, hd 80 for zamba2; every head dim with Sq
    off the 128-row query block, Sk shorter than one K/V tile, Sq = 1,
    causal with Sq > Sk, non-causal with a ragged last K/V tile), RMSNorm
-   (d 4096 and 2560 at the prefill and decode shapes and one row, the
+   (d 4096 and 2560 at the prefill and decode shapes and one row, d 5120
+   at zamba2's decode gated norm, the
    generic kernel's widths 8192, 1001 and 1000, mixed x/scale types, rows
    not 16-byte aligned), the SSD scan, y and the final state (zamba2's
    serving shape in bf16, a smaller f32 shape, S < chunk, a chunk no
@@ -180,7 +183,7 @@ P. Pipelined plans: granite-3-8b at full depth and width tuned for 16
 5. Phases 3 and 4 for full-width zamba2-2.7b (all 54 Mamba2 layers in 9
    groups, one shared attention block, bf16): logits kernels vs plain
    (both held against the plain versions in f32, see ACCURACY_ROOM),
-   ``generate(gen=32)`` with exactly 9 flash, 2336 RMSNorm and 54 SSD
+   ``generate(gen=32)`` with exactly 9 flash, 4010 RMSNorm and 54 SSD
    launches, the reduced config card vs CPU, and the timings (SSD, flash
    at hd 80, RMSNorm at d 2560, the serve loop).
 H. Hybrid training.  (a) The SSD backward kernel against ``ssd_bwd_plain``
@@ -241,6 +244,37 @@ M. The MoE family, qwen2-moe-a2.7b (24 layers, d 2048, 16 heads of 128 with
    (d) Flash forward at the serving shape, flash forward and backward at
    the training shape, RMSNorm forward and backward at 4096 x 2048 (phase
    2 holds each, and the tp-4 rank's shapes, against its plain version).
+S. The continuous-batching engine (``serving/``) at full width and depth,
+   in bf16, weights from seed 0: granite-3-8b (40 layers, 8 requests),
+   zamba2-2.7b (54 layers, 6 requests; only the 9 shared-block attention
+   caches are paged, the conv and SSM state stay in their slots) and
+   qwen2-moe-a2.7b (24 layers, 6 requests), S_SLOTS = 4 slots, max_len
+   1056, prompts of 64-1024 tokens and output budgets of 4-32 from numpy
+   seed 0, the page size the serve tuner picks for 4 x 1056 over
+   page_grid (0, 16) (the plan printed).  Every launch counter set to 0
+   just before the engine's run and checked exactly just after: each
+   admission's batch-1 prefill launches flash once per attention layer
+   (and the hybrid's SSD once per Mamba2 layer), each prefill and decode
+   step one RMSNorm per norm of a forward (a hybrid's decode step also one
+   per Mamba2 layer's gated norm).  Every request's tokens against
+   the batch-1 static decode at max_len 1056, bitwise; where they differ,
+   the first differing token's logits at M = 1 and M = 4 decide: if the
+   engine's row equals the batch-4 static decode's (the request in its
+   slot, zero rows elsewhere) bitwise, and a weight product of the decode
+   step gives a row another value at M = 4 than at M = 1 (the GEMMs),
+   every request is held to that comparator and both results are printed;
+   any other difference fails (``tools/decode_rows_by_m.py`` finds the op).
+   ``memory_bytes()`` equal to ``concrete_paged_cache_bytes``, bitwise.
+   Granite also runs with ``kv_cache_dtype="int8"``: the same checks, the
+   pools' codes int8 and scales f32 after decode, and the int8 static
+   decode teacher-forced beside the bf16 one under the reference's rule
+   (argmax equal wherever the bf16 top-2 margin exceeds twice the largest
+   int8-bf16 logit difference, printed).  Printed per model: the engine's
+   wall time and tokens per second, admissions and decode steps, the
+   pool's pages and bytes, the gathered view's bytes, the peak, and the
+   paged step (split into gather + mask, decode and scatter) against the
+   contiguous step at batch 4 and the same max_len, all beside the card's
+   name and power limit.
 6. With ``--profile`` only: a ``torch.profiler`` window over one prefill
    and over three decode steps of each model, and over one train step of
    each trained model (granite in phase T, zamba2 in phase H) --
@@ -423,6 +457,17 @@ Z_PEAK_BOUND, H_PEAK_BOUND = 1.05, 1.10
 M_LAYERS, M_D_MODEL, M_HEADS, M_EXPERTS = 24, 2048, 16, 60
 M_T_LAYERS, M_STEPS, M_TUNED_STEPS = 4, 5, 2
 M_TP, M_R_LAYERS = 4, 8
+# phase S: the continuous-batching engine (serving/) at full width and
+# depth: S_SLOTS decode slots over a horizon of S_MAX_LEN rows (the longest
+# prompt plus the largest budget), S_REQUESTS requests a model with prompts
+# of S_PLENS tokens and output budgets of S_GENS drawn from numpy seed 0,
+# pages of the size the serve tuner picks over page_grid (0, S_PAGE); the
+# paged and contiguous steps and the paged step's parts timed in turns,
+# S_STEP_REPS rounds
+S_SLOTS, S_PAGE, S_PLENS, S_GENS = 4, 16, (64, 1024), (4, 32)
+S_MAX_LEN = S_PLENS[1] + S_GENS[1]
+S_REQUESTS = {"granite-3-8b": 8, "zamba2-2.7b": 6, "qwen2-moe-a2.7b": 6}
+S_STEP_REPS = 12
 
 
 def log(msg: str) -> None:
@@ -693,6 +738,10 @@ def phase_kernels_vs_plain():
         (BATCH, M_D_MODEL, None, None, True),
         (T_SEQ // M_TP, M_D_MODEL, None, None, True),
         (1, M_D_MODEL, None, None, True),
+        # zamba2's decode gated norm over d_inner (phases 5 and S): a decode
+        # step of the batch, of the engine's slots, and of one row
+        (BATCH, 2 * Z_D_MODEL, None, None, True),
+        (1, 2 * Z_D_MODEL, None, None, True),
     ]
     for rows, d, xdt, sdt, aligned in rn_cases:
         for dtype in ((xdt,) if xdt else (torch.bfloat16, torch.float32)):
@@ -1165,10 +1214,12 @@ def _granite_launches(cfg):
 def _zamba2_launches(cfg):
     groups = cfg.num_layers // cfg.shared_attn_every
     # prefill: one flash per shared-block application and one SSD per
-    # Mamba2 layer; every step: 2 norms per application, 1 per Mamba2
-    # layer and the final norm (73 at full width)
+    # Mamba2 layer; every forward: 2 norms per application, 1 per Mamba2
+    # layer and the final norm (73 at full width), and each decode step the
+    # gated norm of every Mamba2 layer too (127)
     return {"flash_attention_fwd": groups, "flash_attention_bwd": 0,
-            "rmsnorm": (2 * groups + cfg.num_layers + 1) * GEN,
+            "rmsnorm": (2 * groups + cfg.num_layers + 1) * GEN
+            + cfg.num_layers * (GEN - 1),
             "rmsnorm_bwd": 0, "ssd_scan": cfg.num_layers, "ssd_scan_bwd": 0}
 
 
@@ -4817,6 +4868,425 @@ def phase_moe(errs, profile=False):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase S: the continuous-batching engine (serving/)
+# ---------------------------------------------------------------------------
+
+
+def _s_requests(cfg, n, chunk=None):
+    """``n`` requests from numpy seed 0: prompts of S_PLENS tokens, output
+    budgets of S_GENS.  With ``chunk`` (the hybrid's SSD chunk) a prompt
+    at least a chunk long is cut to a whole number of chunks: the SSD
+    prefill takes S below the chunk or a multiple of it, as the
+    reference's (``ssd_scan.chunk_len``)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    plens = rng.integers(S_PLENS[0], S_PLENS[1] + 1, n)
+    gens = rng.integers(S_GENS[0], S_GENS[1] + 1, n)
+    if chunk:
+        plens = np.where(plens < chunk, plens, plens - plens % chunk)
+    return [(torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, int(p)),
+                                           dtype=np.int32)).to(DEVICE),
+             int(g)) for p, g in zip(plens, gens)]
+
+
+def _s_launches(cfg, admissions, steps):
+    """Exact counts of the engine's run: each admission's batch-1 prefill
+    and each decode step launch one RMSNorm kernel per norm of a forward
+    (a hybrid's decode step also one per Mamba2 layer's gated norm); each
+    prefill launches flash (and the hybrid's SSD) once per attention
+    (Mamba2) layer, and a decode step neither."""
+    if cfg.family == "hybrid":
+        groups = cfg.num_layers // cfg.shared_attn_every
+        flash, ssd, norms = groups, cfg.num_layers, \
+            2 * groups + cfg.num_layers + 1
+        gated = cfg.num_layers
+    else:
+        flash, ssd, norms = cfg.num_layers, 0, 2 * cfg.num_layers + 1
+        gated = 0
+    return {"flash_attention_fwd": admissions * flash,
+            "flash_attention_bwd": 0,
+            "rmsnorm": (admissions + steps) * norms + steps * gated,
+            "rmsnorm_bwd": 0, "ssd_scan": admissions * ssd,
+            "ssd_scan_bwd": 0}
+
+
+def _s_static(model, params, plan, prompt, gen, slots=1, row=0,
+              forced=None):
+    """One request through the contiguous static decode at S_MAX_LEN:
+    batch 1 (``generate``'s path), or batch ``slots`` with the request in
+    row ``row`` and zero rows elsewhere (token 0, zero caches: the engine's
+    M).  ``forced``: feed these tokens instead of the greedy ones.  Returns
+    (tokens, each token's logits row, f32)."""
+    from repro_torch.models.zoo import pad_caches, quantize_caches
+    from repro_torch.serving.pages import classify_cache_tree, tree_get
+    from repro_torch.training.step import make_prefill_step, make_serve_step
+
+    kv8 = plan.kv_cache_dtype == "int8"
+    prefill = make_prefill_step(model, plan, return_cache=True)
+    serve = make_serve_step(model, plan, batch=slots, max_len=S_MAX_LEN)
+    with torch.inference_mode():
+        logits, caches = prefill.fn(params, {"tokens": prompt})
+        if kv8:
+            caches = quantize_caches(caches)
+        caches = pad_caches(caches, S_MAX_LEN - prompt.shape[1])
+        if slots > 1:
+            full = model.init_caches(
+                slots, S_MAX_LEN, torch.int8 if kv8 else torch.bfloat16)
+            for sp in classify_cache_tree(model.cfg, slots, S_MAX_LEN,
+                                          plan.kv_cache_dtype):
+                dst, src = tree_get(full, sp.path), tree_get(caches, sp.path)
+                if sp.bdim is None:
+                    dst.copy_(src)                          # pos
+                else:
+                    dst.select(sp.bdim, row).copy_(src.select(sp.bdim, 0))
+            caches = full
+        rows = [logits[0, -1].float()]
+        toks = [int(rows[0].argmax())]
+        tok = torch.zeros((slots, 1), dtype=torch.int32, device=DEVICE)
+        for i in range(1, gen):
+            tok[row, 0] = toks[-1] if forced is None else forced[i - 1]
+            logits, caches = serve.fn(params, tok, caches)
+            rows.append(logits[row, -1].float())
+            toks.append(int(rows[-1].argmax()))
+    return toks, rows
+
+
+def _s_engine(model, params, plan, reqs, page_size):
+    """The engine over ``reqs``, every launch counter set to 0 just before
+    and read just after.  Returns (results, engine, launches, wall s, peak
+    bytes, trace): the trace has each decode step's logits and each active
+    request's (slot, tokens emitted before the step)."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, params, plan, slots=S_SLOTS,
+                                   max_len=S_MAX_LEN, page_size=page_size)
+    trace = []
+    step = eng._step.fn
+
+    def traced(p, tokens, state, bt):
+        who = {st.rid: (slot, st.emitted)
+               for slot, st in eng.sched.active.items()}
+        logits, state = step(p, tokens, state, bt)
+        trace.append((who, logits[:, -1].float()))
+        return logits, state
+    eng._step.fn = traced
+    for i, (prompt, gen) in enumerate(reqs):
+        eng.submit({"tokens": prompt}, gen, rid=i)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    return res, eng, launches, wall, torch.cuda.max_memory_allocated(), trace
+
+
+def _s_check_tokens(what, model, params, plan, reqs, res, trace):
+    """Every request's tokens against the batch-1 static decode, bitwise.
+    Where they differ, the first differing token's logits are compared at M
+    = 1 and M = S_SLOTS; if the engine's row equals the batch-S_SLOTS static
+    decode's bitwise there (the row's result depends on M, not on the
+    engine), every request is held to that comparator instead.  Any other
+    difference raises.  Returns (comparator, batch-1 tokens)."""
+    import numpy as np
+    one = [_s_static(model, params, plan, p, g) for p, g in reqs]
+    bad = [i for i, (t, _) in enumerate(one)
+           if not np.array_equal(res[i], t)]
+    log(f"# {what}: tokens == batch-1 static decode at max_len {S_MAX_LEN}"
+        f" for {len(reqs) - len(bad)} of {len(reqs)} requests")
+    if not bad:
+        return "batch-1", [t for t, _ in one]
+    rid = bad[0]
+    d = int(np.argmax(np.asarray(res[rid]) != np.asarray(one[rid][0])))
+    if d == 0:
+        raise AssertionError(f"{what}: request {rid}'s prefill token "
+                             "differs from the static path's")
+    who, lg = next((w, lg) for w, lg in trace if w.get(rid, (0, -1))[1]
+                   == d)
+    slot = who[rid][0]
+    wide_toks, wide = _s_static(model, params, plan, *reqs[rid],
+                                slots=S_SLOTS, row=slot)
+    eng_row = lg[slot]
+    log(f"# {what}: request {rid} first differs at token {d} (slot {slot}):"
+        f" engine vs batch-1 logits max |diff| "
+        f"{float((eng_row - one[rid][1][d]).abs().max()):.4e}, engine vs "
+        f"batch-{S_SLOTS} static (row {slot}) bitwise "
+        f"{torch.equal(eng_row, wide[d])}")
+    if not torch.equal(eng_row, wide[d]):
+        raise AssertionError(f"{what}: the engine's row differs from the "
+                             "static decode at the same M: a fault of the "
+                             "port, not the GEMMs'")
+    if not _s_gemm_rows(what, model, params, plan, slot):
+        raise AssertionError(f"{what}: the row depends on M, but no GEMM of "
+                             "the decode step does")
+    same = 0
+    for i, (p, g) in enumerate(reqs):
+        t = wide_toks if i == rid else _s_static(
+            model, params, plan, p, g, slots=S_SLOTS,
+            row=next(w[i][0] for w, _ in trace if i in w))[0]
+        if not np.array_equal(res[i], t):
+            raise AssertionError(f"{what}: request {i} differs from the "
+                                 f"batch-{S_SLOTS} static decode too")
+        same += 1
+    log(f"# {what}: tokens == batch-{S_SLOTS} static decode (the request in "
+        f"its engine slot, zero rows elsewhere) for {same} of {len(reqs)} "
+        f"requests; batch-1: {len(reqs) - len(bad)} of {len(reqs)}")
+    return f"batch-{S_SLOTS}", [t for t, _ in one]
+
+
+def _s_gemm_rows(what, model, params, plan, row):
+    """Every product of an activation by a 2-D weight (``aten.matmul``,
+    ``mm`` / ``addmm``) in one contiguous decode step at batch S_SLOTS, run
+    again on row ``row`` of its left operand alone (M = 1): logs the
+    products whose row differs bitwise from the batch's, by shape, and
+    returns their number."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.training.step import make_serve_step
+
+    mm, addmm = torch.ops.aten.mm.default, torch.ops.aten.addmm.default
+    gemms = (torch.ops.aten.matmul.default, mm, addmm)
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in gemms:
+                seen.append((func, args, kwargs or {}, out))
+            return out
+
+    serve = make_serve_step(model, plan, batch=S_SLOTS, max_len=S_MAX_LEN)
+    caches = model.init_caches(
+        S_SLOTS, S_MAX_LEN,
+        torch.int8 if plan.kv_cache_dtype == "int8" else torch.bfloat16)
+    tok = torch.randint(0, model.cfg.vocab_size, (S_SLOTS, 1),
+                        generator=torch.Generator(DEVICE).manual_seed(0),
+                        device=DEVICE, dtype=torch.int32)
+    with torch.inference_mode():
+        with Record():
+            serve.fn(params, tok, caches)
+        differ = {}
+        for func, args, kwargs, out in seen:
+            a, w = args[-2:] if func is addmm else args[:2]
+            if a.shape[0] != S_SLOTS or w.dim() != 2:
+                continue
+            one = a[row:row + 1]
+            alone = torch.addmm(args[0], one, w, **kwargs) \
+                if func is addmm else func(one, w)
+            key = f"{tuple(a.shape)} x {tuple(w.shape)}"
+            n, bad = differ.get(key, (0, 0))
+            differ[key] = (n + 1, bad + int(not torch.equal(alone[0],
+                                                            out[row])))
+    n_bad = sum(b for _, b in differ.values())
+    log(f"# {what}: the decode step's weight products at M = {S_SLOTS}, row "
+        f"{row} run alone (M = 1): {n_bad} of "
+        f"{sum(n for n, _ in differ.values())} differ bitwise; by shape "
+        f"(products, differing): {differ}")
+    return n_bad
+
+
+def _alternating_ms(fns, reps):
+    """Median CUDA-event ms of each call in ``fns`` ({name: fn}), timed in
+    turns (each name once a round, the order reversed every other round)
+    after two warm-up calls each."""
+    for fn in fns.values():
+        fn()
+        fn()
+    times = {k: [] for k in fns}
+    order = list(fns)
+    for i in range(reps):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fns[k]()
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _s_step_ms(eng, model, params, plan):
+    """The paged step against the contiguous step at batch S_SLOTS and the
+    same max_len, every slot active near the horizon; the paged step split
+    into gather + mask, decode and scatter."""
+    from repro_torch.serving.pages import tree_get
+    from repro_torch.training.step import make_serve_step
+
+    step, npp = eng._step, eng.npp
+    pos = S_MAX_LEN - 1 - S_GENS[1] - torch.arange(S_SLOTS, device=DEVICE,
+                                                   dtype=torch.int32)
+    bt = torch.arange(S_SLOTS * npp, dtype=torch.int32,
+                      device=DEVICE).view(S_SLOTS, npp)
+    tokens = torch.ones((S_SLOTS, 1), dtype=torch.int32, device=DEVICE)
+    with torch.inference_mode():
+        for sp in eng.specs:
+            if sp.is_pos:
+                tree_get(eng.state, sp.path).copy_(
+                    pos.expand(sp.shape + (S_SLOTS,)))
+        state = eng.state
+        dense = step.gather(state, bt)
+        serve = make_serve_step(model, plan, batch=S_SLOTS,
+                                max_len=S_MAX_LEN)
+        caches = model.init_caches(
+            S_SLOTS, S_MAX_LEN,
+            torch.int8 if plan.kv_cache_dtype == "int8" else torch.bfloat16)
+        for sp in eng.specs:
+            if sp.is_pos:
+                tree_get(caches, sp.path).fill_(int(pos[0]))
+        ms = _alternating_ms(dict(
+            paged=lambda: step.fn(params, tokens, state, bt),
+            contiguous=lambda: serve.fn(params, tokens, caches),
+            gather_mask=lambda: step.gather(state, bt),
+            decode=lambda: step.decode(params, tokens, dense),
+            scatter=lambda: step.scatter(state, dense, bt, pos)),
+            S_STEP_REPS)
+        del dense, caches
+    return ms
+
+
+def _s_int8_tracks_bf16(model, params, plan, plan8, req, toks16):
+    """The reference's rule on one request, teacher-forced on the bf16
+    static decode's tokens: the int8 static decode's argmax equals the
+    bf16 one's wherever the bf16 top-2 margin exceeds twice the largest
+    int8-bf16 logit difference.  Returns that difference."""
+    _, lg16 = _s_static(model, params, plan, *req, forced=toks16)
+    _, lg8 = _s_static(model, params, plan8, *req, forced=toks16)
+    a16, a8 = torch.stack(lg16), torch.stack(lg8)
+    err = float((a16 - a8).abs().max())
+    top2 = a16.topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * err
+    agree = a16.argmax(-1) == a8.argmax(-1)
+    log(f"# int8 vs bf16 static decode, teacher-forced ({len(lg16)} "
+        f"tokens): max |logit diff| {err:.4e}, max |logit| "
+        f"{float(a16.abs().max()):.4f}, decisive steps "
+        f"{int(decisive.sum())}, argmax agreement "
+        f"{float(agree.float().mean())}")
+    if not (torch.isfinite(a8).all() and bool(agree[decisive].all())):
+        raise AssertionError("int8 decode: argmax moved where the bf16 "
+                             "margin exceeds twice the int8 error")
+    return err
+
+
+def _s_model(arch, dims, int8=False):
+    """Phase S for one model (module docstring)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.serve import tuned_serve_plan
+    from repro_torch.lowering import serve_exec_cfg
+    from repro_torch.lowering.cache_layout import concrete_paged_cache_bytes
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serving.pages import tree_get
+
+    t_start = time.perf_counter()
+    cfg = get_arch(arch)
+    got_dims = {k: getattr(cfg, k) for k in dims}
+    assert got_dims == dims, (got_dims, dims)
+    model = build_model(cfg, DEVICE)
+    params, _ = model.init(torch.Generator(DEVICE).manual_seed(0))
+    plan, report = tuned_serve_plan(cfg, batch=S_SLOTS, max_len=S_MAX_LEN,
+                                    page_grid=(0, S_PAGE))
+    st = plan.stages[0]
+    log(f"# {arch}: tuned serve plan for {S_SLOTS} x {S_MAX_LEN}: dp={st.dp} "
+        f"tp={st.tp} zero={st.zero} kv={plan.kv_cache_dtype} page_size="
+        f"{plan.page_size} (objective {report.objective:.6f} s)")
+    # the cost model prices flash attention: serve with its kernel, as the
+    # launcher does
+    plan = plan.replace(attn_impl="pallas", use_pallas=True)
+    page = plan.page_size or S_PAGE
+    reqs = _s_requests(cfg, S_REQUESTS[arch], serve_exec_cfg(plan).ssd_chunk
+                       if cfg.family == "hybrid" else None)
+    log(f"# {arch}: {len(reqs)} requests, prompts "
+        f"{[int(p.shape[1]) for p, _ in reqs]}, budgets "
+        f"{[g for _, g in reqs]}")
+    out = []
+    for kv in ("bf16", "int8") if int8 else ("bf16",):
+        p = plan.replace(kv_cache_dtype=kv)
+        what = f"{arch} ({kv})"
+        res, eng, launches, wall, peak, trace = _s_engine(model, params, p,
+                                                          reqs, page)
+        want = _s_launches(cfg, eng.admissions, eng.steps_run)
+        log(f"# {what}: engine launches {launches}; admissions "
+            f"{eng.admissions}, decode steps {eng.steps_run}")
+        if launches != want:
+            raise AssertionError(f"{what}: launch counts {launches} != "
+                                 f"{want}")
+        comparator, toks1 = _s_check_tokens(what, model, params, p, reqs,
+                                            res, trace)
+        if kv == "bf16":
+            toks16 = toks1
+        else:
+            attn = eng.state.get("attn", eng.state)
+            if not (attn["k"].dtype == attn["v"].dtype == torch.int8 and
+                    attn["k_scale"].dtype == attn["v_scale"].dtype
+                    == torch.float32):
+                raise AssertionError(f"{what}: pool dtypes "
+                                     f"{[(k, t.dtype) for k, t in attn.items()]}")
+            err8 = _s_int8_tracks_bf16(model, params, plan, p, reqs[0],
+                                       toks16[0])
+        bytes_ = eng.memory_bytes()
+        derived = int(concrete_paged_cache_bytes(cfg, S_SLOTS, S_MAX_LEN,
+                                                 page, kv, dp_size=1,
+                                                 tp_size=1))
+        if bytes_ != derived:
+            raise AssertionError(f"{what}: engine bytes {bytes_} != "
+                                 f"derived {derived}")
+        pools = {sp.key: tree_get(eng.state, sp.path) for sp in eng.specs
+                 if sp.paged}
+        view = sum(t.numel() // t.shape[1] * S_SLOTS * eng.npp
+                   * t.element_size() for t in pools.values())
+        for rid, toks in res.items():
+            if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+                raise AssertionError(f"{what}: request {rid} tokens {toks}")
+        ms = _s_step_ms(eng, model, params, p)
+        total = sum(g for _, g in reqs)
+        rec = dict(
+            model=arch, kv_cache_dtype=kv, slots=S_SLOTS,
+            max_len=S_MAX_LEN, page_size=page, requests=len(reqs),
+            tokens=total, admissions=eng.admissions,
+            decode_steps=eng.steps_run, engine_s=wall,
+            tokens_per_s=total / wall, comparator=comparator,
+            memory_bytes=bytes_, derived_bytes=derived,
+            pool_pages=eng.n_data_pages + 1,
+            pool_bytes=sum(t.nbytes for t in pools.values()),
+            gathered_view_bytes=view, peak_bytes=peak,
+            paged_step_ms=ms["paged"], gather_mask_ms=ms["gather_mask"],
+            decode_ms=ms["decode"], scatter_ms=ms["scatter"],
+            contiguous_step_ms=ms["contiguous"], card=smi_line())
+        if kv == "int8":
+            rec["int8_vs_bf16_max_logit_diff"] = err8
+        log(json.dumps({"serve_engine": rec}))
+        out.append(rec)
+        del eng, res, trace
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"# phase S, {arch}: {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def phase_serving():
+    """Phase S (module docstring): the continuous-batching engine at full
+    width and depth for granite-3-8b (bf16 and int8), zamba2-2.7b and
+    qwen2-moe-a2.7b."""
+    log(f"# phase S on {smi_line()}")
+    _s_model("granite-3-8b", dict(num_layers=N_LAYERS, d_model=D_MODEL,
+                                  num_heads=N_HEADS, num_kv_heads=N_KV,
+                                  head_dim=HEAD_DIM), int8=True)
+    _s_model("zamba2-2.7b", dict(num_layers=Z_LAYERS, d_model=Z_D_MODEL,
+                                 num_heads=Z_HEADS, head_dim=Z_HEAD_DIM,
+                                 shared_attn_every=Z_LAYERS // Z_GROUPS))
+    _s_model("qwen2-moe-a2.7b", dict(num_layers=M_LAYERS,
+                                     d_model=M_D_MODEL, num_heads=M_HEADS,
+                                     num_experts=M_EXPERTS))
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4845,6 +5315,14 @@ def main() -> int:
         kernels = phase_moe(errs, profile)
         mark("phase M")
         print(json.dumps({"kernels": kernels}))
+        return 0
+    if "--serve-only" in sys.argv[1:]:
+        phase_serving()
+        mark("phase S")
+        print(smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
     # granite-3-8b
@@ -5013,6 +5491,14 @@ def main() -> int:
     # rank of a tp-4 plan
     kernels += phase_moe(errs, profile)
     mark("phase M")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the continuous-batching engine: the three models served through
+    # the paged KV cache, token for token with the static decode
+    phase_serving()
+    mark("phase S")
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     # every entry ran at the tiles the plan's default tuple runs

@@ -67,12 +67,16 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]
     return {n: _to_numpy(t) for n, t in params.items()}
 
 
+_F32_CACHE_KEYS = ("ssm", "k_scale", "v_scale")
+
+
 def caches_from_numpy(tree: Mapping, *, dtype: Optional[torch.dtype] = None,
                       device: Device = "cpu") -> Dict:
     """A cache tree -- dense ``{k, v, pos}`` or the hybrid's ``{"attn":
-    {k, v, pos}, "mamba": {conv, ssm}}`` -- leaf by leaf: ``pos`` as int32,
-    the SSM state ``ssm`` as f32 (it is f32 in both packages), every other
-    floating leaf cast to ``dtype``."""
+    {k, v, pos}, "mamba": {conv, ssm}}``, with the int8 layout's
+    ``k_scale``/``v_scale`` -- leaf by leaf: ``pos`` as int32, the SSM state
+    ``ssm`` and the scales as f32 (they are f32 in both packages), int8
+    codes as int8, every other floating leaf cast to ``dtype``."""
     out = {}
     for key, val in tree.items():
         if isinstance(val, Mapping):
@@ -80,7 +84,7 @@ def caches_from_numpy(tree: Mapping, *, dtype: Optional[torch.dtype] = None,
         elif key == "pos":
             out[key] = _to_torch(np.asarray(val, np.int32), None, device)
         else:
-            out[key] = _to_torch(val, torch.float32 if key == "ssm"
+            out[key] = _to_torch(val, torch.float32 if key in _F32_CACHE_KEYS
                                  else dtype, device)
     return out
 

@@ -350,18 +350,19 @@ def lm_decode(params: Params, tokens: torch.Tensor, caches: Dict,
               cfg: ArchConfig, ec: ExecConfig):
     """One decode step: tokens (B,1) + stacked caches -> (logits, caches).
 
-    The k/v buffers of ``caches`` are written IN PLACE (one row per layer at
-    ``pos``); the returned caches hold the same buffers and ``pos + 1``."""
+    ``pos`` is ``(L,)`` (lock-step decode) or ``(L, B)`` (a position per
+    request: the paged engine); int8 caches carry ``k_scale``/``v_scale``.
+    The k/v (and scale) buffers of ``caches`` are written IN PLACE (one row
+    per layer at ``pos``); the returned caches hold the same buffers and
+    ``pos + 1``."""
     x = embed_tokens(params, tokens, cfg, ec)
     stacked = subtree(params, "layers")
     h = x
     for i in range(cfg.num_layers):
-        lc = {"k": caches["k"][i], "v": caches["v"][i],
-              "pos": caches["pos"][i]}
+        lc = {key: buf[i] for key, buf in caches.items()}
         h, _, _ = apply_block(layer(stacked, i), h, cfg, ec, cache=lc)
     h = L.norm(subtree(params, "final_norm"), h, cfg, ec)
-    return _logits(params, h, cfg), {"k": caches["k"], "v": caches["v"],
-                                     "pos": caches["pos"] + 1}
+    return _logits(params, h, cfg), dict(caches, pos=caches["pos"] + 1)
 
 
 def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int,

@@ -215,6 +215,8 @@ def hybrid_decode(params: Params, tokens: torch.Tensor, caches: Dict,
                   cfg: ArchConfig, ec: ExecConfig):
     """One decode step: tokens (B,1) + caches -> (logits, caches).
 
+    ``pos`` is ``(G,)``, or ``(G, B)`` with a position per request (the
+    paged engine); int8 attention caches carry ``k_scale``/``v_scale``.
     Every buffer of ``caches`` is written IN PLACE (the attention k/v row at
     ``pos``, each layer's conv window and SSM state); the returned caches
     hold the same buffers and ``pos + 1``."""
@@ -226,7 +228,7 @@ def hybrid_decode(params: Params, tokens: torch.Tensor, caches: Dict,
     ac, mc = caches["attn"], caches["mamba"]
     h = x
     for gi in range(ng):
-        gc = {"k": ac["k"][gi], "v": ac["v"][gi], "pos": ac["pos"][gi]}
+        gc = {key: buf[gi] for key, buf in ac.items()}
         h, _ = _shared_block(shared, gin[gi], h, x, cfg, ec, cache=gc)
         group = layer(mamba, gi)
         for li in range(per):
@@ -235,8 +237,7 @@ def hybrid_decode(params: Params, tokens: torch.Tensor, caches: Dict,
             lc["conv"].copy_(nc["conv"])
             lc["ssm"].copy_(nc["ssm"])
     h = L.norm(subtree(params, "final_norm"), h, cfg, ec)
-    new_caches = {"attn": {"k": ac["k"], "v": ac["v"], "pos": ac["pos"] + 1},
-                  "mamba": mc}
+    new_caches = {"attn": dict(ac, pos=ac["pos"] + 1), "mamba": mc}
     return _logits(params, h, cfg), new_caches
 
 
@@ -244,7 +245,10 @@ def init_hybrid_caches(cfg: ArchConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, device="cpu") -> Dict:
     ng, per = group_shape(cfg)
     attn_c = L.init_self_kv_cache(cfg, batch, max_len, dtype, device)
-    mamba_c = SSM.init_mamba2_cache(cfg, batch, dtype, device)
+    # an int8 KV cache quantizes the attention k/v only: the conv window
+    # holds activations in the compute dtype (docs/port.md)
+    mamba_c = SSM.init_mamba2_cache(
+        cfg, batch, torch.bfloat16 if dtype == torch.int8 else dtype, device)
     # real stacked buffers, not broadcast views: decode writes them in place
     return {
         "attn": {k: v.unsqueeze(0).repeat((ng,) + (1,) * v.dim())

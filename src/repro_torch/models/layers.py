@@ -2,14 +2,16 @@
 (the port of ``repro/models/layers.py``).
 
 Every layer is an (init, apply) pair over flat-dict params.  Attention
-covers prefill (full sequence, ``cache=None``) and scalar-``pos`` decode
-(one token against a KV cache).  The prefill route is differentiable: the
-projections, RoPE, flash attention and the norm carry gradients, the
-latter two through their kernels' autograd Functions.  The QKV biases
-(``cfg.qkv_bias``, qwen2-moe) are added after the projections, before the
-rotation, in training, prefill and decode alike.  MLA, cross-attention,
-per-request positions and the int8 KV cache wait for their slices
-(ROADMAP.md).
+covers prefill (full sequence, ``cache=None``) and decode (one token
+against a KV cache) at a scalar ``pos`` (lock-step decode) or a ``(B,)``
+vector of per-request positions (the continuous-batching engine,
+``serving/``), against a bf16 cache or the int8 one (codes plus f32
+per-(token, head) scales, ``quantize_kv``).  The prefill route is
+differentiable: the projections, RoPE, flash attention and the norm carry
+gradients, the latter two through their kernels' autograd Functions.  The
+QKV biases (``cfg.qkv_bias``, qwen2-moe) are added after the projections,
+before the rotation, in training, prefill and decode alike.  MLA and
+cross-attention wait for their slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -186,6 +188,8 @@ def _sdpa(q, k, v, cfg: ArchConfig, mask_kind: str, kv_valid_len=None,
                 >= torch.arange(sk, device=dev)[None, :])
         scores = torch.where(mask, scores, neg)
     if kv_valid_len is not None:
+        if kv_valid_len.dim() == 1:     # (B,) -> (B, 1, 1, 1, Sk)
+            kv_valid_len = kv_valid_len.view(-1, 1, 1, 1, 1)
         valid = torch.arange(sk, device=dev) < kv_valid_len
         scores = torch.where(valid, scores, neg)
     w = torch.softmax(scores, dim=-1)
@@ -199,9 +203,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """GQA attention.  Prefill: ``cache=None``; with ``return_kv`` the second
     result is the rotated ``{"k", "v"}`` this pass computed (the serving
-    cache's contents).  Decode: ``cache`` holds ``{"k","v","pos"}`` with a
-    scalar ``pos`` and x is (B,1,D); the second result is the updated cache,
-    whose k/v are the input buffers written in place (``cache_write``)."""
+    cache's contents).  Decode: ``cache`` holds ``{"k","v","pos"}`` (and
+    ``k_scale``/``v_scale`` when k/v are int8) with a scalar ``pos`` or a
+    ``(B,)`` one, one position per row, and x is (B,1,D); the second result
+    is the updated cache, whose k/v (and scales) are the input buffers
+    written in place (``cache_write``)."""
     _no_mla(cfg)
     par = exec_cfg.par
     wk, wv = p["wk"], p["wv"]
@@ -229,15 +235,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
                                   "(ROADMAP.md, queue A: remaining families)")
 
     use_rope = mask_kind == "causal"
+    pos = None if cache is None else cache["pos"]
     if use_rope:
         if cache is None:
             pos_q = torch.arange(s, device=x.device)[None, :]
-        elif cache["pos"].dim() == 0:
-            pos_q = cache["pos"].reshape(1, 1)
         else:
-            raise NotImplementedError(
-                "per-request decode positions (continuous batching) are not "
-                "ported yet (ROADMAP.md)")
+            # a (B,) vector rotates every row by its own position
+            pos_q = pos[:, None] if pos.dim() == 1 else pos.reshape(1, 1)
         cos_q, sin_q = rope_freqs(pos_q, hd, cfg.rope_theta)
         q = apply_rope(q, cos_q, sin_q)
 
@@ -257,20 +261,26 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
             ctx = _sdpa(q.view(b_, s, kv, g, hd), k, v, cfg, mask_kind)
         if return_kv:
             new_cache = {"k": k, "v": v}
-    else:  # self-attention decode, scalar pos
-        pos = cache["pos"]
+    else:  # self-attention decode: the key rotates by the query's position
         if use_rope:
-            cos_k, sin_k = rope_freqs(pos.reshape(1, 1), hd, cfg.rope_theta)
-            k = apply_rope(k, cos_k, sin_k)
+            k = apply_rope(k, cos_q, sin_q)
+        new_cache = {"pos": pos + 1}
         if cache["k"].dtype == torch.int8:
-            raise NotImplementedError("the int8 KV cache is not ported yet "
-                                      "(ROADMAP.md)")
-        ck = cache_write(cache["k"], k, pos, 1, exec_cfg)
-        cv = cache_write(cache["v"], v, pos, 1, exec_cfg)
-        new_cache = {"k": ck, "v": cv, "pos": pos + 1}
-        qg = q.view(b_, s, kv, g, hd).to(ck.dtype)
-        ctx = _sdpa(qg, ck, cv, cfg, "full", kv_valid_len=pos + 1,
-                    acc_dtype=ck.dtype)
+            # quantize the new rows, write codes and scales, and attend
+            # over the whole cache dequantized to the compute dtype
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            new_cache.update(
+                {n: cache_write(cache[n], u, pos, 1, exec_cfg) for n, u in
+                 (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))})
+            kd = dequantize_kv(new_cache["k"], new_cache["k_scale"], x.dtype)
+            vd = dequantize_kv(new_cache["v"], new_cache["v_scale"], x.dtype)
+        else:
+            kd = cache_write(cache["k"], k, pos, 1, exec_cfg)
+            vd = cache_write(cache["v"], v, pos, 1, exec_cfg)
+            new_cache.update(k=kd, v=vd)
+        qg = q.view(b_, s, kv, g, hd).to(kd.dtype)
+        ctx = _sdpa(qg, kd, vd, cfg, "full", kv_valid_len=pos + 1,
+                    acc_dtype=kd.dtype)
 
     ctx = ctx.reshape(b_, s, h * hd)
     out = ctx @ p["wo"].reshape(h * hd, d)
@@ -301,14 +311,22 @@ def _local_kv(p: Params, cfg: ArchConfig, par) -> Tuple[Optional[
 
 def cache_write(buf: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
                 seq_dim: int, exec_cfg: ExecConfig) -> torch.Tensor:
-    """Write ``upd`` into the cache at scalar ``pos`` along ``seq_dim`` --
-    the reference's "dus" (dynamic-update-slice) form -- IN PLACE, and
-    return ``buf``.  The reference returns a new array; writing in place
-    keeps one cache buffer for the whole generation.  ``pos`` stays a
-    device tensor, so the write needs no host sync."""
-    if pos.dim() != 0:
-        raise NotImplementedError("per-request positions (the one-hot "
-                                  "per-row write) are not ported yet")
+    """Write ``upd`` into the cache at ``pos`` along ``seq_dim`` IN PLACE,
+    and return ``buf``.  A scalar ``pos`` is the reference's "dus"
+    (dynamic-update-slice) form.  A ``(B,)`` vector writes row ``pos[b]``
+    of slot ``b`` (one-token updates, ``seq_dim`` 1): the reference's
+    one-hot ``where`` over the whole buffer, which its docstring holds
+    bitwise to a slice write, written here by index, one row a slot.  The
+    reference returns a new array; writing in place keeps one cache
+    buffer for the whole generation.  ``pos`` stays a device tensor, so
+    the write needs no host sync."""
+    if pos.dim() == 1:
+        if seq_dim != 1 or upd.shape[1] != 1:
+            raise ValueError("per-request positions write one token along "
+                             "dim 1")
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf[rows, pos.long()] = upd[:, 0].to(buf.dtype)
+        return buf
     if exec_cfg.cache_update != "dus":
         raise NotImplementedError(f"cache_update {exec_cfg.cache_update!r} "
                                   "waits for the multi-device slice")
@@ -329,11 +347,26 @@ def init_self_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
         "pos": torch.zeros((), dtype=torch.int32, device=device),
     }
     if dtype == torch.int8:
-        # the reference's quantized layout, with its per-(token, head) f32
-        # scales: the serve tuner prices it (lowering/cache_layout.py); the
-        # int8 decode itself raises until its slice (ROADMAP.md)
+        # the reference's quantized layout: int8 codes and per-(token,
+        # head) f32 scales (``quantize_kv``)
         out["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
                                      device=device)
         out["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
                                      device=device)
     return out
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., KV, hd) -> (int8 codes, f32 per-(..., KV) scales): the scale
+    is the f32 max-abs over hd over 127, floored at 1e-8, and the codes
+    ``round(x / scale)`` (half to even, as ``jnp.round``) clipped to
+    [-127, 127]."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)

@@ -12,7 +12,8 @@ kernel writes the final state, so it serves that prefill too
 by autograd, as the reference trains, and the kernel through its autograd
 Function with the SSD backward kernel (the reference's Pallas route has no
 gradient, so it trains only through the algebra).  The depthwise conv, the gated norm and the decode
-recurrence stay plain torch, as they are jnp in the reference.
+recurrence stay plain torch, as they are jnp in the reference, but for the
+decode's gated norm, which runs the RMSNorm kernel (``mamba2_mixer``).
 """
 from __future__ import annotations
 
@@ -245,7 +246,17 @@ def mamba2_mixer(p: Params, x: torch.Tensor, cfg: ArchConfig, ec: ExecConfig,
         y = y[:, None]                                       # (B,1,H,P)
         new_cache = {"conv": conv_st[:, 1:], "ssm": hs}
 
-    y = _gated_norm(y.reshape(bsz, s, di), z, p["norm_scale"], par)
+    if cache is None:
+        y = _gated_norm(y.reshape(bsz, s, di), z, p["norm_scale"], par)
+    else:
+        # decode: the same norm through the RMSNorm kernel, which computes
+        # each row alike whatever the batch (torch's mean over d_inner
+        # sums a row in another order at batch 4 than at batch 1 on the
+        # card, so a continuous-batching row would leave the batch-1
+        # decode: docs/port.md); its plain version is _gated_norm's algebra
+        y = kops.rmsnorm(y.reshape(bsz, s, di) * F.silu(z), p["norm_scale"],
+                         eps=1e-6, block=ec.rmsnorm_block,
+                         kernel_impl=ec.kernel_impl)
     if par is not None:
         return par.tp_out(y @ p["out_proj"]), None
     return y @ p["out_proj"], new_cache

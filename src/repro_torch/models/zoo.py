@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, get_arch
 from repro_torch.models import decoder as DEC
 from repro_torch.models import hybrid as HY
+from repro_torch.models import layers as L
 from repro_torch.models.common import ExecConfig, Params, resolve_device
 
 # family -> (init, loss, prefill, decode, init_caches), one signature each
@@ -81,18 +82,35 @@ def build_model(arch: Union[str, ArchConfig],
 
 
 def pad_caches(caches: Dict, extra: int) -> Dict:
-    """Extend the attention k/v caches by ``extra`` zero slots along S
-    (prefill fills the prompt length; decode appends).  Walks the cache
-    tree -- dense ``{k, v, pos}`` or the hybrid's ``{"attn": {k, v, pos},
-    "mamba": {conv, ssm}}`` -- and pads leaves by name, as the reference
-    does: k/v ``(lead, B, S, KV, hd)`` along S, the third dim from the end;
-    every other leaf passes through."""
+    """Extend the attention caches by ``extra`` zero slots along S (prefill
+    fills the prompt length; decode appends).  Walks the cache tree --
+    dense ``{k, v, pos}`` or the hybrid's ``{"attn": {k, v, pos}, "mamba":
+    {conv, ssm}}``, with ``k_scale``/``v_scale`` beside int8 k/v -- and
+    pads leaves by name, as the reference does: k/v ``(lead, B, S, KV,
+    hd)`` along S, the third dim from the end, the scales ``(lead, B, S,
+    KV)`` along S, the second from the end; every other leaf passes
+    through."""
     out = {}
     for key, x in caches.items():
         if isinstance(x, dict):
             out[key] = pad_caches(x, extra)
         elif key in ("k", "v") and x.dim() >= 3:
             out[key] = F.pad(x, (0, 0, 0, 0, 0, extra))
+        elif key in ("k_scale", "v_scale") and x.dim() >= 2:
+            out[key] = F.pad(x, (0, 0, 0, extra))
         else:
             out[key] = x
     return out
+
+
+def quantize_caches(caches: Dict) -> Dict:
+    """A bf16 prefill cache tree in the int8 layout decode reads under
+    ``kv_cache_dtype="int8"``: every self-attention ``{k, v, pos}`` dict
+    gets int8 k/v and their f32 scales (``layers.quantize_kv``); everything
+    else -- SSM state, conv windows, ``pos`` -- passes through."""
+    if "k" in caches and "v" in caches and "pos" in caches:
+        (kq, ks), (vq, vs) = L.quantize_kv(caches["k"]), \
+            L.quantize_kv(caches["v"])
+        return dict(caches, k=kq, v=vq, k_scale=ks, v_scale=vs)
+    return {key: quantize_caches(x) if isinstance(x, dict) else x
+            for key, x in caches.items()}

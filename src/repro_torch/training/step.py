@@ -12,7 +12,9 @@ world size 1 too.  Gradients accumulate through a ``GradSink``
 the step's sums as the backward reaches it, and no param is an autograd
 leaf.  ``init_sharded_state`` builds a rank's part of a fresh
 state.  ``make_prefill_step`` / ``make_serve_step`` bind the plan's serve
-``ExecConfig``.  All are closures: PyTorch runs eagerly, so there is no
+``ExecConfig``; ``make_paged_serve_step`` is the decode step of the
+continuous-batching engine (``serving/``) over page pools.  All are
+closures: PyTorch runs eagerly, so there is no
 ``jit`` and no buffer donation; the train step updates its state in
 place, and decode writes its cache in place.
 """
@@ -350,10 +352,9 @@ def make_serve_step(model: Model, plan: Plan, batch: int = 1,
                     max_len: int = 1, kernel_impl: str = "kernel"
                     ) -> ServeStep:
     """``fn(params, tokens, caches)`` -> (logits, caches): one-token decode
-    against caches of length ``max_len`` (written in place)."""
-    if plan.kv_cache_dtype != "bf16":
-        raise NotImplementedError(f"kv_cache_dtype {plan.kv_cache_dtype!r}: "
-                                  "the int8 KV cache is not ported yet")
+    against caches of length ``max_len`` (written in place), bf16 or, under
+    ``plan.kv_cache_dtype="int8"``, int8 codes with their scales
+    (``zoo.quantize_caches`` of the prefill's)."""
     ec = serve_exec_cfg(plan).replace(cache_update="dus",
                                       kernel_impl=kernel_impl)
 
@@ -367,3 +368,102 @@ def make_serve_step(model: Model, plan: Plan, batch: int = 1,
         return model.decode_fn(params, tokens, caches, ec)
 
     return ServeStep(fn=serve, exec_cfg=ec)
+
+
+@dataclass
+class PagedServeStep:
+    """``fn(params, tokens, state, block_table)`` -> (logits, state), and
+    its parts: ``gather(state, block_table)`` -> the dense cache tree,
+    ``decode(params, tokens, dense)`` -> (logits, dense'), and
+    ``scatter(state, dense', block_table, pos)`` -> state, where ``pos``
+    is the ``(slots,)`` position vector the step read before decoding
+    (``positions(state)``)."""
+    fn: Callable
+    exec_cfg: ExecConfig
+    gather: Callable
+    decode: Callable
+    scatter: Callable
+    positions: Callable
+
+
+def make_paged_serve_step(model: Model, plan: Plan, *, slots: int,
+                          max_len: int, page_size: int) -> PagedServeStep:
+    """One-token decode for the continuous-batching engine (the reference's
+    ``make_paged_serve_step``): every paged leaf (``serving/pages.py``) is a
+    pool ``(lead, slots·npp + 1, page_size, *tail)`` whose last page is the
+    shared trash page, gathered through the ``(slots, npp)`` block table
+    into the dense ``(lead, slots, max_len, *tail)`` view, decoded with the
+    per-request positions, and the row each slot wrote scattered back.
+
+    Token identity with the contiguous path holds by construction: the
+    gathered rows below a slot's position are the pages the contiguous
+    cache would hold, the rows at or past it are masked to the zeros a
+    fresh cache holds (recycled pages and the trash page never leak), so
+    the tree that enters ``decode_fn`` is bitwise the contiguous cache, and
+    each decode row is computed apart from the others.  The decode writes
+    its rows into the gathered view, never into a pool.  Inactive slots
+    (pos 0, a block-table row all trash) write to the trash page.
+    Non-paged leaves (the Mamba2 conv window and SSM state, ``pos``) pass
+    through whole, the former written in place by the decode."""
+    from repro_torch.serving.pages import (classify_cache_tree, map_leaves,
+                                           tree_get)
+    if max_len % page_size:
+        raise ValueError(f"page_size {page_size} must divide max_len "
+                         f"{max_len}")
+    npp = max_len // page_size
+    ec = serve_exec_cfg(plan)
+    specs = classify_cache_tree(model.cfg, slots, max_len,
+                                plan.kv_cache_dtype)
+    pos_spec = next(sp for sp in specs if sp.is_pos)
+
+    def positions(state):
+        # every pos leaf holds the one per-request vector (an engine
+        # invariant): read it off the first
+        return tree_get(state, pos_spec.path).reshape(-1, slots)[0]
+
+    def _gather(pool, block_table, pos):
+        lead, tail = pool.shape[0], pool.shape[3:]
+        g = pool[:, block_table.long()].view((lead, slots, max_len) + tail)
+        # rows at or past each request's position read as the zeros of a
+        # fresh contiguous cache
+        past = torch.arange(max_len, device=pool.device) >= pos[:, None]
+        return g.masked_fill_(past.view((1, slots, max_len)
+                                        + (1,) * len(tail)), 0)
+
+    def _scatter(pool, dense, block_table, pos):
+        # the decode wrote row pos[b] of slot b: copy it into its page
+        # (inactive slots land on the trash page through their all-trash
+        # block-table row; the clamps keep an overflowing row in range)
+        lead, tail = pool.shape[0], pool.shape[3:]
+        ar = torch.arange(slots, device=pool.device)
+        row = pos.long().clamp(0, max_len - 1)
+        page = torch.clamp_max(row // page_size, npp - 1)
+        tgt = block_table[ar, page].long() * page_size + row % page_size
+        flat = pool.view((lead, pool.shape[1] * page_size) + tail)
+        flat[:, tgt] = dense[:, ar, row]
+        return pool
+
+    @torch.inference_mode()
+    def gather(state, block_table):
+        pos = positions(state)
+        return map_leaves(state, specs, lambda sp, x: _gather(
+            x, block_table, pos) if sp.paged else x)
+
+    @torch.inference_mode()
+    def decode(params, tokens, dense):
+        return model.decode_fn(params, tokens, dense, ec)
+
+    @torch.inference_mode()
+    def scatter(state, dense, block_table, pos):
+        return map_leaves(dense, specs, lambda sp, x: _scatter(
+            tree_get(state, sp.path), x, block_table, pos)
+            if sp.paged else x)
+
+    def step(params, tokens, state, block_table):
+        pos = positions(state)
+        logits, dense = decode(params, tokens, gather(state, block_table))
+        return logits, scatter(state, dense, block_table, pos)
+
+    return PagedServeStep(fn=step, exec_cfg=ec, gather=gather, decode=decode,
+                          scatter=scatter, positions=positions)
+

@@ -122,10 +122,17 @@ def test_train_main_needs_cuda_unless_asked_for_cpu(no_cuda, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--continuous"])
-def test_unported_serve_modes_exit(flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        serve.main(["--arch", "granite-3-8b", "--smoke", "--device", "cpu",
-                    flag])
+def test_unported_serve_modes_exit(flag, capsys):
+    """The serve mode that once exited as not ported now runs on the CPU:
+    ``--continuous`` serves through the engine and prints its two checks,
+    token identity with the static decode and the cache bytes bitwise."""
+    assert serve.main(["--arch", "granite-3-8b", "--smoke", "--device",
+                       "cpu", "--gen", "8", flag]) == 0
+    out = capsys.readouterr().out
+    assert "# continuous tokens == batch-1 static decode at max_len 40: " \
+        "True" in out
+    assert "(bitwise=True)" in out and "# paged cache bytes:" in out
+    assert "decode steps, 2 slots, page_size 8" in out
 
 
 def test_only_dense_single_device_plans(no_cuda):

@@ -32,6 +32,7 @@ from repro.core.costmodel import estimate_serve_plan as jax_estimate_serve
 from repro.core.hardware import HardwareSpec as JHardwareSpec
 from repro.core.plan import Plan as JPlan
 from repro.lowering import MEMORY_REL_TOL as JAX_MEMORY_REL_TOL
+from repro.lowering import cache_layout as JCL
 from repro.lowering import lower_plan as jax_lower_plan
 from repro.lowering import memory_consistency as jax_memory_consistency
 from repro_torch.configs.base import ShapeConfig, get_arch
@@ -45,6 +46,7 @@ from repro_torch.lowering import (MEMORY_REL_TOL, check_plan_mesh,
                                   lower_plan, memory_consistency, plan_mesh,
                                   train_exec_cfg)
 from repro_torch.parallel.sharding import abstract_mesh
+from test_torch_tuner import ref_cache_layout
 
 ARCHS = ("granite-3-8b", "qwen2-moe-a2.7b", "zamba2-2.7b")
 # the port's H100, as a reference spec, less the one field the reference
@@ -142,8 +144,14 @@ _SERVE = [
 
 @pytest.mark.parametrize("case", _SERVE, ids=[c[0] for c in _SERVE])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_serve_memory_report_matches_the_reference(arch, case):
+def test_serve_memory_report_matches_the_reference(arch, case, monkeypatch):
+    """Bitwise, with the reference's cache layout as the port derives it
+    (under int8 the hybrid's conv window stays bf16:
+    ``test_torch_tuner.ref_cache_layout``)."""
     _, par, kind, page, kv = case
+    derive = JCL.derive_cache_layout
+    monkeypatch.setattr(JCL, "derive_cache_layout",
+                        lambda *a: ref_cache_layout(*a, derive=derive))
     cfg = get_arch(arch)
     plan = single_stage_plan(cfg.num_layers, micro_batch=1, grad_accum=1,
                              zero=0, ckpt_layers=0, page_size=page,
