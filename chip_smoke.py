@@ -11,6 +11,8 @@
                                              # phase M
     python3 chip_smoke.py --serve-only       # phases 1 and 2, then only
                                              # phase S
+    python3 chip_smoke.py --multi-serve-only # phases 1 and 2, then only
+                                             # phase V
 
 Drives the port (``src/repro_torch``) only; imports nothing of JAX or of
 the JAX package.  Phases, in order; any failure raises and the script exits
@@ -275,6 +277,30 @@ S. The continuous-batching engine (``serving/``) at full width and depth,
    paged step (split into gather + mask, decode and scatter) against the
    contiguous step at batch 4 and the same max_len, all beside the card's
    name and power limit.
+V. Multi-device serving, each rank in a child process joined to torch's
+   ``fake`` process group of 4 ranks as rank 0 (its collectives move
+   nothing; its gathers are filled with its own data).  (a) qwen2-72b (80
+   layers, d 8192, 64 heads of 128 over 8 KV heads, d_ff 29568, vocab
+   152064, QKV biases; 72.7 B params, which no one card holds) tuned by the
+   serve tuner for 4 H100s at batch 4 x 1056 over pages {0, 16}: the plan
+   must be tp 4.  Rank 0 at full width and depth draws its params (a
+   quarter of each split weight), runs ``generate(gen=32)`` on 4 prompts of
+   1024 with exact counts (80 flash, 5152 RMSNorm), its prefill and each
+   decode step timed, then the engine (4 slots, max_len 1056, the plan's
+   pages) with exact counts; its param bytes, static cache bytes and pools
+   equal the memory report's terms bitwise, its peak at most H_PEAK_BOUND
+   x the report's.  Its values are meaningless under ``fake`` and not
+   compared.  (b) granite-3-8b's tuned dp-4 plan, rank 0 (one row): a data
+   rank decodes with no collective, so its tokens must equal the one-card
+   batch-1 decode of its row bitwise.  (c) With four cards: qwen2-72b cut
+   to 8 layers at tp 4 through NCCL, teacher-forced logits against one
+   card running the same layers whole (within LOGIT_REL_TOL of the largest
+   logit), and ``serve --tune --nproc 4`` at full depth, its tokens per
+   second; with one card it logs that it was skipped.  Phase 2 holds flash
+   at the rank's shape (B 4, S 1024, H 16, KV 2, hd 128) and RMSNorm at d
+   8192 against their plain versions; the kernels line adds flash and
+   RMSNorm at the prefill's 4096 x 8192 and at the decode's 4 x 8192, each
+   with the launches ``generate`` made at its shape.
 6. With ``--profile`` only: a ``torch.profiler`` window over one prefill
    and over three decode steps of each model, and over one train step of
    each trained model (granite in phase T, zamba2 in phase H) --
@@ -468,6 +494,18 @@ S_SLOTS, S_PAGE, S_PLENS, S_GENS = 4, 16, (64, 1024), (4, 32)
 S_MAX_LEN = S_PLENS[1] + S_GENS[1]
 S_REQUESTS = {"granite-3-8b": 8, "zamba2-2.7b": 6, "qwen2-moe-a2.7b": 6}
 S_STEP_REPS = 12
+# phase V: multi-device serving.  qwen2-72b (80 layers, d 8192, 64 heads of
+# 128 over 8 KV heads, d_ff 29568, vocab 152064 untied, QKV biases; 72.7 B
+# params, 145 GB in bf16: no one card holds it) tuned for V_DEVICES H100s at
+# BATCH x V_MAX_LEN over page_grid (0, S_PAGE): its tp-4 rank runs 64 / 4
+# query heads over 8 / 4 KV heads; granite-3-8b tuned the same way (dp 4)
+V_DEVICES, V_MAX_LEN = 4, PROMPT_LEN + GEN
+V_D_MODEL, V_HEADS, V_KV, V_TP = 8192, 64, 8, 4
+V_R_HEADS, V_R_KV = V_HEADS // V_TP, V_KV // V_TP
+# (c), four cards: qwen2-72b cut to V_CUT_LAYERS layers at tp 4 through
+# NCCL, V_FORCED teacher-forced decode steps after the prefill, against one
+# card running the same layers whole
+V_CUT_LAYERS, V_FORCED = 8, 8
 
 
 def log(msg: str) -> None:
@@ -682,6 +720,8 @@ def phase_kernels_vs_plain():
         # non-causal with Sk not a multiple of the K/V tile
         (2, 256, 333, Z_HEADS, Z_HEADS, Z_HEAD_DIM, False),
         (2, 129, 200, 8, 2, 32, False),
+        # the prefill of qwen2-72b's tp-4 rank (phase V)
+        (BATCH, PROMPT_LEN, PROMPT_LEN, V_R_HEADS, V_R_KV, HEAD_DIM, True),
         # qwen2-moe (phase M): serving, one card's training micro-batch,
         # its tp-4 rank's
         (BATCH, PROMPT_LEN, PROMPT_LEN, M_HEADS, M_HEADS, HEAD_DIM, True),
@@ -695,7 +735,8 @@ def phase_kernels_vs_plain():
         # a rank of zamba2's tp-4 plan (phase Z)
         (Z_MICRO, H_SEQ, H_SEQ, ZR_HEADS, ZR_HEADS, Z_HEAD_DIM, True),
     ]
-    rank_cases = {len(cases) - 6: "qwen2_moe",
+    rank_cases = {len(cases) - 7: "qwen2_72b_tp4",
+                  len(cases) - 6: "qwen2_moe",
                   len(cases) - 5: "qwen2_moe_train",
                   len(cases) - 4: "qwen2_moe_tp4", len(cases) - 3: "tp4",
                   len(cases) - 2: "tp8", len(cases) - 1: "zamba2_tp4"}
@@ -726,6 +767,9 @@ def phase_kernels_vs_plain():
         (Z_MICRO * H_SEQ // Z_TP, Z_D_MODEL, None, None, True),  # Z's rank
         (1, D_MODEL, None, None, True),          # one row
         (1, Z_D_MODEL, None, None, True),
+        # qwen2-72b (phase V): the generic kernel at its prefill and decode
+        (BATCH * PROMPT_LEN, V_D_MODEL, None, None, True),
+        (BATCH, V_D_MODEL, None, None, True),
         (33, 8192, None, None, True),            # generic kernel widths
         (5, 1001, None, None, True),
         (3, 1000, None, None, True),
@@ -1412,12 +1456,14 @@ def _time_flash(model_name, b, s, h, kv, hd, launches, err):
         model=model_name, shape=f"B{b} S{s} H{h} KV{kv} hd{hd} causal bf16")
 
 
-def _time_rmsnorm(model_name, d, launches, err):
-    """The RMSNorm entry at the prefill shape (BATCH * PROMPT_LEN rows); the
-    decode shape (BATCH rows) is printed."""
+def _time_rmsnorm(model_name, d, launches, err, decode_launches=None):
+    """The RMSNorm entries: the prefill shape's (BATCH * PROMPT_LEN rows),
+    and the decode shape's (BATCH rows) printed.  With ``decode_launches``
+    (of the ``launches``, those at the decode shape) the decode shape gets
+    an entry of its own with them, and the prefill's keeps the rest."""
     from repro_torch.kernels import rmsnorm as RN
 
-    entry = None
+    entries = []
     for rows in (BATCH * PROMPT_LEN, BATCH):
         g = torch.Generator(DEVICE).manual_seed(rows)
         x = torch.randn((rows, d), generator=g, device=DEVICE
@@ -1441,16 +1487,21 @@ def _time_rmsnorm(model_name, d, launches, err):
             f"{(r_cold - r_lib_cold) * 1e3:.2f}); bound {how}; "
             f"{r_bound / r_cold:.1%} of it cold")
         if rows == BATCH * PROMPT_LEN:
-            entry = dict(
-                name="rmsnorm", route="cuda",
-                source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-                replaces="src/repro/kernels/rmsnorm.py:16",
-                launches=launches, max_abs_err=err, ms=r_ms,
-                plain_ms=r_plain, bound_ms=r_bound, bound_by=r_by,
-                library_ms=r_lib, device_ms=r_dev, library_device_ms=r_lib_dev,
-                cold_ms=r_cold, library_cold_ms=r_lib_cold, model=model_name,
-                shape=f"{rows}x{d} bf16")
-    return entry
+            n = launches - (decode_launches or 0)
+        elif decode_launches is not None:
+            n = decode_launches
+        else:
+            continue
+        entries.append(dict(
+            name="rmsnorm", route="cuda",
+            source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:16",
+            launches=n, max_abs_err=err, ms=r_ms,
+            plain_ms=r_plain, bound_ms=r_bound, bound_by=r_by,
+            library_ms=r_lib, device_ms=r_dev, library_device_ms=r_lib_dev,
+            cold_ms=r_cold, library_cold_ms=r_lib_cold, model=model_name,
+            shape=f"{rows}x{d} bf16"))
+    return entries
 
 
 def _time_ssd(launches, err, shape=(BATCH, PROMPT_LEN, SSD_HEADS),
@@ -4844,7 +4895,7 @@ def phase_moe(errs, profile=False):
         _time_flash("qwen2-moe-a2.7b", BATCH, PROMPT_LEN, M_HEADS, M_HEADS,
                     HEAD_DIM, launches["flash_attention_fwd"],
                     errs["flash_attention_fwd@qwen2_moe"]),
-        _time_rmsnorm("qwen2-moe-a2.7b", M_D_MODEL, launches["rmsnorm"],
+        *_time_rmsnorm("qwen2-moe-a2.7b", M_D_MODEL, launches["rmsnorm"],
                       errs[f"rmsnorm@d{M_D_MODEL}"])]
     _time_serve("qwen2-moe-a2.7b", model, params, prompts, plan, peak)
     if profile:
@@ -5286,6 +5337,387 @@ def phase_serving():
 
 
 
+# one rank of a multi-device serving plan on this one card: _FAKE_RANK's
+# process group and filled gathers, then ``_v_rank`` of this module (argv 4
+# the model, argv 5 the JSON file it writes)
+_V_RANK = _FAKE_RANK[:_FAKE_RANK.index("split = []")] + r"""
+import chip_smoke
+raise SystemExit(chip_smoke._v_rank(sys.argv[4], sys.argv[5]))
+"""
+
+
+def _v_rank(arch, out):
+    """Phase V (a) and (b), in a child process joined to the ``fake`` group
+    of V_DEVICES ranks as rank 0: ``arch`` tuned for V_DEVICES H100s, this
+    rank's params drawn from seed 0 (``init_rank_params``), then
+    ``generate(gen=GEN)`` on BATCH prompts of PROMPT_LEN with the launch
+    counters set to 0 just before and read just after, the rank's prefill
+    and decode steps timed, its bytes against the memory report.  qwen2-72b
+    (tp 4): the engine too (slots S_SLOTS, max_len V_MAX_LEN, the plan's
+    pages), its counts and bytes; its values are meaningless under the fake
+    group and not compared.  granite (dp 4): a data rank decodes its row
+    with no collective, so its tokens are compared with the one-card
+    batch-1 decode of that row, bitwise.  Writes the record to ``out``;
+    returns 1 where a check failed."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.launch.mesh import make_plan_mesh
+    from repro_torch.launch.serve import generate, tuned_serve_plan
+    from repro_torch.lowering import lower_plan, plan_mesh
+    from repro_torch.lowering.cache_layout import (concrete_cache_bytes,
+                                                   concrete_paged_cache_bytes)
+    from repro_torch.models.zoo import build_model, pad_caches
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.training.step import (init_rank_params,
+                                           make_prefill_step,
+                                           make_serve_step)
+
+    cfg = get_arch(arch)
+    bad = []
+    t0 = time.perf_counter()
+    plan, report = tuned_serve_plan(cfg, batch=BATCH, max_len=V_MAX_LEN,
+                                    n_devices=V_DEVICES,
+                                    page_grid=(0, S_PAGE))
+    st = plan.stages[0]
+    rec = dict(model=arch, layers=cfg.num_layers, plan=json.loads(
+        plan.to_json()), tune_s=time.perf_counter() - t0,
+        predicted=dict(objective_s=report.objective,
+                       tokens_per_s=report.throughput_tokens))
+    want = (1, V_TP) if arch == "qwen2-72b" else (V_DEVICES, 1)
+
+    def done():
+        rec["failed"] = bad
+        rec["smi"] = smi_line()
+        Path(out).write_text(json.dumps(rec))
+        return 1 if bad else 0
+
+    if (st.dp, st.tp) != want:
+        bad.append(f"the tuner's plan for {V_DEVICES} H100s is dp {st.dp} x "
+                   f"tp {st.tp}, not dp {want[0]} x tp {want[1]}")
+        return done()
+    # the attention the cost model prices (launch/serve.py --tune)
+    plan = plan.replace(attn_impl="pallas", use_pallas=True)
+    mesh = make_plan_mesh(st.dp, st.tp, DEVICE)
+    model = build_model(cfg, DEVICE)
+    t0 = time.perf_counter()
+    params, _ = init_rank_params(model, plan, mesh,
+                                 torch.Generator(DEVICE).manual_seed(0))
+    sync()
+    rec["init_s"] = time.perf_counter() - t0
+    shape = ShapeConfig("v", V_MAX_LEN, BATCH, "decode")
+    rep = lower_plan(cfg, shape, plan, plan_mesh(plan)).memory_report()
+    sm = rep.stages[0]
+    rec["param_bytes"] = sum(p.nbytes for p in params.values())
+    rec["report"] = dict(weight_bytes=sm.weight_bytes,
+                         cache_bytes=sm.cache_bytes,
+                         transient_bytes=sm.transient_bytes,
+                         reserved_bytes=sm.reserved_bytes,
+                         peak_bytes=rep.peak_bytes)
+    if rec["param_bytes"] != sm.weight_bytes:
+        bad.append(f"the rank holds {rec['param_bytes']} B of params; the "
+                   f"memory report charges {sm.weight_bytes}")
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
+                            generator=torch.Generator(DEVICE).manual_seed(1),
+                            device=DEVICE, dtype=torch.int32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, counted: generate() on the rank
+    sync()
+    _reset_counts()
+    t0 = time.perf_counter()
+    toks = generate(model, params, prompts, GEN, plan, mesh=mesh)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    # one prefill (of the whole batch) and GEN - 1 decode steps
+    want_counts = _s_launches(cfg, 1, GEN - 1)
+    rec["generate"] = dict(launches=counts, want=want_counts, wall_s=wall,
+                           rank_rows=BATCH // st.dp,
+                           tokens_per_s_of_the_rank=BATCH // st.dp * GEN
+                           / wall)
+    if counts != want_counts:
+        bad.append(f"generate launched {counts}, not {want_counts}")
+
+    # the same steps, timed: the prefill, then each decode step
+    prefill = make_prefill_step(model, plan, return_cache=True, mesh=mesh,
+                                batch=BATCH)
+    serve = make_serve_step(model, plan, batch=BATCH, max_len=V_MAX_LEN,
+                            mesh=mesh)
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = prefill.fn(params, {"tokens": prompts})
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        caches = serve.place(pad_caches(caches, V_MAX_LEN - PROMPT_LEN))
+        rec["cache_bytes"] = sum(x.nbytes for x in caches.values())
+        rec["cache_bytes_want"] = concrete_cache_bytes(
+            cfg, BATCH, V_MAX_LEN, plan.kv_cache_dtype, dp_size=st.dp,
+            tp_size=st.tp)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        # each step's wall time, and the host thread's CPU time in it (the
+        # step is launch-bound: where CPU time falls short of the wall, the
+        # thread waited or was not scheduled)
+        steps, cpu = [], []
+        for _ in range(GEN - 1):
+            sync()
+            t0, c0 = time.perf_counter(), time.thread_time()
+            logits, caches = serve.fn(params, tok, caches)
+            sync()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            cpu.append((time.thread_time() - c0) * 1e3)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    del caches, logits
+    rec.update(prefill_ms=prefill_ms, decode_ms=steps,
+               decode_ms_median=statistics.median(steps),
+               decode_cpu_ms_median=statistics.median(cpu),
+               cache_update=serve.exec_cfg.cache_update)
+    if rec["cache_bytes"] != rec["cache_bytes_want"]:
+        bad.append(f"the rank's cache holds {rec['cache_bytes']} B; "
+                   f"concrete_cache_bytes gives {rec['cache_bytes_want']}")
+
+    if st.tp > 1:
+        # the engine on the rank, every tp rank with one schedule
+        ps = plan.page_size or S_PAGE
+        eng = ContinuousBatchingEngine(model, params, plan, slots=S_SLOTS,
+                                       max_len=V_MAX_LEN, page_size=ps,
+                                       mesh=mesh)
+        for i in range(BATCH):
+            eng.submit({"tokens": prompts[i:i + 1]}, GEN, rid=i)
+        sync()
+        _reset_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        want_counts = _s_launches(cfg, eng.admissions, eng.steps_run)
+        got = eng.memory_bytes()
+        paged = concrete_paged_cache_bytes(cfg, S_SLOTS, V_MAX_LEN, ps,
+                                           plan.kv_cache_dtype, dp_size=1,
+                                           tp_size=st.tp)
+        rec["engine"] = dict(launches=counts, want=want_counts, wall_s=wall,
+                             admissions=eng.admissions, steps=eng.steps_run,
+                             page_size=ps, memory_bytes=got,
+                             concrete_paged_cache_bytes=paged,
+                             tokens_per_s_of_the_rank=BATCH * GEN / wall)
+        if counts != want_counts:
+            bad.append(f"the engine launched {counts}, not {want_counts}")
+        if got != paged or (ps == plan.page_size and got != sm.cache_bytes):
+            bad.append(f"the engine's pools hold {got} B; the layout gives "
+                       f"{paged}, the report {sm.cache_bytes}")
+        del eng
+    peak = torch.cuda.max_memory_allocated()
+    rec.update(max_memory_allocated=peak,
+               allocator_over_memory_report=peak / rep.peak_bytes,
+               bound=H_PEAK_BOUND)
+    if peak > H_PEAK_BOUND * rep.peak_bytes:
+        bad.append(f"allocator peak {peak} B over {H_PEAK_BOUND} x the "
+                   f"memory report's {rep.peak_bytes} B")
+
+    if st.dp > 1:
+        # this data rank's rows (the fake group's gather fills the others
+        # with them) against one card decoding the first row alone
+        mine = toks[:BATCH // st.dp].cpu()
+        one = plan.replace(stages=(st.replace(dp=1, tp=1),))
+        ref = generate(model, params, prompts[:1], GEN, one).cpu()
+        rec["tokens"] = dict(rank=mine.tolist(), one_card_batch_1=ref.tolist(),
+                             bitwise=bool(torch.equal(mine[:1], ref)))
+        if not rec["tokens"]["bitwise"]:
+            bad.append("the data rank's tokens differ from the one-card "
+                       "batch-1 decode of its row")
+    return done()
+
+
+def _v_rank_process(arch):
+    """``_v_rank(arch)`` in a child process; returns its record."""
+    out = ROOT / "build" / f"v_{arch}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-c", _V_RANK, str(ROOT / "src"),
+           str(V_DEVICES), "0", arch, str(out)]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                       env=env, cwd=ROOT)
+    rec = json.loads(out.read_text()) if out.exists() else {}
+    rec["process_s"] = time.perf_counter() - t0
+    log(json.dumps({f"v_rank0_of_{V_DEVICES}": rec}))
+    if r.returncode != 0:
+        raise AssertionError(f"phase V, {arch}'s rank: exit {r.returncode}, "
+                             f"{rec.get('failed')}\n{r.stderr[-3000:]}")
+    return rec
+
+
+def _v_cut_rank(out, kind="cuda"):
+    """Phase V (c)'s tp-4 rank over NCCL (gloo with ``kind="cpu"``;
+    ``torchrun``'s variables): qwen2-72b cut to V_CUT_LAYERS layers, the
+    prefill's logits and V_FORCED teacher-forced decode steps'; rank 0
+    saves them."""
+    import numpy as np
+    from repro_torch.launch.mesh import init_distributed, make_plan_mesh
+    from repro_torch.training.step import init_rank_params
+    rank, _, dev = init_distributed(kind)
+    model, plan, prompts, forced = _v_cut_setup(dev)
+    plan = plan.replace(stages=(plan.stages[0].replace(tp=V_TP),))
+    mesh = make_plan_mesh(1, V_TP, dev)
+    params, _ = init_rank_params(model, plan, mesh,
+                                 torch.Generator(dev).manual_seed(0))
+    rows = _v_forced(model, params, plan, prompts, forced, mesh)
+    if rank == 0:
+        np.save(out, rows)
+    torch.distributed.destroy_process_group()
+
+
+def _v_cut_setup(dev):
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.plan import single_stage_plan
+    from repro_torch.models.zoo import build_model
+    cfg = get_arch("qwen2-72b").replace(num_layers=V_CUT_LAYERS)
+    plan = single_stage_plan(V_CUT_LAYERS, dp=1, tp=1, micro_batch=BATCH,
+                             grad_accum=1, zero=0, ckpt_layers=0,
+                             attn_impl="pallas", use_pallas=True)
+    g = torch.Generator(dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
+                            generator=g, device=dev, dtype=torch.int32)
+    forced = torch.randint(0, cfg.vocab_size, (BATCH, V_FORCED),
+                           generator=g, device=dev, dtype=torch.int32)
+    return build_model(cfg, dev), plan, prompts, forced
+
+
+def _v_forced(model, params, plan, prompts, forced, mesh=None):
+    """The prefill's last logits and those of V_FORCED decode steps fed
+    ``forced``, f32 on the host: (V_FORCED + 1, BATCH, vocab)."""
+    from repro_torch.models.zoo import pad_caches
+    from repro_torch.training.step import make_prefill_step, make_serve_step
+    max_len = PROMPT_LEN + V_FORCED
+    prefill = make_prefill_step(model, plan, return_cache=True, mesh=mesh,
+                                batch=BATCH)
+    serve = make_serve_step(model, plan, batch=BATCH, max_len=max_len,
+                            mesh=mesh)
+    with torch.inference_mode():
+        logits, caches = prefill.fn(params, {"tokens": prompts})
+        caches = serve.place(pad_caches(caches, V_FORCED))
+        rows = [logits[:, -1].float().cpu()]
+        for i in range(V_FORCED):
+            logits, caches = serve.fn(params, forced[:, i:i + 1], caches)
+            rows.append(logits[:, -1].float().cpu())
+    return torch.stack(rows).numpy()
+
+
+def _v_cut_against_one_card(kind="cuda"):
+    """Phase V (c)'s first part: the V_CUT_LAYERS-layer tp-4 ranks in four
+    processes, then the same layers whole on this process's card (the CPU
+    over gloo with ``kind="cpu"``).  Returns the record and whether the
+    logits agree (module docstring of ``_v_four_cards``)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "v_cut_tp4.npy"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    code = (f"import sys; sys.path[:0] = [{str(ROOT / 'src')!r}, "
+            f"{str(ROOT)!r}]; import chip_smoke as C; "
+            f"C._v_cut_rank({str(out)!r}, {kind!r})")
+    procs = []
+    for r in range(V_DEVICES):
+        env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(V_DEVICES),
+               "LOCAL_RANK": str(r), "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port), "PYTHONPATH": str(ROOT / "src")}
+        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                      cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise AssertionError("phase V (c): a tp-4 rank failed\n"
+                             + "\n".join(logs)[-3000:])
+    got = np.load(out)
+    dev = torch.device(kind)
+    model, plan, prompts, forced = _v_cut_setup(dev)
+    params, _ = model.init(torch.Generator(dev).manual_seed(0))
+    want = _v_forced(model, params, plan, prompts, forced)
+    del params
+    gc.collect()
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+    return dict(layers=V_CUT_LAYERS, cut="depth 80 -> 8", max_abs_diff=err,
+                max_abs_logit=scale, tol=LOGIT_REL_TOL * scale,
+                argmax_agreement=agree, seconds=time.perf_counter() - t0), \
+        err <= LOGIT_REL_TOL * scale
+
+
+def _v_four_cards():
+    """Phase V (c): with four cards, qwen2-72b at tp 4 through NCCL -- its
+    depth cut to V_CUT_LAYERS, teacher-forced logits against one card
+    running the same layers whole (within LOGIT_REL_TOL of the largest
+    logit: each tp rank rounds its part of every row-parallel product to
+    bf16 before NCCL sums four of them, against one rounding of the whole
+    product on one card, two more roundings a layer on the residual, the
+    kind of difference LOGIT_REL_TOL allows phase 3's 40 layers of kernels
+    against plain versions); then ``serve --tune --nproc 4`` at full depth
+    and width, its tokens per second.  With fewer cards it logs that it was
+    skipped."""
+    n = torch.cuda.device_count()
+    if n < V_DEVICES:
+        log(json.dumps({"v_four_cards": f"skipped ({n} visible)"}))
+        return None
+    cut, agree = _v_cut_against_one_card()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen2-72b", "--tune", "--nproc", str(V_DEVICES), "--batch",
+         str(BATCH), "--prompt-len", str(PROMPT_LEN), "--gen", str(GEN)],
+        capture_output=True, text=True, timeout=900, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    line = re.search(r"generated (\d+) tokens in ([\d.]+)s \(([\d.]+) tok/s\)",
+                     r.stdout)
+    full = dict(exit=r.returncode, seconds=time.perf_counter() - t0,
+                line=line.group(0) if line else None,
+                tokens_per_s=float(line.group(3)) if line else None)
+    log(json.dumps({"v_four_cards": dict(cut_tp4_vs_one_card=cut,
+                                         full_depth_tp4=full,
+                                         smi=smi_line())}))
+    if not agree:
+        raise AssertionError(f"phase V (c): tp-4 logits {cut['max_abs_diff']}"
+                             f" from one card's, over {cut['tol']}")
+    if r.returncode or not line:
+        raise AssertionError(f"phase V (c): serve --nproc 4 failed\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+    return full
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def phase_multi_serve(errs):
+    """Phase V (module docstring).  Returns its entries of the kernels
+    line."""
+    log(f"# phase V on {smi_line()}")
+    from repro_torch.configs.base import get_arch
+
+    a = _v_rank_process("qwen2-72b")
+    _v_rank_process("granite-3-8b")
+    _v_four_cards()
+    rank = "qwen2-72b (tp-4 rank, serving)"
+    norms = a["generate"]["launches"]["rmsnorm"]
+    # generate's one prefill at BATCH x PROMPT_LEN rows, the rest decode
+    # steps at BATCH rows
+    prefill = _s_launches(get_arch("qwen2-72b"), 1, 0)["rmsnorm"]
+    return [_time_flash(rank, BATCH, PROMPT_LEN, V_R_HEADS, V_R_KV, HEAD_DIM,
+                        a["generate"]["launches"]["flash_attention_fwd"],
+                        errs["flash_attention_fwd@qwen2_72b_tp4"]),
+            *_time_rmsnorm(rank, V_D_MODEL, norms,
+                           errs[f"rmsnorm@d{V_D_MODEL}"],
+                           decode_launches=norms - prefill)]
+
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5316,6 +5748,15 @@ def main() -> int:
         mark("phase M")
         print(json.dumps({"kernels": kernels}))
         return 0
+    if "--multi-serve-only" in sys.argv[1:]:
+        kernels = phase_multi_serve(errs)
+        mark("phase V")
+        print(smi_line())
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--serve-only" in sys.argv[1:]:
         phase_serving()
         mark("phase S")
@@ -5336,7 +5777,7 @@ def main() -> int:
         _time_flash("granite-3-8b", BATCH, PROMPT_LEN, N_HEADS, N_KV,
                     HEAD_DIM, launches["flash_attention_fwd"],
                     errs[f"flash_attention_fwd@hd{HEAD_DIM}"]),
-        _time_rmsnorm("granite-3-8b", D_MODEL, launches["rmsnorm"],
+        *_time_rmsnorm("granite-3-8b", D_MODEL, launches["rmsnorm"],
                       errs[f"rmsnorm@d{D_MODEL}"])]
     _time_serve("granite-3-8b", model, params, prompts, plan, peak)
     if profile:
@@ -5436,7 +5877,7 @@ def main() -> int:
         _time_flash("zamba2-2.7b", BATCH, PROMPT_LEN, Z_HEADS, Z_HEADS,
                     Z_HEAD_DIM, launches["flash_attention_fwd"],
                     errs[f"flash_attention_fwd@hd{Z_HEAD_DIM}"]),
-        _time_rmsnorm("zamba2-2.7b", Z_D_MODEL, launches["rmsnorm"],
+        *_time_rmsnorm("zamba2-2.7b", Z_D_MODEL, launches["rmsnorm"],
                       errs[f"rmsnorm@d{Z_D_MODEL}"])]
     _time_serve("zamba2-2.7b", model, params, prompts, plan, peak)
     if profile:
@@ -5499,6 +5940,15 @@ def main() -> int:
     # the paged KV cache, token for token with the static decode
     phase_serving()
     mark("phase S")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # multi-device serving: a rank of qwen2-72b's tp-4 plan and of
+    # granite's dp-4 plan on this card, the tp-4 plan on four cards where
+    # there are four
+    kernels += phase_multi_serve(errs)
+    mark("phase V")
 
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     # every entry ran at the tiles the plan's default tuple runs

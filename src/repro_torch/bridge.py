@@ -18,8 +18,10 @@ WO/OO, so a gathered leaf joins its host and device parts).  A rank's cut
 joins any split leaf of the full state and splits it again by its own
 stage's WO/OO, so a state gathered under one plan places onto any other
 plan of the same model (``load_train_state`` writes it into a live state
-in place).  Every array or tensor these functions return is a copy the
-caller owns: none is a view of a live tensor that a later step writes.
+in place).  ``shard_params`` cuts a whole model's params into a serving
+rank's, by the same param specs.  Every array or tensor these functions
+return is a copy the caller owns: none is a view of a live tensor that a
+later step writes.
 """
 from __future__ import annotations
 
@@ -269,6 +271,23 @@ def _rank_part(full: Mapping, cfg, plan, mesh) -> Dict:
     return {"step": full["step"], **{
         e: {n: cut(mine(e, n, full[e][n]), specs[e][n]) for n in metas}
         for e in ("params", "master", "mu", "nu")}}
+
+
+def shard_params(flat: Mapping[str, np.ndarray], cfg, plan, mesh, *,
+                 dtype: Optional[torch.dtype] = None,
+                 device: Device = "cpu") -> Dict[str, torch.Tensor]:
+    """A whole model's params (the reference's, as numpy) -> this rank's
+    serving params on a single-stage plan's live ``mesh``: each cut by the
+    param specs ``_rank_part`` cuts a train state's params by (tp, and
+    data under ZeRO 3), floating ones cast to ``dtype``."""
+    from repro_torch.launch.mesh import mesh_coords
+    from repro_torch.lowering import shard_tensor
+    from repro_torch.parallel.sharding import mesh_shape
+    low = _lowered(cfg, plan, mesh)
+    sizes, coords = mesh_shape(mesh), mesh_coords(mesh)
+    return {n: _to_torch(shard_tensor(flat[n], spec, sizes, coords), dtype,
+                         device)
+            for n, spec in low.param_specs(0).items()}
 
 
 def shard_train_state(full: Mapping, cfg, plan, mesh, *,

@@ -3,7 +3,7 @@
 Every architecture is a frozen ``ArchConfig``; ``reduced()`` yields the small
 smoke-test variant of the same family (same code paths, tiny dims).  The
 port registers only the architectures it can run (granite-3-8b,
-qwen2-moe-a2.7b and zamba2-2.7b).  ``param_count`` is not copied: it
+qwen2-72b, qwen2-moe-a2.7b and zamba2-2.7b).  ``param_count`` is not copied: it
 reaches the cost model, which has not been ported.
 """
 from __future__ import annotations
@@ -183,4 +183,5 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from repro_torch.configs import (granite_3_8b,  # noqa: F401
-                                     qwen2_moe_a2p7b, zamba2_2p7b)
+                                     qwen2_72b, qwen2_moe_a2p7b,
+                                     zamba2_2p7b)

@@ -119,23 +119,26 @@ def _free_port() -> int:
         return sk.getsockname()[1]
 
 
-def _rank_main(rank: int, nproc: int, port: int, argv: Sequence[str]):
+def _rank_main(rank: int, nproc: int, port: int, argv: Sequence[str],
+               entry=None):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(nproc),
                       LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
     # the ranks share the host's cores
     torch.set_num_threads(max(1, torch.get_num_threads() // nproc))
-    rc = main(argv)
+    rc = (entry or main)(argv)
     if rc:
         raise SystemExit(rc)
 
 
-def spawn(nproc: int, argv: Sequence[str]) -> int:
-    """Run ``main(argv)`` on ``nproc`` spawned ranks of one host."""
+def spawn(nproc: int, argv: Sequence[str], entry=None) -> int:
+    """Run ``main(argv)`` on ``nproc`` spawned ranks of one host (``entry``:
+    another launcher's ``main``, e.g. ``launch.serve.main``)."""
     from torch.multiprocessing.spawn import (ProcessException,
                                             start_processes)
     try:
-        start_processes(_rank_main, args=(nproc, _free_port(), list(argv)),
+        start_processes(_rank_main,
+                        args=(nproc, _free_port(), list(argv), entry),
                         nprocs=nproc, start_method="spawn")
     except ProcessException as e:
         print(f"error: rank {e.error_index} failed: {e}", file=sys.stderr)

@@ -22,10 +22,11 @@ guards the second:
 
 * Execution: training runs S stages on exactly S · dp · tp ranks, every
   stage with the same (dp, tp) (``check_train_plan``); serving one stage
-  on one device (``check_serve_plan``).  ``train_exec_cfg`` and
-  ``serve_exec_cfg`` apply them before they hand the single-stage step
-  builders their ExecConfig; ``parallel/pipeline.py`` takes each stage's
-  own ``exec_cfg``.
+  on exactly dp · tp ranks (``check_serve_plan``), its caches placed by
+  ``LoweredPlan.cache_specs`` (the reference's ``cache_shardings``).
+  ``train_exec_cfg`` and ``serve_exec_cfg`` apply them before they hand
+  the single-stage step builders their ExecConfig;
+  ``parallel/pipeline.py`` takes each stage's own ``exec_cfg``.
 """
 from __future__ import annotations
 
@@ -184,6 +185,16 @@ class LoweredPlan:
                 "master": entry(st.wo), "mu": entry(st.oo),
                 "nu": entry(st.oo)}
 
+    def cache_specs(self, caches, batch: int, i: int = 0,
+                    batch_dims=None) -> Tuple[Dict[str, Any], str]:
+        """(the spec tree of the cache tree ``caches``, the cache-update
+        mode) for serving ``batch`` rows: the counterpart of the
+        reference's ``cache_shardings`` (``sharding.cache_specs``, whose
+        ``batch_dims`` it passes on, and ``sharding.cache_update_mode``)."""
+        ma = self.stages[i].mesh_axes
+        specs = SH.cache_specs(caches, self.mesh, ma, batch, batch_dims)
+        return specs, SH.cache_update_mode(specs, ma)
+
     # -- memory ---------------------------------------------------------------
 
     def memory_report(self, **kw):
@@ -327,19 +338,20 @@ def check_train_plan(plan: Plan, world_size: int = 1,
             "(ROADMAP.md, queue A: sharding on torch and pipeline)")
 
 
-def check_serve_plan(plan: Plan) -> None:
-    """Reject a serving plan this port cannot execute: it serves one
-    pipeline stage with dp = tp = 1 on one device."""
+def check_serve_plan(plan: Plan, world_size: int = 1) -> None:
+    """Reject a serving plan this port cannot execute on ``world_size``
+    ranks: it serves one pipeline stage on exactly dp · tp ranks."""
     if plan.num_stages != 1:
         raise ValueError(f"plan has {plan.num_stages} pipeline stages; the "
                          "port serves single-stage plans only (ROADMAP.md, "
                          "queue A: pipeline)")
     st = plan.stages[0]
-    if (st.dp, st.tp) != (1, 1):
-        raise ValueError(f"serving plan wants (dp, tp) = ({st.dp}, {st.tp}); "
-                         "the port serves with dp = tp = 1 on one device "
-                         "(multi-device serving: ROADMAP.md, queue A: "
-                         "serving)")
+    if st.dp * st.tp != world_size:
+        raise ValueError(
+            f"serving plan wants dp · tp = {st.dp} x {st.tp} = "
+            f"{st.dp * st.tp} ranks but the world has {world_size}; serve "
+            "it on exactly that many ranks (launch/serve.py --nproc, or "
+            "torchrun) or retune it (ROADMAP.md, queue A: serving)")
 
 
 def train_exec_cfg(plan: Plan, world_size: int = 1) -> ExecConfig:
@@ -354,8 +366,16 @@ def train_exec_cfg(plan: Plan, world_size: int = 1) -> ExecConfig:
     return stage_exec_config(plan, plan.stages[0])
 
 
-def serve_exec_cfg(plan: Plan) -> ExecConfig:
-    """Inference never remats/offloads activations."""
-    check_serve_plan(plan)
+def serve_exec_cfg(plan: Plan, world_size: int = 1, par=None,
+                   cache_update: str = "dus", kv_split=None,
+                   zero3=None) -> ExecConfig:
+    """The serving exec config of a single-stage plan on ``world_size``
+    ranks (inference never remats or offloads activations), carrying the
+    rank's ``Parallel`` (None on one device), the cache-update mode
+    (``LoweredPlan.cache_specs``), the group that splits the KV sequence
+    (``common.KVSplit``, None where none does) and the ZeRO-3 weight
+    gathers (``common.WeightGather``)."""
+    check_serve_plan(plan, world_size)
     return stage_exec_config(plan, plan.stages[0]).replace(
-        remat_policy="none", ckpt_layers=0, offload_layers=0)
+        remat_policy="none", ckpt_layers=0, offload_layers=0, par=par,
+        cache_update=cache_update, kv_split=kv_split, zero3=zero3)

@@ -132,6 +132,11 @@ class ExecConfig:
     # where a train step's gradients go (``GradSink``); None when the caller
     # takes gradients itself (autograd leaves) or runs without autograd
     sink: Any = None
+    # serving on a rank: the group that splits the decode cache's KV
+    # sequence (``KVSplit``), and the weights ZeRO 3 splits over data,
+    # gathered at each use (``WeightGather``); None where there are none
+    kv_split: Any = None
+    zero3: Any = None
 
     def replace(self, **kw) -> "ExecConfig":
         return dataclasses.replace(self, **kw)
@@ -460,10 +465,52 @@ class GradSink:
 def in_use(params: Params, ec: ExecConfig, prefix: str = "",
            layer: Union[int, Tuple[int, ...], None] = None) -> Params:
     """``params`` as the graph uses them: through the train step's sink
-    when there is one (``GradSink.params``), else as they are."""
-    if ec.sink is None:
-        return params
-    return ec.sink.params(params, prefix, layer)
+    when there is one (``GradSink.params``), gathered where a serving
+    rank's ZeRO 3 splits them (``WeightGather.params``), else as they
+    are."""
+    if ec.sink is not None:
+        return ec.sink.params(params, prefix, layer)
+    if ec.zero3 is not None:
+        return ec.zero3.params(params, prefix, layer)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Serving on a rank: ZeRO-3 weights and a split KV sequence
+# ---------------------------------------------------------------------------
+
+
+class WeightGather:
+    """The weights of a serving rank that ZeRO 3 splits over ``data``:
+    ``dims`` maps each such param to the dim its spec splits (of the
+    stacked param), and each use all-gathers it over ``group`` -- a layer's
+    slices inside the layer loop, one layer at a time, as training's
+    forward gathers them (``GradSink``), so no rank holds more than one
+    layer of a split param whole."""
+
+    def __init__(self, dims: Dict[str, int], group):
+        self.dims, self.group = dict(dims), group
+
+    def params(self, params: Params, prefix: str = "",
+               layer: Union[int, Tuple[int, ...], None] = None) -> Params:
+        lead = 0 if layer is None else \
+            len(layer) if isinstance(layer, tuple) else 1
+        return {n: all_gather_dim(w, self.dims[prefix + n] - lead, self.group)
+                if prefix + n in self.dims else w
+                for n, w in params.items()}
+
+
+@dataclass(frozen=True)
+class KVSplit:
+    """The ranks that split a decode cache's KV sequence into ``size``
+    equal parts (``sharding.cache_specs``): the ``model`` group where tp
+    does not divide the KV heads and dp took the batch, the ``data`` group
+    where dp does not divide the batch.  Rank ``rank`` of ``group`` holds
+    positions ``[rank · S / size, (rank + 1) · S / size)``."""
+    axis: str
+    group: Any
+    size: int
+    rank: int
 
 
 # ---------------------------------------------------------------------------

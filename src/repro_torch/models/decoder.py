@@ -42,9 +42,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.common import (Axes, ExecConfig, ParamBuilder, Params,
-                                       StackedBuilder, in_use, layer,
-                                       segmented_layer_scan, softmax_xent,
-                                       subtree, unbind_layers)
+                                       StackedBuilder, all_gather_dim, in_use,
+                                       layer, segmented_layer_scan,
+                                       softmax_xent, subtree, unbind_layers)
 
 # ---------------------------------------------------------------------------
 # Block kinds
@@ -171,6 +171,23 @@ def unembed_matrix(params: Params, cfg: ArchConfig) -> torch.Tensor:
 def _logits(params: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     # the product is rounded to h's dtype before widening, as in the reference
     return (h @ unembed_matrix(params, cfg)).float()
+
+
+def serve_logits(params: Params, h: torch.Tensor, cfg: ArchConfig,
+                 ec: ExecConfig) -> torch.Tensor:
+    """The serving head's f32 logits of the final-normed ``h`` (only the
+    rows the caller reads).  On a rank (``ec.par``) the head is taken
+    through ``in_use`` (gathered under ZeRO 3), and where its vocab is
+    split over ``model`` the ranks' columns are all-gathered, so that every
+    tp rank holds the whole vocabulary and takes the same argmax."""
+    if ec.par is None:
+        return _logits(params, h, cfg)
+    head = "embed/w" if cfg.tie_embeddings else "lm_head/w"
+    w = unembed_matrix(in_use({head: params[head]}, ec), cfg)
+    logits = (h @ w).float()
+    if w.shape[1] != cfg.vocab_size:
+        logits = all_gather_dim(logits, -1, ec.par.tp_group)
+    return logits
 
 
 def final_norm(params: Params, h: torch.Tensor, cfg: ArchConfig,
@@ -329,21 +346,27 @@ def lm_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
 def lm_prefill(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ArchConfig, ec: ExecConfig, return_cache: bool = False):
     """Forward over the prompt; returns last-position logits (+ the stacked
-    caches ``{"k", "v": (L, B, S, KV, hd), "pos": (L,) int32}``)."""
-    x = embed_tokens(params, batch["tokens"], cfg, ec)
+    caches ``{"k", "v": (L, B, S, KV, hd), "pos": (L,) int32}``).  On a
+    rank of a serving plan (``ec.par``): its rows, its heads and, in the
+    caches, the kv heads its wk holds (``layers.attention``); the
+    embedding vocab-parallel where its vocab is split, the logits whole
+    (``serve_logits``), ZeRO-3 weights gathered a layer at a time
+    (``ec.zero3``)."""
+    x = embed_tokens(in_use({"embed/w": params["embed/w"]}, ec),
+                     batch["tokens"], cfg, ec)
     if not return_cache:
         h, _ = run_layers(params, x, cfg, ec)
-        return _logits(params, h[:, -1:], cfg)
+        return serve_logits(params, h[:, -1:], cfg, ec)
     stacked = subtree(params, "layers")
     h, caches = x, []
     for i in range(cfg.num_layers):
-        h, _, nc = apply_block(layer(stacked, i), h, cfg, ec,
-                               return_cache=True)
+        h, _, nc = apply_block(in_use(layer(stacked, i), ec, "layers/", i),
+                               h, cfg, ec, return_cache=True)
         caches.append(nc)
-    h = L.norm(subtree(params, "final_norm"), h, cfg, ec)
+    h = final_norm(params, h, cfg, ec)
     stacked_caches = {key: torch.stack([c[key] for c in caches])
                       for key in ("k", "v", "pos")}
-    return _logits(params, h[:, -1:], cfg), stacked_caches
+    return serve_logits(params, h[:, -1:], cfg, ec), stacked_caches
 
 
 def lm_decode(params: Params, tokens: torch.Tensor, caches: Dict,
@@ -355,14 +378,17 @@ def lm_decode(params: Params, tokens: torch.Tensor, caches: Dict,
     The k/v (and scale) buffers of ``caches`` are written IN PLACE (one row
     per layer at ``pos``); the returned caches hold the same buffers and
     ``pos + 1``."""
-    x = embed_tokens(params, tokens, cfg, ec)
+    x = embed_tokens(in_use({"embed/w": params["embed/w"]}, ec), tokens,
+                     cfg, ec)
     stacked = subtree(params, "layers")
     h = x
     for i in range(cfg.num_layers):
         lc = {key: buf[i] for key, buf in caches.items()}
-        h, _, _ = apply_block(layer(stacked, i), h, cfg, ec, cache=lc)
-    h = L.norm(subtree(params, "final_norm"), h, cfg, ec)
-    return _logits(params, h, cfg), dict(caches, pos=caches["pos"] + 1)
+        h, _, _ = apply_block(in_use(layer(stacked, i), ec, "layers/", i),
+                              h, cfg, ec, cache=lc)
+    h = final_norm(params, h, cfg, ec)
+    return serve_logits(params, h, cfg, ec), \
+        dict(caches, pos=caches["pos"] + 1)
 
 
 def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int,

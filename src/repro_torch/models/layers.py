@@ -12,6 +12,13 @@ gradients, the latter two through their kernels' autograd Functions.  The
 QKV biases (``cfg.qkv_bias``, qwen2-moe) are added after the projections,
 before the rotation, in training, prefill and decode alike.  MLA and
 cross-attention wait for their slices (ROADMAP.md).
+
+On a rank of a multi-device serving plan (``ExecConfig.par``) the rank
+runs its query heads; its cache holds what ``sharding.cache_specs`` gives
+it: its own KV heads where tp divides them, else every KV head, and all
+positions or, where a group splits the KV sequence
+(``ExecConfig.kv_split``), its part of them, decoded as flash-decoding
+does and merged over the group (``_split_sdpa``).
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import ExecConfig, Params, ScopedBuilder
+from repro_torch.models.common import (ExecConfig, Params, ScopedBuilder,
+                                       all_gather_dim)
 
 NEG_INF = -1e30
 
@@ -207,17 +215,30 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
     ``k_scale``/``v_scale`` when k/v are int8) with a scalar ``pos`` or a
     ``(B,)`` one, one position per row, and x is (B,1,D); the second result
     is the updated cache, whose k/v (and scales) are the input buffers
-    written in place (``cache_write``)."""
+    written in place (``cache_write``).
+
+    On a serving rank (``exec_cfg.par`` with a cache or ``return_kv``) the
+    new rows are projected with the rank's whole wk, so a row is whole for
+    the kv heads the cache stores, and its query heads read the ones they
+    need (``_kv_range``).  Where a group splits the KV sequence only the
+    rank holding ``pos`` writes the row ("onehot"), and each rank's
+    partial softmax over its positions is merged over the group: over
+    ``model`` (every kv head stored) for the whole tp group's query heads,
+    gathered first, of which the rank keeps its own; over ``data`` (every
+    data rank decodes the whole batch) for its own heads."""
     _no_mla(cfg)
     par = exec_cfg.par
     wk, wv = p["wk"], p["wv"]
     bk, bv = p.get("bk"), p.get("bv")
+    kv_rows = None
     if par is not None:
-        if cache is not None:
-            raise NotImplementedError("multi-device decode waits for "
-                                      "multi-device serving (ROADMAP.md, "
-                                      "queue A: serving)")
-        wk, wv, bk, bv = _local_kv(p, cfg, par)
+        if return_kv or cache is not None:
+            # serving: the cache holds every kv head wk holds (its own
+            # where tp splits them, else all); attention reads the ones
+            # this rank's query heads read
+            kv_rows = _kv_range(p, cfg, par)
+        else:
+            wk, wv, bk, bv = _local_kv(p, cfg, par)
     # this rank's heads (all of them on one device)
     d = x.shape[-1]
     h, kv, hd = p["wq"].shape[1], wk.shape[1], cfg.head_dim
@@ -251,6 +272,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
             cos_k, sin_k = rope_freqs(torch.arange(s, device=x.device)[None, :],
                                       hd, cfg.rope_theta)
             k = apply_rope(k, cos_k, sin_k)
+        if return_kv:
+            new_cache = {"k": k, "v": v}
+        if kv_rows is not None:
+            lo, hi = kv_rows
+            k, v = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
+            kv, g = hi - lo, h // (hi - lo)
         if exec_cfg.attn_impl != "naive":
             ctx = kops.attention(q, k, v, causal=(mask_kind == "causal"),
                                  impl=exec_cfg.attn_impl,
@@ -259,32 +286,66 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig,
                                  kernel_impl=exec_cfg.kernel_impl)
         else:
             ctx = _sdpa(q.view(b_, s, kv, g, hd), k, v, cfg, mask_kind)
-        if return_kv:
-            new_cache = {"k": k, "v": v}
     else:  # self-attention decode: the key rotates by the query's position
         if use_rope:
             k = apply_rope(k, cos_q, sin_q)
+        # a group splitting the KV sequence leaves this rank positions
+        # [off, off + its length)
+        split = exec_cfg.kv_split
+        off = 0 if split is None else split.rank * cache["k"].shape[1]
         new_cache = {"pos": pos + 1}
         if cache["k"].dtype == torch.int8:
             # quantize the new rows, write codes and scales, and attend
             # over the whole cache dequantized to the compute dtype
             (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
             new_cache.update(
-                {n: cache_write(cache[n], u, pos, 1, exec_cfg) for n, u in
-                 (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))})
+                {n: cache_write(cache[n], u, pos, 1, exec_cfg, off) for n, u
+                 in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))})
             kd = dequantize_kv(new_cache["k"], new_cache["k_scale"], x.dtype)
             vd = dequantize_kv(new_cache["v"], new_cache["v_scale"], x.dtype)
         else:
-            kd = cache_write(cache["k"], k, pos, 1, exec_cfg)
-            vd = cache_write(cache["v"], v, pos, 1, exec_cfg)
+            kd = cache_write(cache["k"], k, pos, 1, exec_cfg, off)
+            vd = cache_write(cache["v"], v, pos, 1, exec_cfg, off)
             new_cache.update(k=kd, v=vd)
-        qg = q.view(b_, s, kv, g, hd).to(kd.dtype)
-        ctx = _sdpa(qg, kd, vd, cfg, "full", kv_valid_len=pos + 1,
-                    acc_dtype=kd.dtype)
+        if split is not None and split.axis == "model":
+            # every kv head stored: the partials of the whole tp group's
+            # query heads, of which the rank keeps its own
+            qa = all_gather_dim(q, 2, par.tp_group)
+            ctx = _split_sdpa(qa.view(b_, s, kv, -1, hd).to(kd.dtype), kd,
+                              vd, pos, off, split)
+            ctx = ctx.reshape(b_, s, -1, hd)[:, :, par.tp_rank * h:
+                                             (par.tp_rank + 1) * h]
+        else:
+            if kv_rows is not None:
+                lo, hi = kv_rows
+                kd, vd = kd[:, :, lo:hi], vd[:, :, lo:hi]
+            qg = q.view(b_, s, kd.shape[2], -1, hd).to(kd.dtype)
+            ctx = (_sdpa(qg, kd, vd, cfg, "full", kv_valid_len=pos + 1,
+                         acc_dtype=kd.dtype) if split is None
+                   else _split_sdpa(qg, kd, vd, pos, off, split))
 
     ctx = ctx.reshape(b_, s, h * hd)
     out = ctx @ p["wo"].reshape(h * hd, d)
     return (out if par is None else par.tp_out(out)), new_cache
+
+
+def _kv_range(p: Params, cfg: ArchConfig, par
+              ) -> Optional[Tuple[int, int]]:
+    """The kv heads ``[lo, hi)`` of wk's that this tp rank's query heads
+    read, or None where they read all of them (wk sharded with the query
+    heads, or one device's heads).  Where tp does not divide the kv heads,
+    wk is replicated and a rank's heads read a range of them (two ranks
+    may share one)."""
+    h_loc = p["wq"].shape[1]
+    if p["wk"].shape[1] != cfg.num_kv_heads or h_loc == cfg.num_heads:
+        return None
+    g = cfg.q_per_kv
+    if h_loc % g and g % h_loc:
+        raise NotImplementedError(
+            f"{h_loc} query heads per rank over groups of {g}: the rank's "
+            "heads would read kv heads unevenly (ROADMAP.md, queue A: "
+            "sharding on torch)")
+    return par.tp_rank * h_loc // g, -(-(par.tp_rank + 1) * h_loc // g)
 
 
 def _local_kv(p: Params, cfg: ArchConfig, par) -> Tuple[Optional[
@@ -292,25 +353,57 @@ def _local_kv(p: Params, cfg: ArchConfig, par) -> Tuple[Optional[
     """wk/wv (and bk/bv, None without QKV biases) for this tp rank's query
     heads.  Sharded with the query heads when the kv heads divide by tp;
     otherwise replicated, and the rank takes the kv heads its query heads
-    read (its gradient of the rest is zero, and the step sums wk/wv's and
-    bk/bv's gradients over tp)."""
-    h_loc = p["wq"].shape[1]
-    if p["wk"].shape[1] != cfg.num_kv_heads or h_loc == cfg.num_heads:
+    read (``_kv_range``; its gradient of the rest is zero, and the step
+    sums wk/wv's and bk/bv's gradients over tp)."""
+    rows = _kv_range(p, cfg, par)
+    if rows is None:
         return tuple(p.get(n) for n in ("wk", "wv", "bk", "bv"))
-    g = cfg.q_per_kv
-    if h_loc % g and g % h_loc:
-        raise NotImplementedError(
-            f"{h_loc} query heads per rank over groups of {g}: the rank's "
-            "heads would read kv heads unevenly (ROADMAP.md, queue A: "
-            "sharding on torch)")
-    lo = par.tp_rank * h_loc // g
-    hi = -(-(par.tp_rank + 1) * h_loc // g)
+    lo, hi = rows
     return (p["wk"][:, lo:hi], p["wv"][:, lo:hi],
             *(p[n][lo:hi] if n in p else None for n in ("bk", "bv")))
 
 
+def _split_sdpa(q, k, v, pos, off: int, split) -> torch.Tensor:
+    """Decode attention over a KV sequence split over ``split``'s group:
+    q (B,1,KV,G,hd), k/v (B,S_loc,KV,hd) holding positions ``[off, off +
+    S_loc)``; the positions at or below ``pos`` count.  Each rank's
+    partial max m, sum of exponentials l and unnormalised output o per
+    (row, head) are all-gathered over the group and merged in rank order
+    (the same order on every rank): out = sum_r e^(m_r - M) o_r / sum_r
+    e^(m_r - M) l_r with M the largest m_r.  A rank holding no valid
+    position has m = NEG_INF and weighs 0.  Returns (B,1,KV,G,hd)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    acc = k.dtype
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q.to(acc), k.to(acc)
+                          ).float() * scale                  # (B,KV,G,1,S)
+    sk = k.shape[1]
+    valid = off + torch.arange(sk, device=q.device) < (
+        pos.view(-1, 1, 1, 1, 1) if pos.dim() == 1 else pos) + 1
+    scores = torch.where(valid, scores,
+                         torch.full((), NEG_INF, device=q.device))
+    m = scores.amax(-1, keepdim=True)
+    e = torch.exp(scores - m)
+    lsum = e.sum(-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskh->bkgqh", e.to(v.dtype), v).float()
+    b_, kvh, g = o.shape[:3]
+    part = torch.cat([o.reshape(b_, -1), m.reshape(b_, -1),
+                      lsum.reshape(b_, -1)], -1)
+    parts = all_gather_dim(part[None], 0, split.group)      # (n, B, ...)
+    n_o = o[0].numel()
+    os_ = parts[..., :n_o].view((split.size,) + tuple(o.shape))
+    ms = parts[..., n_o:n_o + m[0].numel()].view((split.size,)
+                                                 + tuple(m.shape))
+    ls = parts[..., n_o + m[0].numel():].view((split.size,)
+                                              + tuple(lsum.shape))
+    top = ms.amax(0)
+    w = torch.exp(ms - top)                                 # (n,B,KV,G,1,1)
+    out = (w * os_).sum(0) / (w * ls).sum(0)                # (B,KV,G,1,hd)
+    return out.permute(0, 3, 1, 2, 4).to(v.dtype)
+
+
 def cache_write(buf: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
-                seq_dim: int, exec_cfg: ExecConfig) -> torch.Tensor:
+                seq_dim: int, exec_cfg: ExecConfig, offset: int = 0
+                ) -> torch.Tensor:
     """Write ``upd`` into the cache at ``pos`` along ``seq_dim`` IN PLACE,
     and return ``buf``.  A scalar ``pos`` is the reference's "dus"
     (dynamic-update-slice) form.  A ``(B,)`` vector writes row ``pos[b]``
@@ -319,20 +412,34 @@ def cache_write(buf: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
     bitwise to a slice write, written here by index, one row a slot.  The
     reference returns a new array; writing in place keeps one cache
     buffer for the whole generation.  ``pos`` stays a device tensor, so
-    the write needs no host sync."""
+    the write needs no host sync.
+
+    ``exec_cfg.cache_update == "onehot"`` (a serving rank whose cache's
+    sequence a group splits, ``training/step.py::serve_rank``): ``buf``
+    holds the positions ``[offset, offset + buf.shape[seq_dim])``, and the
+    rows at ``pos`` are written only where they fall in it (the rank that
+    holds them); every other rank's buffer is left as it was."""
     if pos.dim() == 1:
-        if seq_dim != 1 or upd.shape[1] != 1:
+        if seq_dim != 1 or upd.shape[1] != 1 or offset:
             raise ValueError("per-request positions write one token along "
-                             "dim 1")
+                             "dim 1 of a whole sequence")
         rows = torch.arange(buf.shape[0], device=buf.device)
         buf[rows, pos.long()] = upd[:, 0].to(buf.dtype)
         return buf
-    if exec_cfg.cache_update != "dus":
-        raise NotImplementedError(f"cache_update {exec_cfg.cache_update!r} "
-                                  "waits for the multi-device slice")
     idx = pos.long().reshape(1) + torch.arange(upd.shape[seq_dim],
                                                device=buf.device)
-    buf.index_copy_(seq_dim, idx, upd.to(buf.dtype))
+    if exec_cfg.cache_update == "dus":
+        buf.index_copy_(seq_dim, idx, upd.to(buf.dtype))
+        return buf
+    if exec_cfg.cache_update != "onehot":
+        raise ValueError(f"cache_update {exec_cfg.cache_update!r}")
+    local = idx - offset
+    mine = (local >= 0) & (local < buf.shape[seq_dim])
+    local = local.clamp(0, buf.shape[seq_dim] - 1)
+    keep = mine.view((1,) * seq_dim + (-1,) + (1,) * (buf.dim() - seq_dim - 1))
+    old = buf.index_select(seq_dim, local)
+    buf.index_copy_(seq_dim, local,
+                    torch.where(keep, upd.to(buf.dtype), old))
     return buf
 
 

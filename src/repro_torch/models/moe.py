@@ -130,7 +130,7 @@ def route(logits: torch.Tensor, cfg: ArchConfig, ec: ExecConfig
     # probability over this rank's tokens (its mean over dp is the whole
     # micro-batch's)
     top1 = _one_hot(idx[..., 0], e, torch.float32).sum((0, 1))
-    if par is not None:
+    if par is not None and par.dp > 1:
         dist.all_reduce(top1, group=par.dp_group)
         t *= par.dp
     aux = e * torch.sum(top1 / t * probs.mean((0, 1)))

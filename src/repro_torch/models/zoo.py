@@ -1,8 +1,9 @@
 """Model registry (the port of ``repro/models/zoo.py``): the uniform
 init / loss / prefill / decode / caches interface over the ported families
--- dense and MoE decoders and the Zamba2 hybrid, each served on one device
-and trained on one device or on a rank of a multi-device plan (pipelined
-plans, S > 1, train dense and MoE decoders only, as in the reference)."""
+-- dense and MoE decoders and the Zamba2 hybrid, each served and trained on
+one device or on a rank of a multi-device plan (pipelined plans, S > 1,
+train dense and MoE decoders only, as in the reference; the hybrid serves
+on one device only, ROADMAP.md)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -60,9 +61,25 @@ class Model:
         return _FAMILIES[self.cfg.family][3](params, tokens, caches,
                                              self.cfg, ec)
 
-    def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        return _FAMILIES[self.cfg.family][4](self.cfg, batch, max_len, dtype,
-                                             self.device)
+    def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                    shard=None):
+        """The zeroed decode caches for ``batch`` rows of ``max_len``
+        positions.  ``shard(path, shape)``: a rank's shape of the leaf at
+        ``path`` (``training.step.ServeRank.local_shape``); every leaf is
+        then allocated at that shape, and no rank ever holds the whole
+        cache."""
+        init = _FAMILIES[self.cfg.family][4]
+        if shard is None:
+            return init(self.cfg, batch, max_len, dtype, self.device)
+        meta = init(self.cfg, batch, max_len, dtype, "meta")
+
+        def alloc(tree, path):
+            return {k: alloc(v, path + (k,)) if isinstance(v, dict)
+                    else torch.zeros(shard(path + (k,), tuple(v.shape)),
+                                     dtype=v.dtype, device=self.device)
+                    for k, v in tree.items()}
+
+        return alloc(meta, ())
 
 
 def build_model(arch: Union[str, ArchConfig],
@@ -83,7 +100,9 @@ def build_model(arch: Union[str, ArchConfig],
 
 def pad_caches(caches: Dict, extra: int) -> Dict:
     """Extend the attention caches by ``extra`` zero slots along S (prefill
-    fills the prompt length; decode appends).  Walks the cache tree --
+    fills the prompt length; decode appends).  Shape-agnostic: a rank's
+    caches (its rows and kv heads) pad the same way, before
+    ``ServeStep.place`` cuts a split sequence.  Walks the cache tree --
     dense ``{k, v, pos}`` or the hybrid's ``{"attn": {k, v, pos}, "mamba":
     {conv, ssm}}``, with ``k_scale``/``v_scale`` beside int8 k/v -- and
     pads leaves by name, as the reference does: k/v ``(lead, B, S, KV,
@@ -106,8 +125,10 @@ def pad_caches(caches: Dict, extra: int) -> Dict:
 def quantize_caches(caches: Dict) -> Dict:
     """A bf16 prefill cache tree in the int8 layout decode reads under
     ``kv_cache_dtype="int8"``: every self-attention ``{k, v, pos}`` dict
-    gets int8 k/v and their f32 scales (``layers.quantize_kv``); everything
-    else -- SSM state, conv windows, ``pos`` -- passes through."""
+    gets int8 k/v and their f32 scales (``layers.quantize_kv``, per token
+    and head, so a rank's part quantizes as its part of the whole);
+    everything else -- SSM state, conv windows, ``pos`` -- passes
+    through."""
     if "k" in caches and "v" in caches and "pos" in caches:
         (kq, ks), (vq, vs) = L.quantize_kv(caches["k"]), \
             L.quantize_kv(caches["v"])

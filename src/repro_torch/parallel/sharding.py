@@ -14,13 +14,13 @@ Meshes are either an ``AbstractMesh`` (axis names and sizes, no devices:
 the lowering and the memory report) or a live
 ``torch.distributed.device_mesh.DeviceMesh``; ``mesh_shape`` reads both.
 An axis of size 1 shards nothing, so a spec never names one.
-``cache_specs`` (serving) waits for multi-device serving (ROADMAP.md,
-queue A item 8).
+``cache_specs`` and ``cache_update_mode`` place a serving cache tree the
+same way, leaf by leaf (``lowering/lower.py::LoweredPlan.cache_specs``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 from repro_torch.lowering.state_layout import choose_fsdp_dim, choose_tp_dim
 
@@ -134,3 +134,120 @@ def make_shard_rules(mesh, ma: MeshAxes, sequence_parallel: bool
     return {"dp": _entry(mesh, ma.dp), "tp": _entry(mesh, ma.tp),
             "sp": _entry(mesh, ma.tp) if (sequence_parallel and tp_size > 1)
             else None}
+
+
+# ---------------------------------------------------------------------------
+# Cache (serving) specs
+# ---------------------------------------------------------------------------
+
+# the cache leaves that carry the KV sequence at ``bdim + 1`` (the
+# reference's ``_SEQ_LEAF_SEQ_DIM`` keys)
+SEQ_CACHE_KEYS = ("k", "v", "latent", "k_rope", "k_scale", "v_scale")
+
+
+def cache_specs(caches, mesh, ma: MeshAxes, batch: int,
+                batch_dims: Optional[Dict[Tuple[str, ...], Optional[int]]]
+                = None) -> Any:
+    """The spec of every leaf of a stacked cache tree (a nested dict of
+    tensors, meta ones included), as the same tree of specs: the
+    reference's ``cache_specs`` leaf for leaf, in the port's form.
+
+    The batch dim is located by value (the first dim equal to ``batch``).
+    A batch that dp divides (dp > 1) splits over ``data``; otherwise the KV
+    sequence (``bdim + 1`` of the ``SEQ_CACHE_KEYS`` leaves) takes
+    ``data``.  Over ``model``: k/v on their KV-head dim when tp divides
+    it, else on the sequence when ``data`` did not take it; the state
+    leaves ``ssm``/``c``/``n``/``m`` on their heads; ``conv`` on its
+    channels; MLA's ``latent``/``k_rope`` on the sequence; ``k_scale``/
+    ``v_scale`` as k/v.  The reference names ``data`` on the sequence even
+    where dp is 1 (a split into one part), and that is what keeps tp off
+    it: so at dp = 1 a k/v whose heads tp does not divide stays whole over
+    ``model``.  The spec names only axes of size > 1.
+
+    ``batch_dims`` (leaf path -> its batch dim or None) replaces the search
+    by value: where the batch equals another dim of a leaf (the stacked
+    layers, at batch = num_layers), the reference splits that dim; the
+    runtime passes the batch dims its probe established
+    (``cache_layout.derive_cache_layout``), the memory model keeps the
+    reference's search."""
+    dp_size, tp_size = axis_size(mesh, ma.dp), axis_size(mesh, ma.tp)
+    dp, tp = _entry(mesh, ma.dp), _entry(mesh, ma.tp)
+    shard_batch = batch % dp_size == 0 and dp_size > 1
+
+    def leaf_spec(path, shape):
+        key, nd = path[-1], len(shape)
+        spec: list = [None] * nd
+        # the dims the reference names an axis on, of any size
+        taken = [False] * nd
+        bdim = next((i for i, d in enumerate(shape) if d == batch), None) \
+            if batch_dims is None else batch_dims[path]
+        if bdim is None:
+            return tuple(spec)
+
+        def put(i, entry):
+            spec[i], taken[i] = entry, True
+
+        if shard_batch:
+            put(bdim, dp)
+        elif key in SEQ_CACHE_KEYS and nd > bdim + 1:
+            put(bdim + 1, dp)      # the KV sequence over data
+        if tp_size > 1:
+            seq_free = nd > bdim + 1 and not taken[bdim + 1]
+            if key in ("k", "v") and nd >= bdim + 3 \
+                    and shape[nd - 2] % tp_size == 0:
+                put(nd - 2, tp)    # (..., B, S, KV, hd): the KV heads
+            elif key in ("k", "v") and seq_free \
+                    and shape[bdim + 1] % tp_size == 0:
+                put(bdim + 1, tp)  # heads tp does not divide: the sequence
+            elif key in ("ssm", "c", "n", "m") and nd > bdim + 1 \
+                    and shape[bdim + 1] % tp_size == 0:
+                put(bdim + 1, tp)  # state heads
+            elif key == "conv" and shape[nd - 1] % tp_size == 0:
+                put(nd - 1, tp)    # conv channels
+            elif key in ("latent", "k_rope") and seq_free \
+                    and shape[bdim + 1] % tp_size == 0:
+                put(bdim + 1, tp)  # MLA latent: the sequence
+            elif key in ("k_scale", "v_scale"):
+                # as k/v: the kv-head dim (last) if tp divides it, else the
+                # sequence
+                if shape[nd - 1] % tp_size == 0:
+                    put(nd - 1, tp)
+                elif seq_free and shape[bdim + 1] % tp_size == 0:
+                    put(bdim + 1, tp)
+        return tuple(spec)
+
+    def walk(tree, path):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                else leaf_spec(path + (k,), tuple(int(d) for d in v.shape))
+                for k, v in tree.items()}
+
+    return walk(caches, ())
+
+
+def cache_update_mode(specs, ma: MeshAxes) -> str:
+    """``"onehot"`` when any KV-sequence leaf names the model axis on any
+    dim (the reference's rule), else ``"dus"``: a decode then writes the new
+    row only where the rank holds its position (``layers.cache_write``)."""
+    tp = set(ma.tp if isinstance(ma.tp, tuple) else (ma.tp,)) - {None}
+
+    def named(e):
+        return set(e if isinstance(e, tuple) else (e,))
+
+    def walk(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                if walk(v):
+                    return True
+            elif k in SEQ_CACHE_KEYS and any(named(e) & tp for e in v
+                                             if e is not None):
+                return True
+        return False
+
+    return "onehot" if walk(specs) else "dus"
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """A rank's shape of a tensor of ``shape`` split by ``spec``."""
+    sizes = mesh_shape(mesh) if not isinstance(mesh, dict) else mesh
+    return tuple(n if e is None else n // sizes[e]
+                 for n, e in zip(shape, spec))

@@ -16,10 +16,15 @@ equal a batch-1 ``launch.serve.generate()`` at the same ``max_len``,
 token for token (tests/test_torch_serving_engine.py, ``serve
 --continuous`` and chip_smoke.py's phase S).
 
-The engine runs on ``model.device`` at dp = tp = 1 (the port's serving
-plans, ``lowering.check_serve_plan``).  The block table lives on the host
-and is uploaded when it changes; the greedy argmax runs on the device
-and is read to the host once a step.
+The engine runs on ``model.device``, on one device or, with ``mesh``, on a
+rank of a dp = 1 plan at any tp whose cache tp splits on the kv heads or
+not at all: every tp rank runs the same schedule and block table (the
+argmax of the logits gathered whole is the same on each), and each
+rank's pools hold its kv heads, so ``memory_bytes()`` is
+``concrete_paged_cache_bytes`` at (dp = 1, tp).  dp > 1, or a cache whose
+KV sequence a group splits, raises (``make_paged_serve_step``).  The
+block table lives on the host and is uploaded when it changes; the greedy
+argmax runs on the device and is read to the host once a step.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ class ContinuousBatchingEngine:
     @torch.inference_mode()
     def __init__(self, model, params, plan, *, slots: int, max_len: int,
                  page_size: int, watermark: Optional[int] = None,
-                 max_admits_per_step: int = 1):
+                 max_admits_per_step: int = 1, mesh=None):
         from repro_torch.training.step import (make_paged_serve_step,
                                                make_prefill_step)
         self.model, self.params, self.plan = model, params, plan
@@ -74,15 +79,19 @@ class ContinuousBatchingEngine:
             slots=self.slots, allocator=self.allocator,
             max_admits_per_step=max_admits_per_step)
 
-        self.state, bt = init_paged_state(model, self.specs, self.slots,
-                                          self.max_len, self.page_size,
-                                          cache_dtype)
-        self.block_table = bt.numpy()     # mutable host copy; (slots, npp)
-        self._bt_dev: Optional[torch.Tensor] = None
-        self._prefill = make_prefill_step(model, plan, return_cache=True)
+        # the paged step first: it refuses the layouts the engine cannot
+        # page (dp > 1, a split KV sequence) before anything is allocated
         self._step = make_paged_serve_step(
             model, plan, slots=self.slots, max_len=self.max_len,
-            page_size=self.page_size)
+            page_size=self.page_size, mesh=mesh)
+        args = (model, self.specs, self.slots, self.max_len, self.page_size,
+                cache_dtype)
+        self.state, bt = init_paged_state(*args) if mesh is None else \
+            init_paged_state(*args, shard=self._step.rank.local_shape)
+        self.block_table = bt.numpy()     # mutable host copy; (slots, npp)
+        self._bt_dev: Optional[torch.Tensor] = None
+        self._prefill = make_prefill_step(model, plan, return_cache=True,
+                                          mesh=mesh, batch=1)
         self._tokens = np.zeros((self.slots, 1), np.int32)
         self.results: Dict[Any, List[int]] = {}
         self.steps_run = 0
@@ -124,7 +133,7 @@ class ContinuousBatchingEngine:
     def memory_bytes(self) -> int:
         """Exact bytes of the engine's cache state (pools + slot tree +
         int32 block table) -- compared bitwise against
-        ``concrete_paged_cache_bytes`` at dp == tp == 1."""
+        ``concrete_paged_cache_bytes`` at (dp = 1, tp)."""
         return paged_state_bytes(self.state, self.block_table)
 
     # -- scheduling passes ----------------------------------------------------

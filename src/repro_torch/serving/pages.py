@@ -220,12 +220,14 @@ def data_pages(slots: int, max_len: int, page_size: int) -> int:
 
 
 def init_paged_state(model, specs: List[LeafSpec], slots: int, max_len: int,
-                     page_size: int, cache_dtype=torch.bfloat16):
+                     page_size: int, cache_dtype=torch.bfloat16, shard=None):
     """The engine's state on ``model.device``: the ``init_caches`` tree with
     paged leaves replaced by zeroed pools and ``pos`` leaves widened to
     int32 per-request vectors, and the ``(slots, npp)`` block table, all
-    trash.  Non-paged leaves keep their REAL initial values."""
-    state = model.init_caches(slots, max_len, cache_dtype)
+    trash.  Non-paged leaves keep their REAL initial values.  ``shard``: a
+    tp rank's leaf shapes (``Model.init_caches``); a pool then holds the
+    rank's kv heads, split as its contiguous leaf is."""
+    state = model.init_caches(slots, max_len, cache_dtype, shard=shard)
     npp = max_len // page_size
     pool_pages = data_pages(slots, max_len, page_size) + 1  # + trash
     for sp in specs:
@@ -247,6 +249,6 @@ def init_paged_state(model, specs: List[LeafSpec], slots: int, max_len: int,
 def paged_state_bytes(state, block_table) -> int:
     """Exact bytes the engine allocated (pools + slot state + block
     table) -- compared bitwise against ``concrete_paged_cache_bytes`` at
-    dp == tp == 1."""
+    the engine's (dp = 1, tp)."""
     return int(sum(tree_get(state, p).nbytes for p in tree_paths(state))
                + block_table.nbytes)

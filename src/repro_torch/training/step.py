@@ -13,7 +13,11 @@ the step's sums as the backward reaches it, and no param is an autograd
 leaf.  ``init_sharded_state`` builds a rank's part of a fresh
 state.  ``make_prefill_step`` / ``make_serve_step`` bind the plan's serve
 ``ExecConfig``; ``make_paged_serve_step`` is the decode step of the
-continuous-batching engine (``serving/``) over page pools.  All are
+continuous-batching engine (``serving/``) over page pools.  With ``mesh``
+each runs one rank of a single-stage serving plan (``serve_rank``): its
+rows of the batch where dp divides it, its heads and its part of the cache
+as ``LoweredPlan.cache_specs`` places it, its params from
+``init_rank_params`` (or ``bridge.shard_params``).  All are
 closures: PyTorch runs eagerly, so there is no
 ``jit`` and no buffer donation; the train step updates its state in
 place, and decode writes its cache in place.
@@ -21,17 +25,21 @@ place, and decode writes its cache in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.plan import Plan
+from repro_torch.launch.mesh import mesh_coords
 from repro_torch.lowering import (lower_plan, serve_exec_cfg, shard_tensor,
                                   train_exec_cfg)
-from repro_torch.models.common import ExecConfig, GradSink, Parallel
+from repro_torch.models.common import (ExecConfig, GradSink, KVSplit,
+                                       Parallel, WeightGather, all_gather_dim)
 from repro_torch.models.zoo import Model
 from repro_torch.parallel.compression import fake_compress
+from repro_torch.parallel.sharding import local_shape, mesh_shape
+from repro_torch.serving.pages import tree_get, tree_paths
 from repro_torch.training import optimizer as OPT
 
 
@@ -138,8 +146,6 @@ PIPELINE_FAMILIES = ("dense", "moe", "ssm")
 
 
 def _lowered(model: Model, plan: Plan, mesh):
-    from repro_torch.launch.mesh import mesh_coords
-    from repro_torch.parallel.sharding import mesh_shape
     if plan.num_stages > 1 and model.cfg.family not in PIPELINE_FAMILIES:
         raise NotImplementedError(
             f"{model.cfg.name}: a plan of {plan.num_stages} stages; the "
@@ -329,45 +335,206 @@ def init_sharded_state(model: Model, plan: Plan, mesh,
     return OPT.init_state(params, axes, ls.stage, opt_params)
 
 
+def init_rank_params(model: Model, plan: Plan, mesh,
+                     generator: torch.Generator, dtype=torch.bfloat16):
+    """(params, axes) of this rank of a single-stage plan, for serving:
+    every rank draws the whole model's params from ``generator``, one
+    stacked layer at a time, and keeps its part by the param specs (tp,
+    and data under ZeRO 3), so no rank ever holds the model whole."""
+    low, sizes, coords = _lowered(model, plan, mesh)
+    pspecs = low.param_specs(0)
+
+    def shard(name, x, lead):
+        return shard_tensor(x, pspecs[name][lead:], sizes, coords)
+
+    return model.init(generator, dtype, shard=shard)
+
+
+@dataclass
+class ServeRank:
+    """One rank of a single-stage serving plan at one cache shape ``(batch,
+    max_len)`` (``serve_rank``): the lowering, the mesh's sizes and this
+    rank's coordinates, the cache's spec tree and whole tree (on the meta
+    device: its shapes), the
+    serving ``ExecConfig`` (its ``Parallel``, cache-update mode, KV split
+    and ZeRO-3 gathers), and whether dp splits the batch's rows (else
+    every data rank decodes all of them)."""
+    low: Any
+    sizes: Dict[str, int]
+    coords: Dict[str, int]
+    specs: Dict[str, Any]
+    meta: Dict[str, Any]
+    ec: ExecConfig
+    rows_split: bool
+
+    def local_shape(self, path, shape) -> Tuple[int, ...]:
+        """This rank's shape of the cache leaf at ``path``."""
+        return local_shape(shape, tree_get(self.specs, path), self.sizes)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a tensor of the global batch (dim 0)."""
+        if not self.rows_split:
+            return x
+        n = x.shape[0] // self.sizes["data"]
+        return x[self.coords["data"] * n:(self.coords["data"] + 1) * n]
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The data ranks' rows, in order, on every rank."""
+        if not self.rows_split:
+            return x
+        return all_gather_dim(x.contiguous(), 0, self.ec.par.dp_group)
+
+    def place(self, caches: Dict) -> Dict:
+        """A cache tree of this rank (its rows and kv heads, the whole
+        sequence, as prefill and ``pad_caches`` leave it) cut to what the
+        specs give the rank: every dim a spec splits that the leaf still
+        holds whole (the KV sequence where a group splits it)."""
+        def cut(path, x):
+            spec = tree_get(self.specs, path)
+            whole = tree_get(self.meta, path).shape
+            for d, e in enumerate(spec):
+                if e is not None and x.shape[d] == whole[d]:
+                    n = whole[d] // self.sizes[e]
+                    x = x.narrow(d, self.coords[e] * n, n)
+            return x.contiguous()
+
+        def walk(tree, path):
+            return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                    else cut(path + (k,), v) for k, v in tree.items()}
+
+        return walk(caches, ())
+
+
+def serve_rank(model: Model, plan: Plan, mesh, batch: int, max_len: int
+               ) -> ServeRank:
+    """This rank's ``ServeRank`` on the live mesh for caches of ``batch``
+    rows and ``max_len`` positions.  The cache specs locate each leaf's
+    batch dim by the layout's probe, not by value as the reference's do
+    (``sharding.cache_specs``' ``batch_dims``): where the batch equals the
+    layer count, the reference splits the stacked layer dim and every
+    ``pos`` leaf; the rank splits the rows instead (the same bytes of k
+    and v) and holds ``pos`` whole (docs/port.md).  Raises where the port
+    cannot run the plan: the hybrid at dp · tp > 1, and tp that does not
+    split the products tensor parallelism splits (``rank_plan``)."""
+    from repro_torch.lowering.cache_layout import derive_cache_layout
+    from repro_torch.models.zoo import build_model
+    cfg = model.cfg
+    rp = rank_plan(model, plan, mesh)
+    low, par = rp.low, rp.par
+    world = par.dp * par.tp
+    if cfg.family == "hybrid" and world > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid serves on one device; its multi-device "
+            "serving (the Mamba2 mixer's conv window and gated norm split "
+            "over tp) is not ported (ROADMAP.md, queue A: serving)")
+    kv = plan.kv_cache_dtype
+    cdt = torch.int8 if kv == "int8" else torch.bfloat16
+    meta = build_model(cfg, "meta").init_caches(batch, max_len, cdt)
+    layout = derive_cache_layout(cfg, batch, max_len, kv)
+    paths = tree_paths(meta)        # in the layout's leaf order
+    bdims = {path: leaf.pbdim
+             for path, leaf in zip(paths, layout.leaves, strict=True)}
+    specs, _ = low.cache_specs(meta, batch, batch_dims=bdims)
+    sizes, coords = mesh_shape(mesh), mesh_coords(mesh)
+    split = None
+    for path, leaf in zip(paths, layout.leaves):
+        spec = tree_get(specs, path)
+        if leaf.key == "k" and spec[leaf.pbdim + 1] is not None:
+            ax = spec[leaf.pbdim + 1]
+            split = KVSplit(ax, mesh.get_group(ax), sizes[ax], coords[ax])
+    # only a rank holding part of the positions needs the owner-only
+    # write; where every rank holds them all, the plain slice write does
+    # (the reference takes "onehot" wherever ``model`` names any dim of a
+    # KV leaf, heads included, and leaves a split over data to GSPMD)
+    mode = "onehot" if split is not None else "dus"
+    rows_split = sizes["data"] > 1 and batch % sizes["data"] == 0
+    # serving runs no sequence parallelism; where the rows are not split,
+    # every data rank decodes all of them, as one data rank of one would
+    spar = Parallel(par.dp_group, par.tp_group,
+                    par.dp if rows_split else 1, par.tp,
+                    par.dp_rank if rows_split else 0, par.tp_rank, sp=False)
+    gather = {n: sp.index("data") for n, sp in rp.pspecs.items()
+              if "data" in sp}
+    ec = serve_exec_cfg(
+        plan, world, par=spar, cache_update=mode, kv_split=split,
+        zero3=WeightGather(gather, par.dp_group) if gather else None)
+
+    return ServeRank(low, sizes, coords, specs, meta, ec, rows_split)
+
+
 @dataclass
 class ServeStep:
+    """A serving step: ``fn``, its ``ExecConfig`` and, with a mesh, this
+    rank's ``ServeRank`` (None on one device)."""
     fn: Callable
     exec_cfg: ExecConfig
+    rank: Optional[ServeRank] = None
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.rank is None else self.rank.gather_rows(x)
+
+    def place(self, caches: Dict) -> Dict:
+        return caches if self.rank is None else self.rank.place(caches)
 
 
 def make_prefill_step(model: Model, plan: Plan, return_cache: bool = False,
-                      kernel_impl: str = "kernel") -> ServeStep:
+                      kernel_impl: str = "kernel", mesh=None,
+                      batch: Optional[int] = None) -> ServeStep:
     """``fn(params, batch)`` -> last-position logits (+ stacked caches).
-    ``kernel_impl="plain"`` is the test hook of ``ExecConfig.kernel_impl``."""
-    ec = serve_exec_cfg(plan).replace(kernel_impl=kernel_impl)
+    ``kernel_impl="plain"`` is the test hook of ``ExecConfig.kernel_impl``.
+    ``mesh``: this rank of the plan's ``(data, model)`` mesh, for a global
+    batch of ``batch`` rows: ``fn`` takes the global batch and returns
+    the logits (whole vocabulary) and caches of this rank's rows, the
+    caches holding its kv heads over the whole prompt (``ServeStep.place``
+    cuts a split sequence after ``pad_caches``)."""
+    if mesh is None:
+        ec = serve_exec_cfg(plan).replace(kernel_impl=kernel_impl)
+        sr = None
+    else:
+        if batch is None:
+            raise ValueError("a prefill step on a mesh needs its batch size")
+        sr = serve_rank(model, plan, mesh, batch, 1)
+        ec = sr.ec.replace(kernel_impl=kernel_impl)
 
     @torch.inference_mode()
     def prefill(params, batch):
+        if sr is not None:
+            batch = {k: sr.rows(v) for k, v in batch.items()}
         return model.prefill_fn(params, batch, ec, return_cache)
 
-    return ServeStep(fn=prefill, exec_cfg=ec)
+    return ServeStep(fn=prefill, exec_cfg=ec, rank=sr)
 
 
 def make_serve_step(model: Model, plan: Plan, batch: int = 1,
-                    max_len: int = 1, kernel_impl: str = "kernel"
+                    max_len: int = 1, kernel_impl: str = "kernel", mesh=None
                     ) -> ServeStep:
     """``fn(params, tokens, caches)`` -> (logits, caches): one-token decode
     against caches of length ``max_len`` (written in place), bf16 or, under
     ``plan.kv_cache_dtype="int8"``, int8 codes with their scales
-    (``zoo.quantize_caches`` of the prefill's)."""
-    ec = serve_exec_cfg(plan).replace(cache_update="dus",
-                                      kernel_impl=kernel_impl)
+    (``zoo.quantize_caches`` of the prefill's).  ``mesh``: this rank of the
+    plan's mesh for a global batch of ``batch``; ``fn`` takes this rank's
+    tokens (those of its prefill's rows) and caches (``ServeStep.place``)
+    and returns its rows' logits, whole over the vocabulary."""
+    if mesh is None:
+        ec = serve_exec_cfg(plan).replace(cache_update="dus",
+                                          kernel_impl=kernel_impl)
+        sr, want = None, (batch, max_len)
+    else:
+        sr = serve_rank(model, plan, mesh, batch, max_len)
+        ec = sr.ec.replace(kernel_impl=kernel_impl)
+        path = ("attn", "k") if "attn" in sr.meta else ("k",)
+        want = sr.local_shape(path, tree_get(sr.meta, path).shape)[1:3]
 
     @torch.inference_mode()
     def serve(params, tokens, caches):
         # the attention cache: the dense layout's own, or the hybrid's
         k = caches["attn"]["k"] if "attn" in caches else caches["k"]
-        if k.shape[1] != batch or k.shape[2] != max_len:
+        if tuple(k.shape[1:3]) != tuple(want):
             raise ValueError(f"caches {tuple(k.shape)} for batch {batch}, "
                              f"max_len {max_len}")
         return model.decode_fn(params, tokens, caches, ec)
 
-    return ServeStep(fn=serve, exec_cfg=ec)
+    return ServeStep(fn=serve, exec_cfg=ec, rank=sr)
 
 
 @dataclass
@@ -384,10 +551,12 @@ class PagedServeStep:
     decode: Callable
     scatter: Callable
     positions: Callable
+    rank: Optional[ServeRank] = None
 
 
 def make_paged_serve_step(model: Model, plan: Plan, *, slots: int,
-                          max_len: int, page_size: int) -> PagedServeStep:
+                          max_len: int, page_size: int, mesh=None
+                          ) -> PagedServeStep:
     """One-token decode for the continuous-batching engine (the reference's
     ``make_paged_serve_step``): every paged leaf (``serving/pages.py``) is a
     pool ``(lead, slots·npp + 1, page_size, *tail)`` whose last page is the
@@ -404,14 +573,36 @@ def make_paged_serve_step(model: Model, plan: Plan, *, slots: int,
     its rows into the gathered view, never into a pool.  Inactive slots
     (pos 0, a block-table row all trash) write to the trash page.
     Non-paged leaves (the Mamba2 conv window and SSM state, ``pos``) pass
-    through whole, the former written in place by the decode."""
+    through whole, the former written in place by the decode.
+
+    ``mesh``: this rank of a plan at dp = 1 whose cache tp splits on the
+    kv heads or not at all: every tp rank runs the same schedule and
+    block table over pools of its kv heads.  dp > 1, or a layout that
+    splits the KV sequence, raises: a page would hold positions of several
+    ranks (ROADMAP.md, queue A: serving)."""
     from repro_torch.serving.pages import (classify_cache_tree, map_leaves,
                                            tree_get)
     if max_len % page_size:
         raise ValueError(f"page_size {page_size} must divide max_len "
                          f"{max_len}")
     npp = max_len // page_size
-    ec = serve_exec_cfg(plan)
+    sr = None
+    if mesh is None:
+        ec = serve_exec_cfg(plan)
+    else:
+        sr = serve_rank(model, plan, mesh, slots, max_len)
+        if sr.ec.kv_split is not None:
+            raise NotImplementedError(
+                "the continuous-batching engine on a cache whose KV "
+                f"sequence is split over {sr.ec.kv_split.axis!r}: a page "
+                "would hold positions of several ranks (ROADMAP.md, queue "
+                "A: serving)")
+        if sr.sizes["data"] > 1:
+            raise NotImplementedError(
+                f"the continuous-batching engine at dp {sr.sizes['data']}: "
+                "the port's engine serves at dp = 1 (one schedule for every "
+                "rank; ROADMAP.md, queue A: serving)")
+        ec = sr.ec
     specs = classify_cache_tree(model.cfg, slots, max_len,
                                 plan.kv_cache_dtype)
     pos_spec = next(sp for sp in specs if sp.is_pos)
@@ -465,5 +656,5 @@ def make_paged_serve_step(model: Model, plan: Plan, *, slots: int,
         return logits, scatter(state, dense, block_table, pos)
 
     return PagedServeStep(fn=step, exec_cfg=ec, gather=gather, decode=decode,
-                          scatter=scatter, positions=positions)
+                          scatter=scatter, positions=positions, rank=sr)
 

@@ -138,7 +138,8 @@ def test_unported_serve_modes_exit(flag, capsys):
 def test_only_dense_single_device_plans(no_cuda):
     """Dense and MoE decoders build, other families and MLA refuse;
     training takes plans on exactly S · dp · tp ranks, serving
-    single-stage plans on one device; each refusal names ROADMAP.md."""
+    single-stage plans on exactly dp · tp ranks; each refusal names
+    ROADMAP.md."""
     cfg = get_arch("granite-3-8b").reduced()
     moe = build_model(get_arch("qwen2-moe-a2.7b").reduced(), "cpu")
     params, _ = moe.init(torch.Generator().manual_seed(0), torch.float32)
@@ -154,9 +155,12 @@ def test_only_dense_single_device_plans(no_cuda):
         check_train_plan(plan, dp * tp)
         with pytest.raises(ValueError, match="ROADMAP"):
             check_train_plan(plan, dp * tp + 1)
+        check_serve_plan(plan, dp * tp)
         if (dp, tp) != (1, 1):
             with pytest.raises(ValueError, match="ROADMAP"):
-                check_serve_plan(plan)
+                check_serve_plan(plan)      # on one device
+        with pytest.raises(ValueError, match="ROADMAP"):
+            check_serve_plan(plan, dp * tp + 1)
     check_serve_plan(single_stage_plan(4, dp=1, tp=1, micro_batch=1,
                                        grad_accum=1))
     two = single_stage_plan(4, dp=1, tp=1, micro_batch=1, grad_accum=1)

@@ -227,7 +227,7 @@ def test_pipeline_mesh_needs_a_stage_axis_of_its_size():
 def test_abstract_lowering_is_not_an_execution_guard():
     """Lowering reaches any mesh; training executes a plan on exactly
     S · dp · tp ranks (a pipelined one through parallel/pipeline.py),
-    serving on one device."""
+    serving one stage on exactly dp · tp ranks."""
     plan = single_stage_plan(4, dp=4, tp=2, micro_batch=1, grad_accum=1)
     low = lower_plan(get_arch("granite-3-8b").reduced(), None, plan,
                      plan_mesh(plan))
@@ -237,7 +237,8 @@ def test_abstract_lowering_is_not_an_execution_guard():
     for world in (1, 4):
         with pytest.raises(ValueError, match="world has"):
             check_train_plan(plan, world)
-    with pytest.raises(ValueError, match="serves with dp = tp = 1"):
+    check_serve_plan(plan, 8)
+    with pytest.raises(ValueError, match="world has 1"):
         check_serve_plan(plan)
     piped = Plan(grad_accum=1, stages=(_stage(2), _stage(2)))
     check_train_plan(piped, 2)

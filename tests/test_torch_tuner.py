@@ -20,6 +20,9 @@ code, and the port copies the reference's arithmetic in the same order.
   4096 / batch 2 and 40 do not; ``train --tune`` prints the reference's
   plan for the same hardware; ``serve --tune`` serves with a dp = tp = 1
   plan; what is not ported raises.
+- qwen2-72b: its config and reduced form are the reference's, and the
+  serve tuner gives the reference's plan at 1, 2, 4 and 8 devices of the
+  V5E values and of the H100 (none on 1 or 2 H100s, tp 4 on 4).
 
 The reference's runs sit in module-scoped fixtures.
 """
@@ -56,7 +59,7 @@ from repro_torch.launch import train as train_launch
 from repro_torch.lowering import cache_layout as TCL
 from repro_torch.lowering import state_layout as TSL
 
-ARCHS = ("granite-3-8b", "qwen2-moe-a2.7b", "zamba2-2.7b")
+ARCHS = ("granite-3-8b", "qwen2-72b", "qwen2-moe-a2.7b", "zamba2-2.7b")
 # the reference's hardware, as a port spec: the golden fixtures and the
 # test_system plan were tuned for it
 V5E_VALUES = HardwareSpec(**dataclasses.asdict(V5E))
@@ -510,6 +513,54 @@ def test_unported_tuner_options_raise():
 
 def _json_after(out: str) -> str:
     return out[out.index("{"):out.rindex("}") + 1]
+
+
+# qwen2-72b served: batch 4 at max_len 1056, contiguous or pages of 16
+Q72_SERVE = dict(seq_len=1056, global_batch=4, space="serve",
+                 page_grid=(0, 16))
+
+
+def test_qwen2_72b_config_and_its_reduced_form_are_the_reference_s():
+    for cfg, ref in ((get_arch("qwen2-72b"), jax_get_arch("qwen2-72b")),
+                     (get_arch("qwen2-72b").reduced(),
+                      jax_get_arch("qwen2-72b").reduced())):
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert TCP.param_count(get_arch("qwen2-72b")) == \
+        JCP.param_count(jax_get_arch("qwen2-72b"))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_qwen2_72b_serve_plan_matches_the_reference(n):
+    """The serve tuner for qwen2-72b on ``n`` devices of the reference's
+    V5E values: the plan and its objective are the reference's, or neither
+    finds one."""
+    rep = MistTuner(TuneSpec(arch=get_arch("qwen2-72b"), n_devices=n,
+                             **Q72_SERVE), hw=V5E_VALUES).tune()
+    ref = JMistTuner(JTuneSpec(arch=jax_get_arch("qwen2-72b"), n_devices=n,
+                               **Q72_SERVE)).tune()
+    assert rep.infeasible is ref.infeasible
+    if ref.plan is not None:
+        assert rep.plan.to_json() == ref.plan.to_json()
+        assert rep.objective == ref.objective
+
+
+def test_qwen2_72b_serve_plans_on_h100s():
+    """On H100s (the reference's tuner given the port's spec agrees): no
+    plan on 1 or 2 cards, tp 4 on 4 (the plan chip_smoke.py's phase V
+    serves a rank of), dp 2 x tp 4 on 8."""
+    want = {1: None, 2: None, 4: (1, 4), 8: (2, 4)}
+    for n, shape in want.items():
+        rep = MistTuner(TuneSpec(arch=get_arch("qwen2-72b"), n_devices=n,
+                                 **Q72_SERVE)).tune()
+        ref = JMistTuner(JTuneSpec(arch=jax_get_arch("qwen2-72b"),
+                                   n_devices=n, **Q72_SERVE),
+                         hw=H100_AS_REF).tune()
+        got = None if rep.plan is None else \
+            (rep.plan.stages[0].dp, rep.plan.stages[0].tp)
+        assert got == shape, n
+        assert (ref.plan is None) is (rep.plan is None)
+        if ref.plan is not None:
+            assert rep.plan.to_json() == ref.plan.to_json()
 
 
 def test_train_launcher_tunes_as_the_reference(capsys):
